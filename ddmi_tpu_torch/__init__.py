@@ -1,0 +1,17 @@
+"""DDMI on PyTorch + CUDA: the port of `ddmi_tpu` to an NVIDIA Hopper card.
+
+The package mirrors `ddmi_tpu/`'s layout (`nn/unet.py` <-> `nn/unet.py`, ...)
+so each module sits where its JAX counterpart does.  Modules take the
+reference PyTorch repo's `state_dict` names and layouts (NCHW convolutions,
+head-major ADM `qkv`), so `ddmi_tpu/interop/reference_ckpt.py` maps a port
+`state_dict` onto the JAX parameter tree and `interop.py` maps it back.
+
+Plain tensor code is PyTorch; the two TPU kernels on the image-generation
+path are hand-written CUDA C++ for `sm_90a` (`csrc/`), built with `nvcc` on
+first use (`ops/build.py`).  On a CPU tensor each kernel wrapper runs its
+plain PyTorch version instead.
+
+This package never imports JAX.
+"""
+
+__version__ = "0.1.0"

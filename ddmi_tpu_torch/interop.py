@@ -1,0 +1,208 @@
+"""Weight bridge: JAX parameter trees (numpy arrays) -> port `state_dict`s.
+
+The exact inverse of the image-path converters in
+ddmi_tpu/interop/reference_ckpt.py (`convert_unet`, the decoder half of
+`convert_vae`, `convert_mlp_image`).  The port's modules use the reference
+PyTorch layouts, so every map here is a transpose, reshape or channel
+permutation and the round trip is bit-exact:
+
+  * Flax Conv (kh, kw, I, O)   -> Conv2d (O, I, kh, kw)
+  * Flax 1x1 Conv (1, 1, I, O) -> Conv1d (O, I, 1)        [ADM attention]
+  * Flax Dense (I, O)          -> Linear (O, I)
+  * GroupNorm scale / bias     -> weight / bias
+  * ModulatedConv (k, k, I, O) -> (1, O, I, k, k)
+  * ADM qkv: qkv-major output channels -> head-major (QKVAttentionLegacy)
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ddmi_tpu_torch.nn.unet import qkv_permutation
+
+SD = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a))
+
+
+def _conv(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+def _conv1d(sd: SD, key: str, kernel, bias) -> None:
+    sd[key + ".weight"] = _t(np.transpose(np.asarray(kernel)[0], (2, 1, 0)))
+    sd[key + ".bias"] = _t(bias)
+
+
+def _dense(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(np.transpose(p["kernel"]))
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+def _gn(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(p["scale"])
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+# ------------------------------------------------------------------- UNet
+
+
+def _heads(ch: int, cfg) -> int:
+    if cfg.num_head_channels != -1:
+        return max(1, ch // cfg.num_head_channels)
+    return max(1, cfg.num_heads)
+
+
+def _adm_resblock(sd: SD, key: str, p) -> None:
+    _gn(sd, key + ".in_layers.0", p["norm_in"])
+    _conv(sd, key + ".in_layers.2", p["conv_in"])
+    _dense(sd, key + ".emb_layers.1", p["emb_proj"])
+    _gn(sd, key + ".out_layers.0", p["norm_out"])
+    _conv(sd, key + ".out_layers.3", p["conv_out"])
+    if "skip" in p:
+        _conv(sd, key + ".skip_connection", p["skip"])
+
+
+def _adm_attn(sd: SD, key: str, p, num_heads: int) -> None:
+    C = np.asarray(p["qkv"]["kernel"]).shape[2]
+    inv = np.argsort(qkv_permutation(num_heads, C // num_heads))
+    _gn(sd, key + ".norm", p["norm"])
+    _conv1d(sd, key + ".qkv", np.asarray(p["qkv"]["kernel"])[..., inv],
+            np.asarray(p["qkv"]["bias"])[inv])
+    _conv1d(sd, key + ".proj_out", p["proj_out"]["kernel"], p["proj_out"]["bias"])
+
+
+def unet_from_jax(tree, cfg) -> SD:
+    """JAX UNet params (nn/unet.py) -> port UNet state_dict (walks the same
+    ADM block layout as reference_ckpt.convert_unet)."""
+    sd: SD = {}
+    _dense(sd, "time_embed.0", tree["time_dense1"])
+    _dense(sd, "time_embed.2", tree["time_dense2"])
+    _conv(sd, "input_blocks.0.0", tree["conv_in"])
+    mc = cfg.model_channels
+    idx, ds, ch = 1, 1, mc
+    for level, mult in enumerate(cfg.channel_mult):
+        for i in range(cfg.num_res_blocks):
+            key = f"input_blocks.{idx}"
+            _adm_resblock(sd, key + ".0", tree[f"down_{level}_{i}"])
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                _adm_attn(sd, key + ".1", tree[f"down_attn_{level}_{i}"], _heads(ch, cfg))
+            idx += 1
+        if level != len(cfg.channel_mult) - 1:
+            _conv(sd, f"input_blocks.{idx}.0.op", tree[f"downsample_{level}"]["Conv_0"])
+            idx += 1
+            ds *= 2
+    _adm_resblock(sd, "middle_block.0", tree["mid_block1"])
+    _adm_attn(sd, "middle_block.1", tree["mid_attn"], _heads(ch, cfg))
+    _adm_resblock(sd, "middle_block.2", tree["mid_block2"])
+    idx = 0
+    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            key = f"output_blocks.{idx}"
+            _adm_resblock(sd, key + ".0", tree[f"up_{level}_{i}"])
+            ch = mult * mc
+            sub = 1
+            if ds in cfg.attention_resolutions:
+                _adm_attn(sd, f"{key}.{sub}", tree[f"up_attn_{level}_{i}"], _heads(ch, cfg))
+                sub += 1
+            if level != 0 and i == cfg.num_res_blocks:
+                _conv(sd, f"{key}.{sub}.conv", tree[f"upsample_{level}"]["Conv_0"])
+                ds //= 2
+            idx += 1
+    _gn(sd, "out.0", tree["norm_out"])
+    _conv(sd, "out.2", tree["conv_out"])
+    return sd
+
+
+# ------------------------------------------------------------ VAE decoder
+
+
+def _vae_resnet(sd: SD, key: str, p) -> None:
+    _gn(sd, key + ".norm1", p["Norm_0"]["GroupNorm_0"])
+    _conv(sd, key + ".conv1", p["Conv_0"])
+    _gn(sd, key + ".norm2", p["Norm_1"]["GroupNorm_0"])
+    _conv(sd, key + ".conv2", p["Conv_1"])
+    if "nin_shortcut" in p:
+        _conv(sd, key + ".nin_shortcut", p["nin_shortcut"])
+
+
+def _vae_attn(sd: SD, key: str, p) -> None:
+    _gn(sd, key + ".norm", p["Norm_0"]["GroupNorm_0"])
+    for name in ("q", "k", "v", "proj_out"):
+        _conv(sd, f"{key}.{name}", p[name])
+
+
+def vae_decoder_from_jax(tree, cfg) -> SD:
+    """JAX Autoencoder params (nn/vae.py) -> state_dict of the port's
+    decode-only Autoencoder (`decoder.*`, `post_quant_conv.*`).  Inverts the
+    decoder half of reference_ckpt.convert_vae; the encoder is not read."""
+    if cfg.attn_type not in ("vanilla", "none"):
+        raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
+    dec = tree["decoder"]
+    sd: SD = {}
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    rb = ab = up = 0
+    n = len(cfg.ch_mult)
+    curr = cfg.resolution // 2 ** (n - 1)
+    _vae_resnet(sd, "decoder.mid.block_1", dec[f"ResnetBlock_{rb}"])
+    rb += 1
+    if cfg.attn_type != "none":
+        _vae_attn(sd, "decoder.mid.attn_1", dec[f"AttnBlock_{ab}"])
+        ab += 1
+    _vae_resnet(sd, "decoder.mid.block_2", dec[f"ResnetBlock_{rb}"])
+    rb += 1
+    for i in reversed(range(n)):
+        for j in range(cfg.num_res_blocks + 1):
+            _vae_resnet(sd, f"decoder.up.{i}.block.{j}", dec[f"ResnetBlock_{rb}"])
+            rb += 1
+            if curr in cfg.attn_resolutions:
+                _vae_attn(sd, f"decoder.up.{i}.attn.{j}", dec[f"AttnBlock_{ab}"])
+                ab += 1
+        if curr in cfg.hdbf_resolutions:
+            _conv(sd, f"decoder.up.{i}.hdbf.0", dec[f"hdbf_{curr}"])
+        if i != 0:
+            _conv(sd, f"decoder.up.{i}.upsample.conv", dec[f"Upsample_{up}"]["Conv_0"])
+            up += 1
+            curr *= 2
+    _gn(sd, "decoder.norm_out", dec["Norm_0"]["GroupNorm_0"])
+    _conv(sd, "decoder.conv_out", dec["conv_out"])
+    _conv(sd, "post_quant_conv", tree["post_quant_conv"])
+    return sd
+
+
+# -------------------------------------------------------------- INR (MLP)
+
+
+def _modconv(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(np.transpose(p["weight"], (3, 2, 0, 1))[None])
+    sd[key + ".modulation.weight"] = _t(np.transpose(p["modulation"]["weight"]))
+    sd[key + ".modulation.bias"] = _t(p["modulation"]["bias"])
+
+
+def mlp_image_from_jax(tree, cfg) -> SD:
+    """JAX INRImage params (nn/inr.py) -> port INRImage state_dict (the
+    reference MLP's keys); inverts reference_ckpt.convert_mlp_image."""
+    sd: SD = {}
+    _dense(sd, "time_mlp.1", tree["Dense_0"])
+    _dense(sd, "time_mlp.3", tree["Dense_1"])
+    for b in ("net_res1", "net_res2", "net_res3", "net_res4"):
+        blk = tree[b]
+        for c in ("conv1", "conv2", "conv3"):
+            key = f"{b}.{c}"
+            _modconv(sd, key + ".conv", blk[c]["conv"])
+            sd[key + ".noise.weight"] = _t(np.asarray(blk[c]["noise"]["weight"]).reshape(1))
+            sd[key + ".activate.bias"] = _t(blk[c]["act_bias"])
+        if "skip" in blk:
+            w = np.asarray(blk["skip"]["EqualLinear_0"]["weight"])  # (I, O)
+            sd[f"{b}.skip.0.weight"] = _t(np.transpose(w)[:, :, None, None])
+    _modconv(sd, "torgb.conv", tree["torgb"]["conv"])
+    bias = np.asarray(tree["torgb"]["bias"])
+    sd["torgb.bias"] = _t(bias.reshape(1, -1, 1, 1))
+    return sd

@@ -1,0 +1,215 @@
+"""ADM (guided-diffusion) UNet denoiser (counterpart of ddmi_tpu/nn/unet.py).
+
+Module tree and state keys follow the reference `openaimodel.UNetModel`:
+`time_embed.{0,2}`, `input_blocks.*`, `middle_block.*`, `output_blocks.*`,
+`out.{0,2}`; ResBlocks have `in_layers`/`emb_layers`/`out_layers`/
+`skip_connection`; attention has `norm`, a head-major `qkv` Conv1d and
+`proj_out`.  Tensors are NCHW; on CUDA the UNet runs channels-last so that
+the attention kernel's NHWC view of a feature map is free.
+
+Dtype plan (as the JAX UNet's): everything in the parameters' dtype (bf16
+for sampling), GroupNorm statistics in fp32, and the final `out.2` conv in
+fp32 on the fp32 cast of its input and weights.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddmi_tpu_torch.ops import attn_block
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal timestep embedding [cos | sin], fp32."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def qkv_permutation(num_heads: int, head_dim: int) -> np.ndarray:
+    """qkv output channels: qkv-major position j <- head-major channel
+    perm[j] (as ddmi_tpu/interop/reference_ckpt.py::qkv_permutation)."""
+    idx = np.arange(3 * num_heads * head_dim).reshape(num_heads, 3, head_dim)
+    return idx.transpose(1, 0, 2).reshape(-1)
+
+
+class TimestepBlock(nn.Module):
+    """A module whose forward takes the timestep embedding too."""
+
+
+class TimestepEmbedSequential(nn.Sequential):
+    def forward(self, x, emb):
+        for layer in self:
+            x = layer(x, emb) if isinstance(layer, TimestepBlock) else layer(x)
+        return x
+
+
+class ResBlock(TimestepBlock):
+    """Timestep-embedded residual block (GroupNorm eps 1e-5).  Dropout is
+    inactive when sampling; `out_layers.2` keeps its place in the state keys."""
+
+    def __init__(self, channels: int, emb_channels: int, out_channels: int):
+        super().__init__()
+        self.in_layers = nn.Sequential(
+            nn.GroupNorm(32, channels, eps=1e-5), nn.SiLU(),
+            nn.Conv2d(channels, out_channels, 3, padding=1),
+        )
+        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
+        self.out_layers = nn.Sequential(
+            nn.GroupNorm(32, out_channels, eps=1e-5), nn.SiLU(), nn.Identity(),
+            nn.Conv2d(out_channels, out_channels, 3, padding=1),
+        )
+        nn.init.zeros_(self.out_layers[3].weight)
+        nn.init.zeros_(self.out_layers[3].bias)
+        self.skip_connection = (
+            nn.Identity() if channels == out_channels
+            else nn.Conv2d(channels, out_channels, 1)
+        )
+
+    def forward(self, x, emb):
+        h = self.in_layers(x)
+        h = self.out_layers(h + self.emb_layers(emb).to(h.dtype)[:, :, None, None])
+        return self.skip_connection(x) + h
+
+
+class AttentionBlock(nn.Module):
+    """Self-attention over the flattened feature map, as one fused block
+    (ops/attn_block.py): the CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+
+    def __init__(self, channels: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm = nn.GroupNorm(32, channels, eps=1e-5)
+        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
+        self.proj_out = nn.Conv1d(channels, channels, 1)
+        nn.init.zeros_(self.proj_out.weight)
+        nn.init.zeros_(self.proj_out.bias)
+        perm = qkv_permutation(num_heads, channels // num_heads)
+        self.register_buffer("perm", torch.from_numpy(perm), persistent=False)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        nh = self.num_heads
+        if x.is_cuda and not attn_block.supported(H * W, C, nh):
+            # the JAX package sends this shape to mha_vmem, not ported yet
+            raise NotImplementedError(
+                f"attention at n={H * W}, C={C}, heads={nh} needs the mha_vmem "
+                "kernel, which is not ported"
+            )
+        w_qkv = self.qkv.weight[:, :, 0][self.perm].t()   # (C, 3C) qkv-major
+        b_qkv = self.qkv.bias[self.perm]
+        w_proj = self.proj_out.weight[:, :, 0].t()         # (C, C), rows (head, dim)
+        x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+        out = attn_block.fused_attention_block(
+            x_nhwc, self.norm.weight, self.norm.bias, w_qkv, b_qkv, w_proj,
+            self.proj_out.bias, nh, (C // nh) ** -0.5, 32, self.norm.eps,
+        )
+        return out.permute(0, 3, 1, 2)
+
+
+class Downsample(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+def _num_heads(ch: int, cfg) -> int:
+    if cfg.num_head_channels != -1:
+        return max(1, ch // cfg.num_head_channels)
+    return max(1, cfg.num_heads)
+
+
+class UNet(nn.Module):
+    """The denoiser: x (b, c_in, h, w), t (b,) -> (b, c_out, h, w) fp32."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if (cfg.use_spatial_transformer or cfg.num_classes is not None
+                or cfg.use_scale_shift_norm):
+            raise NotImplementedError(
+                "spatial-transformer, class-conditional and scale-shift-norm "
+                "UNets are not ported"
+            )
+        self.cfg = cfg
+        mc = cfg.model_channels
+        ted = mc * 4
+        block = lambda cin, cout: ResBlock(cin, ted, cout)
+        self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
+        self.input_blocks = nn.ModuleList(
+            [TimestepEmbedSequential(nn.Conv2d(cfg.in_channels, mc, 3, padding=1))]
+        )
+        chans = [mc]
+        ch, ds = mc, 1
+        for level, mult in enumerate(cfg.channel_mult):
+            for _ in range(cfg.num_res_blocks):
+                layers = [block(ch, mult * mc)]
+                ch = mult * mc
+                if ds in cfg.attention_resolutions:
+                    layers.append(AttentionBlock(ch, _num_heads(ch, cfg)))
+                self.input_blocks.append(TimestepEmbedSequential(*layers))
+                chans.append(ch)
+            if level != len(cfg.channel_mult) - 1:
+                self.input_blocks.append(TimestepEmbedSequential(Downsample(ch)))
+                chans.append(ch)
+                ds *= 2
+        self.middle_block = TimestepEmbedSequential(
+            block(ch, ch), AttentionBlock(ch, _num_heads(ch, cfg)), block(ch, ch)
+        )
+        self.output_blocks = nn.ModuleList()
+        for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+            for i in range(cfg.num_res_blocks + 1):
+                layers = [block(ch + chans.pop(), mult * mc)]
+                ch = mult * mc
+                if ds in cfg.attention_resolutions:
+                    layers.append(AttentionBlock(ch, _num_heads(ch, cfg)))
+                if level and i == cfg.num_res_blocks:
+                    layers.append(Upsample(ch))
+                    ds //= 2
+                self.output_blocks.append(TimestepEmbedSequential(*layers))
+        self.out = nn.Sequential(
+            nn.GroupNorm(32, ch, eps=1e-5), nn.SiLU(),
+            nn.Conv2d(ch, cfg.out_channels, 3, padding=1),
+        )
+        nn.init.zeros_(self.out[2].weight)
+        nn.init.zeros_(self.out[2].bias)
+
+    def forward(self, x, t):
+        dtype = self.time_embed[0].weight.dtype
+        emb = self.time_embed(timestep_embedding(t, self.cfg.model_channels).to(dtype))
+        h = x.to(dtype)
+        if h.is_cuda:
+            h = h.contiguous(memory_format=torch.channels_last)
+        hs = []
+        for module in self.input_blocks:
+            h = module(h, emb)
+            hs.append(h)
+        h = self.middle_block(h, emb)
+        for module in self.output_blocks:
+            h = module(torch.cat([h, hs.pop()], dim=1), emb)
+        h = self.out[1](self.out[0](h))
+        conv = self.out[2]
+        return F.conv2d(h.float(), conv.weight.float(), conv.bias.float(), padding=1)

@@ -1,0 +1,158 @@
+"""D2C-VAE decoder emitting the HDBF plane pyramid (counterpart of
+ddmi_tpu/nn/vae.py, decode half).
+
+State keys follow the reference `autoencoder_unet` Decoder
+(`decoder.conv_in`, `decoder.mid.{block_1,attn_1,block_2}`,
+`decoder.up.{i}.{block,attn,hdbf,upsample}`, `decoder.norm_out`,
+`decoder.conv_out`) plus the Autoencoder's `post_quant_conv`.  The encoder,
+the linear-attention variant and the posterior wait for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+
+def Norm(channels: int) -> nn.GroupNorm:
+    """GroupNorm(32, eps=1e-6) as used throughout the LDM VAE."""
+    return nn.GroupNorm(32, channels, eps=1e-6)
+
+
+class ResnetBlock(nn.Module):
+    """Two GN-SiLU-conv steps and a residual (dropout is inactive when
+    sampling)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.norm1 = Norm(in_channels)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.norm2 = Norm(out_channels)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.nin_shortcut = (
+            nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+        )
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Single-head spatial self-attention (plain PyTorch: not a TPU kernel in
+    the JAX package).  Scores are taken in the input dtype, softmax in fp32."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.norm = Norm(channels)
+        self.q = nn.Conv2d(channels, channels, 1)
+        self.k = nn.Conv2d(channels, channels, 1)
+        self.v = nn.Conv2d(channels, channels, 1)
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        h = self.norm(x)
+        q = self.q(h).reshape(B, C, H * W).transpose(1, 2)   # (B, n, C)
+        k = self.k(h).reshape(B, C, H * W)                   # (B, C, n)
+        v = self.v(h).reshape(B, C, H * W).transpose(1, 2)   # (B, n, C)
+        s = torch.bmm(q, k).float() * C**-0.5
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        del s
+        out = torch.bmm(p, v).transpose(1, 2).reshape(B, C, H, W)
+        return x + self.proj_out(out)
+
+
+class Upsample(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+def _make_attn(channels: int, attn_type: str):
+    if attn_type == "vanilla":
+        return AttnBlock(channels)
+    if attn_type == "none":
+        return None
+    raise NotImplementedError(f"attn_type {attn_type!r} is not ported")
+
+
+class Decoder(nn.Module):
+    """Upsampling conv decoder -> HDBF planes, coarse to fine: a 1x1 tap at
+    each resolution in `hdbf_resolutions` plus the final 3x3 output conv."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        n = len(cfg.ch_mult)
+        curr = cfg.resolution // 2 ** (n - 1)
+        block_in = cfg.ch * cfg.ch_mult[-1]
+        self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
+        self.mid = nn.Module()
+        self.mid.block_1 = ResnetBlock(block_in, block_in)
+        self.mid.attn_1 = _make_attn(block_in, cfg.attn_type)
+        self.mid.block_2 = ResnetBlock(block_in, block_in)
+        levels = {}
+        for i in reversed(range(n)):
+            lvl = nn.Module()
+            block_out = cfg.ch * cfg.ch_mult[i]
+            lvl.block = nn.ModuleList()
+            lvl.attn = nn.ModuleList()
+            for _ in range(cfg.num_res_blocks + 1):
+                lvl.block.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if curr in cfg.attn_resolutions:
+                    lvl.attn.append(_make_attn(block_in, cfg.attn_type))
+            lvl.hdbf = (
+                nn.Sequential(nn.Conv2d(block_in, cfg.out_ch, 1))
+                if curr in cfg.hdbf_resolutions else None
+            )
+            lvl.upsample = Upsample(block_in) if i != 0 else None
+            if i != 0:
+                curr *= 2
+            levels[i] = lvl
+        self.up = nn.ModuleList([levels[i] for i in range(n)])
+        self.norm_out = Norm(block_in)
+        self.conv_out = nn.Conv2d(block_in, cfg.out_ch, 3, padding=1)
+
+    def forward(self, z) -> List[torch.Tensor]:
+        hdbf = []
+        h = self.mid.block_1(self.conv_in(z))
+        if self.mid.attn_1 is not None:
+            h = self.mid.attn_1(h)
+        h = self.mid.block_2(h)
+        for i in reversed(range(len(self.up))):
+            lvl = self.up[i]
+            for j, blk in enumerate(lvl.block):
+                h = blk(h)
+                if len(lvl.attn):
+                    h = lvl.attn[j](h)
+            if lvl.hdbf is not None:
+                hdbf.append(lvl.hdbf(h))
+            if lvl.upsample is not None:
+                h = lvl.upsample(h)
+        hdbf.append(self.conv_out(F.silu(self.norm_out(h))))
+        return hdbf
+
+
+class Autoencoder(nn.Module):
+    """The decode half of the reference Autoencoder: post_quant_conv, then
+    the HDBF decoder."""
+
+    def __init__(self, cfg, embed_dim: int = 64):
+        super().__init__()
+        self.decoder = Decoder(cfg)
+        self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
+
+    def decode(self, z) -> List[torch.Tensor]:
+        return self.decoder(self.post_quant_conv(z))

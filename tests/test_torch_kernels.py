@@ -1,0 +1,125 @@
+"""The port's two kernels: their plain PyTorch versions (what a wrapper runs
+on a CPU tensor) against the JAX package's Pallas kernels in interpret mode
+and against the JAX reference paths, on the same numpy-made inputs.  The
+CUDA kernels themselves are tested on the card in tests/test_torch_cuda.py.
+
+Tolerance for fp32 parity: max|diff| <= 1e-4 * max(1, max|ref|), because the
+two frameworks sum in different orders.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ddmi_tpu.core.config import MLPConfig
+from ddmi_tpu.nn.inr import INRImage
+from ddmi_tpu.ops.pallas import inr_decode as jax_inr
+from ddmi_tpu.ops.pallas.attn_block import _dense_block_ref, fused_attention_block
+from ddmi_tpu.ops.resample import pixel_center_lin
+from ddmi_tpu_torch.interop import mlp_image_from_jax
+from ddmi_tpu_torch.nn.inr import INRImage as TorchINR
+from ddmi_tpu_torch.ops import attn_block, inr_decode
+from ddmi_tpu_torch.ops.resample import pixel_center_lin as torch_lin
+
+torch.set_num_threads(1)
+
+
+def _close(got, ref, what=""):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    tol = 1e-4 * max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(got - ref).max())
+    assert err <= tol, (what, err, tol)
+
+
+def _attn_args(seed, B, H, W, C):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return (
+        f(B, H, W, C), 1.0 + 0.1 * f(C), 0.1 * f(C), f(C, 3 * C) / np.sqrt(C),
+        0.1 * f(3 * C), f(C, C) / np.sqrt(C), 0.1 * f(C),
+    )
+
+
+@pytest.mark.parametrize(
+    "B,H,W,C,nh",
+    [
+        (2, 32, 32, 128, 4),   # n = 1024: the JAX kernel's hc = 1 regime
+        (2, 16, 16, 128, 4),   # n = 256: hc = 4
+        (1, 8, 8, 256, 8),     # n = 64: hc = 8
+        (1, 16, 16, 256, 8),   # n = 256, two head chunks
+    ],
+)
+def test_attention_block_plain_matches_jax(B, H, W, C, nh):
+    args = _attn_args(0, B, H, W, C)
+    scale = (C // nh) ** -0.5
+    got = attn_block.fused_attention_block(*map(torch.from_numpy, args), nh, scale)
+    jargs = [jnp.asarray(a) for a in args]
+    pallas = fused_attention_block(*jargs, nh, scale, 32, 1e-5, True)
+    _close(got, pallas, "vs pallas interpret")
+    _close(got, _dense_block_ref(*jargs, nh, scale), "vs dense ref")
+
+
+CH, LATENT, RES = 64, 16, 16
+
+
+def _inr_params():
+    cfg = MLPConfig(in_ch=2, out_ch=3, ch=CH, latent_dim=LATENT)
+    hdbf = [jnp.zeros((1, r, r, LATENT)) for r in (8, 16, 32)]
+    p = INRImage(cfg).init(
+        {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 16, 2)), hdbf, 1.0,
+    )["params"]
+    # biases are zero at init: randomise them so parity is not vacuous;
+    # noise gains stay 0 so both sides are deterministic
+    rng = np.random.default_rng(7)
+
+    def jiggle(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = jiggle(v)
+            elif k in ("act_bias", "bias"):
+                out[k] = (0.1 * rng.standard_normal(np.shape(v))).astype(np.float32)
+            else:
+                out[k] = np.asarray(v)
+        return out
+
+    p = jiggle(p)
+    m = TorchINR(cfg)
+    m.load_state_dict(mlp_image_from_jax(p, cfg))
+    return cfg, p, m
+
+
+def test_inr_decode_plain_matches_jax():
+    cfg, p, m = _inr_params()
+    rng = np.random.default_rng(3)
+    planes = [rng.standard_normal((2, r, r, LATENT)).astype(np.float32) for r in (8, 16, 32)]
+    si = 0.7
+    got = inr_decode.render_tokens_fused(
+        m, [torch.from_numpy(a).permute(0, 3, 1, 2) for a in planes], RES, si, 0
+    )
+    jplanes = [jnp.asarray(a) for a in planes]
+    pallas = jax_inr.render_tokens_fused(
+        p, jplanes, RES, si, seed=0, ch=CH, tile=256, interpret=True
+    )
+    _close(got, pallas, "vs pallas interpret")
+    lin = pixel_center_lin(RES)
+    ref = INRImage(cfg).apply(
+        {"params": p}, None, jplanes, si, grid_1d=(lin, lin),
+        rngs={"noise": jax.random.PRNGKey(5)},
+    )
+    _close(got, ref, "vs INRImage")
+    # and the port's own unfused INRImage module
+    tl = torch_lin(RES)
+    mod = m([torch.from_numpy(a).permute(0, 3, 1, 2) for a in planes], si, grid_1d=(tl, tl))
+    _close(got, mod.detach(), "vs port INRImage")
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper takes the plain path only for a CPU tensor."""
+    x = torch.zeros((1, 8, 8, 64), device="meta")
+    with pytest.raises(ValueError):
+        attn_block.fused_attention_block(x, *([x] * 6), 2, 0.1)
