@@ -6,17 +6,33 @@
 Phases, each of which ends the run with a non-zero exit on failure:
   1. device: name, count, `nvidia-smi` name and power limit; no CUDA device
      means exit 3 (there is no CPU fallback);
-  2. build: both CUDA kernels from ddmi_tpu_torch/csrc with nvcc (sm_90a),
-     with the ptxas register / shared-memory report;
-  3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes, with seeded inputs, and timed against it with CUDA events;
-  4. slice: the image SamplerService on configs/ldm/celebahq.yaml at full
-     width (seeded weights, zero-init layers perturbed, bf16, batch 8,
+  2. build: the three CUDA libraries from ddmi_tpu_torch/csrc with nvcc
+     (sm_90a), one nvcc each, all at once, with the ptxas register report;
+  3. image kernels: attn_block and inr_decode against their plain PyTorch
+     versions at celebahq's shapes, timed against them with CUDA events;
+  4. image slice: the image SamplerService on configs/ldm/celebahq.yaml at
+     full width (seeded weights, zero-init layers perturbed, bf16, batch 8,
      256^2, NFE 100) answers concurrent requests that coalesce into one
-     batch plus a repeat of a seed; the kernels' launch counters show the
-     batches went through both kernels;
-  5. reference: the same slice code at a small config, bf16 with the kernels
-     on the GPU against fp32 plain versions on the CPU, same weights/noise.
+     batch plus a repeat of a seed; the launch counters show the batches
+     went through both kernels;
+  5. image breakdown and reference: one UNet forward, the decode and the
+     render timed, a profile of the forward; the slice at a small config,
+     bf16 with the kernels on the GPU against fp32 plain versions on the CPU;
+  6. video slice: the video SamplerService on configs/ldm/skytimelapse.yaml
+     with the stage-1 decoder and INR of configs/d2c-vae/skytimelapse.yaml
+     at full width (bf16, batch 2, 16 x 256^2, NFE 200): two concurrent
+     requests coalesce into one batch, a repeat of a seed is bit-identical,
+     and the launch counters of attn_block, mha_vmem and flash_attention
+     match the per-batch counts exactly;
+  7. video breakdown: one TriplaneUNet forward, the decode and the render
+     timed, a profile of the forward, and the shapes each attention kernel
+     is called at;
+  8. video kernels: attn_block, mha_vmem and flash_attention against their
+     plain versions at every one of those shapes, each also timed against
+     torch's scaled_dot_product_attention where one call computes the same;
+  9. video reference: a small video config, bf16 with the kernels on the GPU
+     against fp32 plain versions on the CPU, that goes through all three
+     attention kernels.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -25,6 +41,8 @@ package.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,15 +54,33 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NFE = 100
 BATCH = 8
 RESOLUTION = 256
-# kernel 1 against its fp32 plain version (the JAX bf16 bar)
+VIDEO_BATCH = 2
+VIDEO_NFE = 200
+# H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# attn_block against its fp32 plain version (the JAX bf16 bar)
 ATTN_MAX_ERR, ATTN_MIN_CORR = 0.031, 0.99999
-# kernel 2: bf16 activations between 13 matmuls
+# mha_vmem / flash_attention against their fp32 plain versions: bf16
+# rounding of q * scale (mha_vmem), of the probabilities and of the output
+MHA_REL_ERR, MHA_MIN_CORR = 0.02, 0.9999
+# inr_decode: bf16 activations between 13 matmuls
 INR_REL_MEAN_ERR = 0.02
-# step 5: bf16 + kernels vs fp32 plain, 4 DDIM steps, pixels in [0, 1]
+# references: bf16 + kernels vs fp32 plain, 4 DDIM steps, pixels in [0, 1]
 REF_MEAN_ERR, REF_MAX_ERR = 0.02, 0.25
 # celebahq attention blocks per UNet forward by (H, C, heads): 5 at 32x32,
 # 5 at 16x16, 6 at 8x8
 ATTN_SHAPES = [((32, 512, 16), 5), ((16, 1024, 32), 5), ((8, 2048, 64), 6)]
+# skytimelapse per batch (from ddmi_tpu_torch/nn/unet_triplane.py and
+# nn/video_vae.py, confirmed by the launch counters): 32 fused blocks, 18
+# mha_vmem and 6 flash attentions per UNet forward, 2 flash in the decode
+VIDEO_LAUNCHES = {"attn_block": 32 * VIDEO_NFE, "mha_vmem": 18 * VIDEO_NFE,
+                  "flash_attention": 6 * VIDEO_NFE + 2}
+KERNELS = {
+    "attn_block": ("ddmi_tpu_torch/csrc/attn_block.cu", "ddmi_tpu/ops/pallas/attn_block.py:199"),
+    "inr_decode": ("ddmi_tpu_torch/csrc/inr_decode.cu", "ddmi_tpu/ops/pallas/inr_decode.py:307"),
+    "mha_vmem": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/ops/pallas/attention.py:100"),
+    "flash_attention": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/nn/attention1d.py:77"),
+}
 
 
 def log(msg: str) -> None:
@@ -58,12 +94,20 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int = 0) -> float:
+    """Mean device time of fn() over `reps` calls (0: enough calls for
+    about 0.3 s), after two warm-up calls."""
     import torch
 
     fn()
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if not reps:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        reps = int(min(50, max(2, 300.0 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -72,13 +116,64 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def paired_ms(kernel, plain, reps: int):
+def paired_ms(kernel, plain, reps: int = 0):
     """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
     p1 = cuda_ms(plain, reps)
     k1 = cuda_ms(kernel, reps)
     k2 = cuda_ms(kernel, reps)
     p2 = cuda_ms(plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, what bounds it): the least time the card could take for work of
+    `flops` bf16 operations moving `nbytes` bytes."""
+    t_op, t_mem = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_op, t_mem), ("operations" if t_op >= t_mem else "bytes")
+
+
+class Ledger:
+    """Per kernel, the time of one service batch's calls on each path: the
+    sum over the shapes the path calls it at of (calls per batch x time per
+    call), for the kernel, its plain version, the library call and the
+    bound."""
+
+    def __init__(self):
+        self.rows = collections.defaultdict(lambda: {
+            "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+            "t_op": 0.0, "t_mem": 0.0, "max_abs_err": 0.0, "by_path": {}})
+
+    def add(self, name, path, calls, kms, pms, lms, flops, nbytes, err):
+        r = self.rows[name]
+        bms, _ = bound(flops, nbytes)
+        for key, val in (("ms", kms), ("plain_ms", pms), ("bound_ms", bms)):
+            r[key] += calls * val
+        if lms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + calls * lms
+        r["t_op"] += calls * flops / PEAK_FLOPS
+        r["t_mem"] += calls * nbytes / PEAK_BYTES
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        p = r["by_path"].setdefault(path, {"calls_per_batch": 0, "ms": 0.0, "plain_ms": 0.0,
+                                           "bound_ms": 0.0, "library_ms": None})
+        p["calls_per_batch"] += calls
+        p["ms"] += calls * kms
+        p["plain_ms"] += calls * pms
+        p["bound_ms"] += calls * bms
+        if lms is not None:
+            p["library_ms"] = (p["library_ms"] or 0.0) + calls * lms
+
+    def entry(self, name, launches):
+        r = self.rows[name]
+        src, replaces = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": "operations" if r["t_op"] >= r["t_mem"] else "bytes",
+                "library_ms": r["library_ms"], "per": "service batch",
+                "by_path": r["by_path"]}
+
+
+LEDGER = Ledger()
 
 
 def perturb_zero_init(module, seed: int, noise: bool = True) -> None:
@@ -98,44 +193,99 @@ def perturb_zero_init(module, seed: int, noise: bool = True) -> None:
                 p.copy_(torch.randn(p.shape, generator=g, device=dev) * std)
 
 
-def kernel_phase(torch, dev):
+def reset_launches():
+    from ddmi_tpu_torch.ops import attention, attn_block, flash_attention, inr_decode
+
+    fns = {"attn_block": attn_block.fused_attention_block,
+           "inr_decode": inr_decode.inr_decode_fused,
+           "mha_vmem": attention.mha_vmem,
+           "flash_attention": flash_attention.flash_attention}
+    for fn in fns.values():
+        fn.launches = 0
+    return lambda: {k: fn.launches for k, fn in fns.items()}
+
+
+def attn_block_case(torch, dev, path, calls, B, H, W, C, nh, seed):
+    """attn_block at one shape against its plain version; adds to LEDGER."""
+    from ddmi_tpu_torch.ops import attn_block
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    x = rnd(B, H, W, C).bfloat16()
+    gs, gb = 1 + 0.1 * rnd(C), 0.1 * rnd(C)
+    wq, bq = (rnd(C, 3 * C) / C**0.5).bfloat16(), 0.1 * rnd(3 * C)
+    wp, bp = (rnd(C, C) / C**0.5).bfloat16(), 0.1 * rnd(C)
+    s = (C // nh) ** -0.5
+    kern = lambda: attn_block.fused_attention_block(x, gs, gb, wq, bq, wp, bp, nh, s)
+    plain = lambda: attn_block.attention_block_plain(
+        x.float(), gs, gb, wq.float(), bq, wp.float(), bp, nh, s)
+    out, ref = kern().float(), plain()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[0, 1].item()
+    kms, pms = paired_ms(kern, plain)
+    n = H * W
+    flops = 8 * B * n * C * C + 4 * B * n * n * C
+    nbytes = 2 * x.numel() * 2 + (4 * C * C) * 2 + (4 * C + 2 * C) * 4
+    bms, by = bound(flops, nbytes)
+    log(f"[kernel] attn_block {path} B={B} n={n} C={C} heads={nh} (x{calls}/batch): "
+        f"max|err| {err:.6f} corr {corr:.8f}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms, "
+        f"library none (no single PyTorch call), bound {bms:.4f} ms ({by})")
+    if not (err <= ATTN_MAX_ERR and corr >= ATTN_MIN_CORR):
+        raise AssertionError(f"attn_block disagrees at n={n}, C={C}: err {err}, corr {corr}")
+    LEDGER.add("attn_block", path, calls, kms, pms, None, flops, nbytes, err)
+
+
+def attention_case(torch, dev, name, calls, B, nh, n, hd, seed):
+    """mha_vmem or flash_attention at one (B, nh, n, hd) against its plain
+    version and torch's scaled_dot_product_attention; adds to LEDGER."""
+    import torch.nn.functional as F
+
+    from ddmi_tpu_torch.ops import attention, flash_attention
+
+    kernel, plain_fn = {
+        "mha_vmem": (attention.mha_vmem, attention.mha_plain),
+        "flash_attention": (flash_attention.flash_attention, flash_attention.flash_plain),
+    }[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, nh, n, hd), generator=g, device=dev).bfloat16() for _ in range(3))
+    s = hd**-0.5
+    kern = lambda: kernel(q, k, v, s)
+    plain = lambda: plain_fn(q, k, v, s)
+    out, ref = kern().float(), plain().float()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[0, 1].item()
+    del out, ref
+    kms, pms = paired_ms(kern, plain)
+    lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=s))
+    flops = 4 * B * nh * n * n * hd
+    nbytes = 4 * q.numel() * 2
+    bms, by = bound(flops, nbytes)
+    log(f"[kernel] {name} B={B} heads={nh} n={n} hd={hd} (x{calls}/batch): max|err| {err:.6f} "
+        f"(/max|ref| {rel:.5f}) corr {corr:.8f}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms, "
+        f"library sdpa {lms:.4f} ms, bound {bms:.4f} ms ({by})")
+    if not (rel <= MHA_REL_ERR and corr >= MHA_MIN_CORR):
+        raise AssertionError(f"{name} disagrees at n={n}, hd={hd}: rel {rel}, corr {corr}")
+    LEDGER.add(name, "video", calls, kms, pms, lms, flops, nbytes, err)
+
+
+def image_kernel_phase(torch, dev):
     from ddmi_tpu_torch.core.config import MLPConfig
     from ddmi_tpu_torch.nn.inr import INRImage
-    from ddmi_tpu_torch.ops import attn_block, inr_decode
+    from ddmi_tpu_torch.ops import inr_decode
+
+    for i, ((H, C, nh), per_forward) in enumerate(ATTN_SHAPES):
+        attn_block_case(torch, dev, "image", per_forward * NFE, BATCH, H, H, C, nh, i)
 
     g = torch.Generator(device=dev).manual_seed(0)
-    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
-
-    worst, k_fwd, p_fwd = 0.0, 0.0, 0.0
-    for (H, C, nh), per_forward in ATTN_SHAPES:
-        x = rnd(BATCH, H, H, C).bfloat16()
-        gs, gb = 1 + 0.1 * rnd(C), 0.1 * rnd(C)
-        wq, bq = (rnd(C, 3 * C) / C**0.5).bfloat16(), 0.1 * rnd(3 * C)
-        wp, bp = (rnd(C, C) / C**0.5).bfloat16(), 0.1 * rnd(C)
-        kern = lambda: attn_block.fused_attention_block(x, gs, gb, wq, bq, wp, bp, nh, 32**-0.5)
-        plain = lambda: attn_block.attention_block_plain(
-            x.float(), gs, gb, wq.float(), bq, wp.float(), bp, nh, 32**-0.5)
-        out = kern().float()
-        ref = plain()
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[0, 1].item()
-        kms, pms = paired_ms(kern, plain, 20)
-        log(f"[kernel] attn_block B={BATCH} n={H * H} C={C} heads={nh}: max|err| {err:.6f} "
-            f"corr {corr:.8f}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms")
-        if not (err <= ATTN_MAX_ERR and corr >= ATTN_MIN_CORR):
-            raise AssertionError(f"attn_block disagrees at n={H * H}: err {err}, corr {corr}")
-        worst = max(worst, err)
-        k_fwd += per_forward * kms
-        p_fwd += per_forward * pms
-    log(f"[kernel] attn_block, 16 blocks of one UNet forward: kernel {k_fwd:.4f} ms, "
-        f"plain {p_fwd:.4f} ms")
-    attn = {"max_abs_err": worst, "ms": k_fwd, "plain_ms": p_fwd}
-
     torch.manual_seed(1)
-    mlp = INRImage(MLPConfig(ch=256, latent_dim=64, in_ch=2, out_ch=3)).to(dev)
+    cfg = MLPConfig(ch=256, latent_dim=64, in_ch=2, out_ch=3)
+    mlp = INRImage(cfg).to(dev)
     perturb_zero_init(mlp, 2, noise=False)
-    planes = [rnd(BATCH, 64, r, r).bfloat16() for r in (64, 128, 256)]
+    planes = [torch.randn((BATCH, 64, r, r), generator=g, device=dev).bfloat16()
+              for r in (64, 128, 256)]
     folded = inr_decode.fold_inr_image_params(mlp, 1.0)
     toks = inr_decode.render_tokens(planes, RESOLUTION, 1.0, 2)
     kern = lambda: inr_decode.inr_decode_fused(folded, *toks, 0)
@@ -145,11 +295,21 @@ def kernel_phase(torch, dev):
     err = (out - ref).abs()
     rel = (err.mean() / ref.abs().mean()).item()
     kms, pms = paired_ms(kern, plain, 5)
-    log(f"[kernel] inr_decode N={toks[0].shape[0]} noise 0: max|err| {err.max().item():.6f} "
-        f"mean|err|/mean|ref| {rel:.6f}; kernel {kms:.4f} ms, plain {pms:.4f} ms")
+    N = toks[0].shape[0]
+    ch, in0 = cfg.ch, cfg.latent_dim + cfg.in_ch
+    macs = (2 * in0 * ch + 2 * ch * ch            # net_res1: conv1, skip; conv2, conv3
+            + 2 * (2 * (ch + in0) * ch + 2 * ch * ch)   # net_res2, net_res3
+            + 3 * ch * ch + ch * cfg.out_ch)      # net_res4, torgb
+    nbytes = sum(t.numel() * 2 for t in toks) + out.numel() * 2 + (
+        folded.wa.numel() + folded.wb.numel()) * 2
+    bms, by = bound(2 * N * macs, nbytes)
+    log(f"[kernel] inr_decode N={N} noise 0 (x1/batch): max|err| {err.max().item():.6f} "
+        f"mean|err|/mean|ref| {rel:.6f}; kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+        f"library none (no single PyTorch call), bound {bms:.4f} ms ({by})")
     if not rel < INR_REL_MEAN_ERR:
         raise AssertionError(f"inr_decode disagrees: relative mean error {rel}")
-    inr = {"max_abs_err": err.max().item(), "ms": kms, "plain_ms": pms}
+    LEDGER.add("inr_decode", "image", 1, kms, pms, None, 2 * N * macs, nbytes,
+               err.max().item())
 
     with torch.no_grad():
         folded.noise_w.fill_(0.3)
@@ -162,14 +322,61 @@ def kernel_phase(torch, dev):
         f"other seed differs {differs}")
     if not (finite and same and differs):
         raise AssertionError("inr_decode noise path failed its checks")
-    return attn, inr
 
 
-def slice_phase(torch, dev):
-    import dataclasses
+def serve(torch, dev, svc, requests, tag):
+    """Concurrent requests [(n, seed)] that coalesce into one batch, then a
+    repeat of the batch's first seed.  -> (results, repeat, first seed,
+    [(seed, finite)] per batch, batch seconds, repeat seconds, launches,
+    peak bytes)."""
+    batches = []
+    run = svc._sample
 
+    def recording(noise, seed):
+        out = run(noise, seed)
+        batches.append((seed, bool(torch.isfinite(out).all())))
+        return out
+
+    svc._sample = recording
+    results, errors = {}, []
+
+    def ask(n, seed):
+        try:
+            results[seed] = svc.generate(n, seed=seed, timeout=900)
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    read = reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=ask, args=r) for r in requests]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=1000)
+    t_batch = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"{tag} requests did not finish")
+    first = batches[0][0]
+    n_first = dict((s, n) for n, s in requests)[first]
+    t0 = time.perf_counter()
+    repeat = svc.generate(n_first, seed=first, timeout=900)
+    t_repeat = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    svc._sample = run
+    log(f"[{tag}] batches run: {len(batches)} (first seed, finite): {batches}")
+    same = bool((repeat == results[first][:n_first]).all())
+    log(f"[{tag}] repeat of seed {first} identical: {same}")
+    if len(batches) != 2 or not all(f for _, f in batches) or not same:
+        raise AssertionError(f"{tag} checks failed (coalescing, finiteness or repeat)")
+    return results, t_batch, t_repeat, launches, peak
+
+
+def image_slice_phase(torch, dev):
     from ddmi_tpu_torch.core.config import load_config
-    from ddmi_tpu_torch.ops import attn_block, inr_decode
     from ddmi_tpu_torch.serve.server import SamplerService
 
     cfg = load_config(os.path.join(ROOT, "configs/ldm/celebahq.yaml"))
@@ -182,70 +389,23 @@ def slice_phase(torch, dev):
     n_params = sum(p.numel() for p in svc.pipe.parameters())
     log(f"[slice] celebahq at full width: {n_params} parameters (bf16), set up in "
         f"{time.perf_counter() - t0:.1f} s")
+    requests = [(3, 101), (3, 102), (2, 103)]
     try:
         t0 = time.perf_counter()
         svc.warmup()
         log(f"[slice] warm-up batch {time.perf_counter() - t0:.3f} s")
-
-        batches = []
-        run = svc.pipe.sample_images
-
-        def recording(*args, **kw):
-            out = run(*args, **kw)
-            batches.append((kw["render_seed"], bool(torch.isfinite(out).all())))
-            return out
-
-        svc.pipe.sample_images = recording
-        requests = [(3, 101), (3, 102), (2, 103)]
-        results, errors = {}, []
-
-        def ask(n, seed):
-            try:
-                results[seed] = svc.generate(n, seed=seed, timeout=600)
-            except Exception as e:  # re-raised below, in the main thread
-                errors.append(e)
-
-        attn_block.fused_attention_block.launches = 0
-        inr_decode.inr_decode_fused.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=ask, args=r) for r in requests]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        t_batch = time.perf_counter() - t0
-        if errors:
-            raise errors[0]
-        if any(t.is_alive() for t in threads):
-            raise TimeoutError("requests did not finish")
-        first = batches[0][0]
-        n_first = dict((s, n) for n, s in requests)[first]
-        t0 = time.perf_counter()
-        repeat = svc.generate(n_first, seed=first, timeout=600)
-        t_repeat = time.perf_counter() - t0
-        launches = {
-            "attn_block": attn_block.fused_attention_block.launches,
-            "inr_decode": inr_decode.inr_decode_fused.launches,
-        }
-        peak = torch.cuda.max_memory_allocated(dev)
+        results, t_batch, t_repeat, launches, peak = serve(torch, dev, svc, requests, "slice")
     finally:
         svc.close()
-
-    log(f"[slice] batches run: {len(batches)} (render seed, finite): {batches}")
     for n, seed in requests:
         r = results[seed]
         log(f"[slice] request seed={seed} n={n}: {r.shape} {r.dtype} mean {r.mean():.3f}")
         if r.shape != (n, RESOLUTION, RESOLUTION, 3) or r.dtype.name != "uint8":
             raise AssertionError(f"bad result for seed {seed}: {r.shape} {r.dtype}")
-    same = bool((repeat == results[first]).all())
-    log(f"[slice] repeat of seed {first} identical: {same}")
-    if len(batches) != 2 or not all(f for _, f in batches) or not same:
-        raise AssertionError("slice checks failed (coalescing, finiteness or repeat)")
-    expect = 16 * NFE * len(batches)
-    log(f"[slice] launches over {len(batches)} batches: {launches} (attn_block expected "
-        f"{expect}, inr_decode >= {len(batches)})")
-    if launches["attn_block"] != expect or launches["inr_decode"] < len(batches):
+    expect = 16 * NFE * 2
+    log(f"[slice] launches over 2 batches: {launches} (attn_block expected {expect}, "
+        f"inr_decode >= 2)")
+    if launches["attn_block"] != expect or launches["inr_decode"] < 2:
         raise AssertionError(f"the slice did not go through both kernels: {launches}")
     log(f"[slice] coalesced batch of {BATCH} at {RESOLUTION}^2, NFE {NFE}: "
         f"{t_batch:.3f} s = {BATCH / t_batch:.4f} samples/s; repeat request "
@@ -253,7 +413,27 @@ def slice_phase(torch, dev):
     return launches
 
 
-def breakdown_phase(torch, dev):
+def profile_top(torch, fn, tag, ours):
+    """Device time of one fn() by kernel name; the share of names in `ours`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1000) for e in prof.key_averages()
+                   if e.device_time_total > 0), key=lambda r: -r[1])
+    total = sum(ms for _, ms in rows)
+    if not total:
+        log(f"[{tag}] profiler saw no device time: kernel shares not measured")
+        return
+    mine = sum(ms for k, ms in rows if any(o in k for o in ours))
+    log(f"[{tag}] device time {total:.3f} ms; the port's kernels {mine:.3f} ms "
+        f"({100 * mine / total:.1f}%); top kernels:")
+    for key, ms in rows[:10]:
+        log(f"[{tag}]   {ms:8.3f} ms {100 * ms / total:5.1f}%  {key[:90]}")
+
+
+def image_breakdown_phase(torch, dev):
     """Where the batch time goes: one UNet forward, the decode and the render
     at the main path's shapes (bf16, seeded weights)."""
     from ddmi_tpu_torch.core.config import load_config
@@ -274,26 +454,11 @@ def breakdown_phase(torch, dev):
         ren_ms = cuda_ms(lambda: pipe._render_grid(hdbf, RESOLUTION, 1.0, 0), 3)
     log(f"[breakdown] batch {BATCH}: UNet forward {unet_ms:.3f} ms (x{NFE} per batch = "
         f"{unet_ms * NFE / 1000:.3f} s), decode {dec_ms:.3f} ms, render {ren_ms:.3f} ms")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pipe.unet(x, t)
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.device_time_total / 1000) for e in prof.key_averages()
-                   if e.device_time_total > 0), key=lambda r: -r[1])
-    total = sum(ms for _, ms in rows)
-    if not total:
-        log("[breakdown] profiler saw no device time: kernel shares not measured")
-        return
-    ours = sum(ms for k, ms in rows if "gemm_kernel" in k or "attention_kernel" in k)
-    log(f"[breakdown] one UNet forward, device time {total:.3f} ms; attention-block "
-        f"kernels {ours:.3f} ms ({100 * ours / total:.1f}%); top kernels:")
-    for key, ms in rows[:10]:
-        log(f"[breakdown]   {ms:8.3f} ms {100 * ms / total:5.1f}%  {key[:90]}")
+    profile_top(torch, lambda: pipe.unet(x, t), "breakdown",
+                ("gemm_kernel", "attn_fwd_kernel"))
 
 
-def reference_phase(torch, dev):
+def image_reference_phase(torch, dev):
     """bf16 + kernels on the GPU against fp32 plain versions on the CPU, at a
     small config whose shapes both kernels take."""
     import numpy as np
@@ -329,6 +494,180 @@ def reference_phase(torch, dev):
         raise AssertionError("the GPU slice disagrees with the CPU reference")
 
 
+def video_config():
+    """configs/ldm/skytimelapse.yaml with the stage-1 decoder and INR of
+    configs/d2c-vae/skytimelapse.yaml."""
+    from ddmi_tpu_torch.core.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs/ldm/skytimelapse.yaml"))
+    s1 = load_config(os.path.join(ROOT, "configs/d2c-vae/skytimelapse.yaml"))
+    model = dataclasses.replace(cfg.model, ddconfig=s1.model.ddconfig,
+                                mlpconfig=s1.model.mlpconfig)
+    return dataclasses.replace(cfg, model=model)
+
+
+def video_slice_phase(torch, dev):
+    """The video service at full width; returns (launches, service) with
+    the service still open for the breakdown."""
+    from ddmi_tpu_torch.serve.server import SamplerService
+
+    cfg = video_config()
+    if cfg.model.ddpmconfig.sampling_timesteps != VIDEO_NFE:
+        raise AssertionError("configs/ldm/skytimelapse.yaml no longer samples at NFE 200")
+    t0 = time.perf_counter()
+    svc = SamplerService(cfg, service_batch=VIDEO_BATCH, linger_ms=500, device=dev,
+                         allow_init=True)
+    perturb_zero_init(svc.pipe, 11)
+    pipe = svc.pipe
+    n_params = sum(p.numel() for p in pipe.parameters())
+    log(f"[video] skytimelapse at full width: {n_params} parameters (bf16), "
+        f"{pipe.n_latent_tokens} latent tokens, planes {pipe.unet.cfg.plane_sizes}, "
+        f"{pipe.frames} x {pipe.res}^2, set up in {time.perf_counter() - t0:.1f} s")
+    requests = [(1, 201), (1, 202)]
+    try:
+        t0 = time.perf_counter()
+        svc.warmup()
+        log(f"[video] warm-up batch {time.perf_counter() - t0:.3f} s")
+        results, t_batch, t_repeat, launches, peak = serve(torch, dev, svc, requests, "video")
+    except BaseException:
+        svc.close()
+        raise
+    shape = (1, pipe.frames, pipe.res, pipe.res, 3)
+    for n, seed in requests:
+        r = results[seed]
+        log(f"[video] request seed={seed} n={n}: {r.shape} {r.dtype} mean {r.mean():.3f}")
+        if r.shape != shape or r.dtype.name != "uint8":
+            raise AssertionError(f"bad video for seed {seed}: {r.shape} {r.dtype}")
+    expect = {k: 2 * v for k, v in VIDEO_LAUNCHES.items()}
+    got = {k: launches[k] for k in expect}
+    log(f"[video] launches over 2 batches: {got} (expected {expect}; inr_decode "
+        f"{launches['inr_decode']}, expected 0)")
+    if got != expect or launches["inr_decode"]:
+        raise AssertionError(f"the video slice's launch counts are off: {launches}")
+    log(f"[video] coalesced batch of {VIDEO_BATCH} at {pipe.frames} x {pipe.res}^2, "
+        f"NFE {VIDEO_NFE}: {t_batch:.3f} s = {VIDEO_BATCH / t_batch:.4f} videos/s; repeat "
+        f"request {t_repeat:.3f} s; peak allocated {peak / 2**30:.2f} GiB")
+    return launches, svc
+
+
+def video_breakdown_phase(torch, dev, pipe):
+    """One TriplaneUNet forward, the decode and the render timed at the
+    slice's shapes; a profile of the forward; and the (shape -> calls per
+    batch) of each attention kernel, recorded from one forward and one
+    decode."""
+    from ddmi_tpu_torch.ops import attention, attn_block, flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    B = VIDEO_BATCH
+    C = pipe.cfg.model.ddpmconfig.channels
+    x = torch.randn((B, pipe.n_latent_tokens, C), generator=g, device=dev)
+    t = torch.full((B,), 500, device=dev, dtype=torch.long)
+    with torch.inference_mode():
+        unet_ms = cuda_ms(lambda: pipe.unet(x, t), 5)
+        z = x.to(pipe.vae.post_xy.weight.dtype)
+        dec_ms = cuda_ms(lambda: pipe.vae.decode(z), 3)
+        hdbf = pipe.vae.decode(z)
+        ren_ms = cuda_ms(lambda: [pipe.render(hdbf, f) for f in range(pipe.frames)], 2)
+    log(f"[video-breakdown] batch {B}: TriplaneUNet forward {unet_ms:.3f} ms (x{VIDEO_NFE} "
+        f"per batch = {unet_ms * VIDEO_NFE / 1000:.3f} s), decode {dec_ms:.3f} ms, render "
+        f"({pipe.frames} frames) {ren_ms:.3f} ms")
+    profile_top(torch, lambda: pipe.unet(x, t), "video-breakdown",
+                ("gemm_kernel", "attn_fwd_kernel"))
+
+    shapes = collections.Counter()
+    wrapped = [(attn_block, "fused_attention_block"), (attention, "mha_vmem"),
+               (flash_attention, "flash_attention")]
+    originals = [getattr(mod, name) for mod, name in wrapped]
+
+    def recorder(kind, fn, steps):
+        def call(*args, **kw):
+            a = args[0]
+            if kind == "attn_block":
+                shapes[(kind, tuple(a.shape), args[7])] += steps
+            else:
+                shapes[(kind, tuple(a.shape))] += steps
+            return fn(*args, **kw)
+
+        call.launches = 0  # the wrappers count on the module-level name
+        return call
+
+    with torch.inference_mode():
+        try:
+            for (mod, name), fn, kind in zip(wrapped, originals,
+                                              ("attn_block", "mha_vmem", "flash_attention")):
+                setattr(mod, name, recorder(kind, fn, VIDEO_NFE))
+            pipe.unet(x, t)
+            for (mod, name), fn, kind in zip(wrapped, originals,
+                                              ("attn_block", "mha_vmem", "flash_attention")):
+                setattr(mod, name, recorder(kind, fn, 1))
+            pipe.vae.decode(z)
+        finally:
+            for (mod, name), fn in zip(wrapped, originals):
+                setattr(mod, name, fn)
+    per_batch = collections.Counter()
+    for key, calls in shapes.items():
+        per_batch[key[0]] += calls
+    log(f"[video-breakdown] calls per batch by kernel: {dict(per_batch)}; shapes: "
+        f"{sorted(shapes.items())}")
+    if dict(per_batch) != VIDEO_LAUNCHES:
+        raise AssertionError(f"recorded calls {dict(per_batch)} != {VIDEO_LAUNCHES}")
+    return shapes
+
+
+def video_kernel_phase(torch, dev, shapes):
+    for i, (key, calls) in enumerate(sorted(shapes.items())):
+        if key[0] == "attn_block":
+            (B, H, W, C), nh = key[1], key[2]
+            attn_block_case(torch, dev, "video", calls, B, H, W, C, nh, 100 + i)
+        else:
+            attention_case(torch, dev, key[0], calls, *key[1], 100 + i)
+        torch.cuda.empty_cache()
+
+
+def video_reference_phase(torch, dev):
+    """bf16 + kernels on the GPU against fp32 plain versions on the CPU at a
+    small video config that goes through all three attention kernels: the
+    fused block (UNet ds 2, C 512, hd 64), mha_vmem (the UNet's cross-plane
+    attentions at hd 16/32, the decoder's bottleneck at hd 64) and flash
+    (the decoder's 64^2 level: n = 4096 + 2 * 8 * 64 = 5120, hd 32)."""
+    import numpy as np
+
+    from ddmi_tpu_torch.core.config import config_from_dict
+    from ddmi_tpu_torch.domains.video import VideoPipeline
+
+    cfg = config_from_dict({
+        "model": {"embed_dim": 16, "params": {
+            "unetconfig": dict(in_channels=16, model_channels=256, out_channels=16,
+                               num_res_blocks=1, attention_resolutions=[2],
+                               channel_mult=[1, 2], num_head_channels=64),
+            "ddconfig": dict(resolution=64, z_channels=32, out_ch=16, ch=32,
+                             ch_mult=[1, 1, 2, 2], num_res_blocks=1,
+                             hdbf_resolutions=[16, 32], inter_attn_resolutions=[8, 32, 64],
+                             attn_type="vanilla-multihead"),
+            "mlpconfig": dict(ch=256, latent_dim=16),
+            "ddpmconfig": dict(channels=16, sampling_timesteps=4)}},
+        "data": {"domain": "video", "frames": 8}})
+    cpu = VideoPipeline(cfg, device="cpu", seed=5)
+    perturb_zero_init(cpu, 6)
+    gpu = VideoPipeline(cfg, device=dev, seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cast(torch.bfloat16)
+    noise = np.random.default_rng(8).standard_normal(
+        (2, cpu.n_latent_tokens, 16)).astype(np.float32)
+    ref = cpu.sample_videos(2, noise=torch.from_numpy(noise))
+    read = reset_launches()
+    got = gpu.sample_videos(2, noise=torch.from_numpy(noise).to(dev)).cpu()
+    launches = read()
+    d = (got - ref).abs()
+    log(f"[video-reference] small config, NFE 4: bf16 kernels vs fp32 plain on the CPU: "
+        f"mean|diff| {d.mean().item():.6f}, max|diff| {d.max().item():.6f}, pixel std "
+        f"{ref.std().item():.4f}; launches {launches}")
+    if not all(launches[k] > 0 for k in ("attn_block", "mha_vmem", "flash_attention")):
+        raise AssertionError(f"the video reference missed a kernel: {launches}")
+    if not (d.mean().item() <= REF_MEAN_ERR and d.max().item() <= REF_MAX_ERR):
+        raise AssertionError("the GPU video slice disagrees with the CPU reference")
+
+
 def main() -> int:
     import torch
 
@@ -350,29 +689,36 @@ def main() -> int:
 
     from ddmi_tpu_torch.ops import build
 
-    for name in ("attn_block", "inr_decode"):
-        build.load(name)
+    t0 = time.perf_counter()
+    names = ("attn_block", "inr_decode", "attention")
+    build.build_all(names)
+    log(f"[build] {len(names)} libraries, one nvcc each in parallel: "
+        f"{time.perf_counter() - t0:.2f} s wall")
+    for name in names:
         info = build.BUILD_LOG.get(name)
         if info is None:
             log(f"[build] {name}: library already built")
             continue
         log(f"[build] {name}: nvcc sm_90a {info['seconds']:.2f} s")
         for line in info["ptxas"]:
-            log(f"[build]   {line}")
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line}")
 
-    attn, inr = kernel_phase(torch, dev)
-    launches = slice_phase(torch, dev)
-    breakdown_phase(torch, dev)
-    reference_phase(torch, dev)
+    image_kernel_phase(torch, dev)
+    image = image_slice_phase(torch, dev)
+    image_breakdown_phase(torch, dev)
+    image_reference_phase(torch, dev)
+    video, svc = video_slice_phase(torch, dev)
+    try:
+        shapes = video_breakdown_phase(torch, dev, svc.pipe)
+    finally:
+        svc.close()
+    del svc
+    torch.cuda.empty_cache()
+    video_kernel_phase(torch, dev, shapes)
+    video_reference_phase(torch, dev)
 
-    kernels = [
-        {"name": "attn_block", "route": "cuda", "source": "ddmi_tpu_torch/csrc/attn_block.cu",
-         "replaces": "ddmi_tpu/ops/pallas/attn_block.py:199",
-         "launches": launches["attn_block"], **attn},
-        {"name": "inr_decode", "route": "cuda", "source": "ddmi_tpu_torch/csrc/inr_decode.cu",
-         "replaces": "ddmi_tpu/ops/pallas/inr_decode.py:307",
-         "launches": launches["inr_decode"], **inr},
-    ]
+    kernels = [LEDGER.entry(name, image[name] + video[name]) for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

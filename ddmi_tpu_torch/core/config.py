@@ -1,7 +1,7 @@
 """Typed configuration for the port's sampling slice.
 
 Reads the same YAML files as ddmi_tpu/core/config.py (e.g.
-configs/ldm/celebahq.yaml), into dataclasses that carry the fields the
+configs/ldm/celebahq.yaml, configs/ldm/skytimelapse.yaml), into dataclasses that carry the fields the
 ported slice uses, with the JAX package's defaults; every other key lands in
 an `extra` dict.  The port keeps its own reader, although the JAX one
 imports no JAX, so that a run of the port loads no module of the JAX
@@ -31,7 +31,7 @@ def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
         elif t == "float" and isinstance(v, int):
             v = float(v)
         elif isinstance(v, list):
-            v = tuple(v)
+            v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
         known[k] = v
     extra = {k: v for k, v in d.items() if k not in fields}
     known["extra"] = {**extra, **(known.get("extra") or {})}
@@ -52,6 +52,9 @@ class UNetConfig:
     use_scale_shift_norm: bool = False
     use_spatial_transformer: bool = False
     num_classes: Optional[int] = None
+    # triplane (video) variant: planes (xy, xt, yt) as (h, w) pairs
+    triplane: bool = False
+    plane_sizes: Tuple[Tuple[int, int], ...] = ()
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -66,6 +69,13 @@ class DDConfig:
     attn_resolutions: Tuple[int, ...] = ()
     hdbf_resolutions: Tuple[int, ...] = (128, 64)
     attn_type: str = "vanilla"
+    # video autoencoder
+    inter_attn_resolutions: Tuple[int, ...] = ()
+    double_z: bool = True
+    in_channels: int = 3
+    timesformer_channels: int = 384
+    patch_size: int = 8
+    splits: int = 1
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -111,6 +121,7 @@ class ModelConfig:
 class DataConfig:
     domain: str = "image"
     test_resolution: int = 256
+    frames: int = 16
     extra: Dict[str, Any] = field(default_factory=dict)
 
 

@@ -1,0 +1,59 @@
+// Multi-head attention over head-major (B, nh, n, hd) bf16 q/k/v for Hopper
+// (sm_90a), two entry points on one streaming kernel (csrc/flash_attn.cuh):
+//
+//   ddmi_mha_vmem        replaces ddmi_tpu/ops/pallas/attention.py::mha_vmem
+//                        (body `_kernel`): q multiplied by the scale in fp32
+//                        and rounded once to bf16 before q.k; the TPU kernel
+//                        holds a whole (n, n) score matrix in VMEM (n <= 1024).
+//   ddmi_flash_attention replaces the forward of the library Pallas kernel
+//                        jax.experimental.pallas.ops.tpu.flash_attention, as
+//                        called at ddmi_tpu/nn/attention1d.py:77 and
+//                        ddmi_tpu/nn/unet.py:185: fp32 scores multiplied by
+//                        the scale, K/V streamed in blocks (n up to 73,728 on
+//                        the video decoder).
+//
+// Both compute softmax(q.k^T * s).v with fp32 scores, an online softmax and
+// the division after P.V.  The two differ only in where the scale is
+// rounded, which each wrapper reproduces.  A 227 KB shared memory cannot hold
+// a whole head's K/V at n = 1024, hd = 128 (512 KB), so both stream K/V in
+// 64-key tiles; see flash_attn.cuh for the design and what bounds it.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "flash_attn.cuh"
+
+namespace {
+
+int run(const void* q, const void* k, const void* v, void* out, int B, int nh, int n, int hd,
+        float sm_scale, int prescale_q, void* stream) {
+  ddmi_attn::Params p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.out_sh = (long long)n * hd;
+  p.out_sb = p.out_sh * nh;
+  p.out_si = hd;
+  p.B = B; p.nh = nh; p.n = n;
+  p.scale = sm_scale;
+  p.prescale_q = prescale_q;
+  return ddmi_attn::launch_hd(hd, p, reinterpret_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, out: (B, nh, n, hd) bf16, contiguous; hd a multiple of 16 up to
+// 128, any n >= 1.  Each returns the cudaError_t of its launch.
+int ddmi_mha_vmem(const void* q, const void* k, const void* v, void* out, int B, int nh, int n,
+                  int hd, float sm_scale, void* stream) {
+  return run(q, k, v, out, B, nh, n, hd, sm_scale, 1, stream);
+}
+
+int ddmi_flash_attention(const void* q, const void* k, const void* v, void* out, int B, int nh,
+                         int n, int hd, float sm_scale, void* stream) {
+  return run(q, k, v, out, B, nh, n, hd, sm_scale, 0, stream);
+}
+
+}  // extern "C"

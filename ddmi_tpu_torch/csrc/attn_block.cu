@@ -10,24 +10,29 @@
 //      one multiply-add per element (statistics are folded into per-(b, c)
 //      scale/bias by the caller); the epilogue adds the bias, pre-scales q by
 //      the softmax scale in fp32, and writes q/k/v head-major in bf16.
-//   2. attention, one block per (64-row q tile, head, batch): the head's K and
-//      V sit whole in shared memory (n = 1024, hd = 32: 64 KB each), scores
-//      and softmax are fp32 with an online (running-max) rescale, and the
-//      division by the row sum comes after P.V.
+//   2. attention, one block per (64-row q tile, head, batch), K and V
+//      streamed through shared memory in 64-key tiles (csrc/flash_attn.cuh):
+//      fp32 scores and online softmax, the division by the row sum after
+//      P.V, and the output written token-major (B, n, C) for step 3.  Every
+//      head dim that is a multiple of 16 up to 128 has an instance; a ragged
+//      q tile and the key tail are masked, so any n is taken.
 //   3. proj GEMM (M = B*n, N = C, K = C) whose epilogue adds bias + residual
 //      in fp32 and casts to bf16.
 //
-// What bounds it on the card: at the celebahq shapes (C = 512..2048, n =
-// 1024..64, batch 8) the GEMMs do 2*B*n*C*4C FLOP on B*n*C*2 bytes of
+// What bounds it on the card: at the image UNet's shapes (C = 512..2048,
+// n = 1024..64, batch 8) the GEMMs do 2*B*n*C*4C FLOP on B*n*C*2 bytes of
 // activations, far above the bf16 ridge, so they are tensor-core bound; this
 // first version uses warp-level WMMA (mma.sync) fragments from plain shared
-// memory tiles, not wgmma/TMA, and so reaches a fraction of the peak.  The
-// attention step is bound by its n^2 exp() work on the SFU at hd = 32.
+// memory tiles, not wgmma/TMA, and so reaches a fraction of the peak.  At
+// the video UNet's shapes (n = 256..8, batch 2-4) the launches are small and
+// latency, not throughput, bounds them.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "flash_attn.cuh"
 
 using namespace nvcuda;
 
@@ -149,152 +154,23 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   }
 }
 
-// ---------------------------------------------------------------- attention
-
-constexpr int HD = 32;         // head dim (every celebahq attention block)
-constexpr int QT = 64;         // q rows per block (16 per warp)
-constexpr int KC = 64;         // keys per online-softmax chunk
-constexpr int ATT_THREADS = 128;
-constexpr int P_LD = KC + 8;   // bf16 elements
-constexpr int S_LD = KC + 4;   // fp32 elements
-
-// per-warp scratch, bytes (each a multiple of 128 so every region stays
-// 32-byte aligned for WMMA)
-constexpr int W_Q = 16 * HD * 2;        // q rows, bf16
-constexpr int W_S = 16 * S_LD * 4;      // scores, fp32
-constexpr int W_P = 16 * P_LD * 2;      // probabilities, bf16
-constexpr int W_O = 16 * HD * 4;        // running output, fp32
-constexpr int W_T = 16 * HD * 4;        // P.V of the chunk, fp32
-constexpr int W_R = 128;                // per-row rescale factors
-constexpr int WARP_BYTES = W_Q + W_S + W_P + W_O + W_T + W_R;
-
-__global__ void __launch_bounds__(ATT_THREADS)
-    attention_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                     int B, int nh, int n) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  const size_t head = ((size_t)b * nh + h) * (size_t)n * HD;
-  const size_t plane = (size_t)B * nh * n * HD;
-  const __nv_bfloat16* q = qkv + head;
-  const __nv_bfloat16* k = qkv + plane + head;
-  const __nv_bfloat16* v = qkv + 2 * plane + head;
-
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + (size_t)n * HD;
-  unsigned char* ws = smem + (size_t)n * HD * 4 + (size_t)warp * WARP_BYTES;
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(ws);
-  float* S = reinterpret_cast<float*>(ws + W_Q);
-  __nv_bfloat16* P = reinterpret_cast<__nv_bfloat16*>(ws + W_Q + W_S);
-  float* O = reinterpret_cast<float*>(ws + W_Q + W_S + W_P);
-  float* T = reinterpret_cast<float*>(ws + W_Q + W_S + W_P + W_O);
-  float* R = reinterpret_cast<float*>(ws + W_Q + W_S + W_P + W_O + W_T);
-
-  for (int i = tid; i < n * HD / 8; i += ATT_THREADS) {
-    reinterpret_cast<uint4*>(Ks)[i] = reinterpret_cast<const uint4*>(k)[i];
-    reinterpret_cast<uint4*>(Vs)[i] = reinterpret_cast<const uint4*>(v)[i];
-  }
-  const int q0 = qt * QT + warp * 16;
-  for (int i = lane; i < 16 * HD / 8; i += 32)
-    reinterpret_cast<uint4*>(Qs)[i] = reinterpret_cast<const uint4*>(q + (size_t)q0 * HD)[i];
-  for (int i = lane; i < 16 * HD; i += 32) O[i] = 0.0f;
-  __syncthreads();
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qf[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) wmma::load_matrix_sync(qf[kk], Qs + kk * 16, HD);
-
-  // lane owns row r, half `hf` of the chunk's columns
-  const int r = lane / 2, hf = lane % 2;
-  float m_run = -INFINITY, l_run = 0.0f;
-
-  for (int c0 = 0; c0 < n; c0 += KC) {
-    // S = q . k^T  (scale already folded into q)
-#pragma unroll
-    for (int jt = 0; jt < KC / 16; ++jt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + (size_t)(c0 + 16 * jt) * HD + 16 * kk, HD);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
-      }
-      wmma::store_matrix_sync(S + 16 * jt, sf, S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    const float* srow = S + r * S_LD + hf * (KC / 2);
-    float cmax = -INFINITY;
-#pragma unroll 8
-    for (int j = 0; j < KC / 2; ++j) cmax = fmaxf(cmax, srow[j]);
-    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
-    const float m_new = fmaxf(m_run, cmax);
-    float csum = 0.0f;
-    __nv_bfloat16* prow = P + r * P_LD + hf * (KC / 2);
-#pragma unroll 8
-    for (int j = 0; j < KC / 2; ++j) {
-      const float e = expf(srow[j] - m_new);
-      csum += e;
-      prow[j] = __float2bfloat16(e);
-    }
-    csum += __shfl_xor_sync(0xffffffffu, csum, 1);
-    const float alpha = expf(m_run - m_new);
-    l_run = l_run * alpha + csum;
-    m_run = m_new;
-    if (hf == 0) R[r] = alpha;
-    __syncwarp();
-
-    // T = P . V_chunk
-#pragma unroll
-    for (int dt = 0; dt < HD / 16; ++dt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> tf;
-      wmma::fill_fragment(tf, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, P + 16 * kk, P_LD);
-        wmma::load_matrix_sync(vf, Vs + (size_t)(c0 + 16 * kk) * HD + 16 * dt, HD);
-        wmma::mma_sync(tf, pf, vf, tf);
-      }
-      wmma::store_matrix_sync(T + 16 * dt, tf, HD, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * HD; i += 32) O[i] = O[i] * R[i / HD] + T[i];
-    __syncwarp();
-  }
-
-  // normalise after P.V; out is (B, n, C) with channels (head, dim)
-  if (hf == 0) R[r] = 1.0f / l_run;
-  __syncwarp();
-  const int C = nh * HD;
-  for (int i = lane; i < 16 * HD; i += 32) {
-    const int rr = i / HD, d = i % HD;
-    out[((size_t)b * n + q0 + rr) * C + h * HD + d] = __float2bfloat16(O[i] * R[rr]);
-  }
-}
-
-size_t attention_smem_bytes(int n) { return (size_t)n * HD * 4 + 4 * (size_t)WARP_BYTES; }
-
 }  // namespace
 
 extern "C" {
 
-// Shared memory the attention step needs at sequence length n.
-size_t ddmi_attn_block_smem_bytes(int n) { return attention_smem_bytes(n); }
-
 // x, res, out: (B*n, C) bf16; es/eb: (B, C) fp32; w_qkv: (C, 3C) bf16 with
 // qkv-major output channels; b_qkv: (3C,) fp32; w_proj: (C, C) bf16; b_proj:
-// (C,) fp32.  Scratch: qkv (3, B, nh, n, 32) bf16, attn (B*n, C) bf16.
-// Returns the cudaError_t of the launches.
+// (C,) fp32.  Scratch: qkv (3, B, nh, n, C / nh) bf16, attn (B*n, C) bf16.
+// Takes C % 128 == 0 and a head dim C / nh that is a multiple of 16 up to
+// 128; any n.  Returns the cudaError_t of the launches.
 int ddmi_attn_block(const void* x, const void* es, const void* eb, const void* w_qkv,
                     const void* b_qkv, const void* w_proj, const void* b_proj, void* qkv,
                     void* attn, void* out, int B, int n, int C, int nh, float sm_scale,
                     void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * n;
+  const int hd = C / nh;
+  if (hd * nh != C || C % 128 || hd % 16 || hd > 128) return cudaErrorInvalidValue;
 
   GemmArgs g{};
   g.a = static_cast<const __nv_bfloat16*>(x);
@@ -303,19 +179,25 @@ int ddmi_attn_block(const void* x, const void* es, const void* eb, const void* w
   g.es = static_cast<const float*>(es);
   g.eb = static_cast<const float*>(eb);
   g.out = static_cast<__nv_bfloat16*>(qkv);
-  g.M = M; g.N = 3 * C; g.K = C; g.n_tok = n; g.nh = nh; g.hd = HD;
+  g.M = M; g.N = 3 * C; g.K = C; g.n_tok = n; g.nh = nh; g.hd = hd;
   g.q_scale = sm_scale;
   gemm_kernel<MODE_QKV><<<dim3(3 * C / BN, (M + BM - 1) / BM), GEMM_THREADS, 0, st>>>(g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem = attention_smem_bytes(n);
-  err = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  attention_kernel<<<dim3(n / QT, nh, B), ATT_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(attn), B, nh, n);
-  err = cudaGetLastError();
+  // q already carries the scale (one fp32 multiply before the bf16 store)
+  const size_t plane = (size_t)B * nh * n * hd;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+  ddmi_attn::Params a{};
+  a.q = q;
+  a.k = q + plane;
+  a.v = q + 2 * plane;
+  a.out = static_cast<__nv_bfloat16*>(attn);
+  a.out_sb = (long long)n * C; a.out_sh = hd; a.out_si = C;
+  a.B = B; a.nh = nh; a.n = n;
+  a.scale = 1.0f;
+  a.prescale_q = 0;
+  err = ddmi_attn::launch_hd(hd, a, st);
   if (err != cudaSuccess) return err;
 
   GemmArgs pr{};
@@ -324,7 +206,7 @@ int ddmi_attn_block(const void* x, const void* es, const void* eb, const void* w
   pr.bias = static_cast<const float*>(b_proj);
   pr.res = static_cast<const __nv_bfloat16*>(x);
   pr.out = static_cast<__nv_bfloat16*>(out);
-  pr.M = M; pr.N = C; pr.K = C; pr.n_tok = n; pr.nh = nh; pr.hd = HD;
+  pr.M = M; pr.N = C; pr.K = C; pr.n_tok = n; pr.nh = nh; pr.hd = hd;
   pr.q_scale = 1.0f;
   gemm_kernel<MODE_PROJ><<<dim3(C / BN, (M + BM - 1) / BM), GEMM_THREADS, 0, st>>>(pr);
   return cudaGetLastError();

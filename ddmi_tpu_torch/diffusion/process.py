@@ -39,7 +39,8 @@ def mixing_component(sched: DiffusionSchedule, x_noisy, t):
 
 def mixed_prediction(model_out, mixing_logit: Optional[torch.Tensor], mix_comp):
     """coeff = sigmoid(logit); (1 - coeff) * mix + coeff * out.  The logit
-    broadcasts over the channel axis (NCHW: shape (1, C, 1, 1))."""
+    broadcasts over the channel axis: (1, C, 1, 1) for NCHW images, (1, 1, C)
+    for (b, n, c) video tokens."""
     if mixing_logit is None:
         return model_out
     coeff = torch.sigmoid(mixing_logit)
@@ -141,7 +142,8 @@ def ddim_sample(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit,
 
 def ddim_sample_unet(gd: GaussianDiffusion, unet, mixing_logit, shape, *,
                      noise=None, generator=None, device=None) -> torch.Tensor:
-    """DDIM with an `nn/unet.py` UNet as the denoiser (encoder reuse = 1)."""
+    """DDIM with a UNet (nn/unet.py, or the TriplaneUNet of
+    nn/unet_triplane.py over tokens) as the denoiser (encoder reuse = 1)."""
     return ddim_sample(
         gd, lambda x, t: unet(x, t), mixing_logit, shape, noise=noise,
         generator=generator, device=device,

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ddmi_tpu_torch.core.coords import get_scale_injection, unsymmetrize
+from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.nn.inr import INRImage
 from ddmi_tpu_torch.nn.unet import UNet
@@ -23,12 +24,13 @@ class ImagePipeline(nn.Module):
     """The sampling models of one image config: `unet` + `mixing_logit`
     (stage 2), `vae` (decode half) + `mlp` (stage 1).
 
-    Parameters are initialised on `device` from `seed`; `load_state_dicts`
+    Parameters are initialised on `device` (the card unless the caller asks
+    for the CPU) from `seed`; `load_state_dicts`
     replaces them with trained ones (reference state_dict layouts, see
     interop.py).  `cast(dtype)` casts every model parameter but
     `mixing_logit`, which stays fp32 as in the JAX package."""
 
-    def __init__(self, cfg, device="cpu", seed: int = 0):
+    def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
         m = cfg.model
         if m.DiT:
@@ -36,7 +38,7 @@ class ImagePipeline(nn.Module):
         if int(m.ddpmconfig.extra.get("encoder_reuse", 1)) != 1:
             raise NotImplementedError("encoder_reuse > 1 is not ported")
         self.cfg = cfg
-        device = torch.device(device)
+        device = resolve_device(device)
         cuda = [device.index or 0] if device.type == "cuda" else []
         with torch.random.fork_rng(devices=cuda, device_type="cuda"):
             torch.manual_seed(seed)

@@ -1,8 +1,10 @@
 """Weight bridge: JAX parameter trees (numpy arrays) -> port `state_dict`s.
 
-The exact inverse of the image-path converters in
-ddmi_tpu/interop/reference_ckpt.py (`convert_unet`, the decoder half of
-`convert_vae`, `convert_mlp_image`).  The port's modules use the reference
+The exact inverse of the sampling-path converters in
+ddmi_tpu/interop/reference_ckpt.py: for images `convert_unet`, the decoder
+half of `convert_vae` and `convert_mlp_image`; for video
+`convert_unet_triplane`, the decoder half of `convert_video_vae` and
+`convert_mlp_video`.  The port's modules use the reference
 PyTorch layouts, so every map here is a transpose, reshape or channel
 permutation and the round trip is bit-exact:
 
@@ -11,6 +13,8 @@ permutation and the round trip is bit-exact:
   * Flax Dense (I, O)          -> Linear (O, I)
   * GroupNorm scale / bias     -> weight / bias
   * ModulatedConv (k, k, I, O) -> (1, O, I, k, k)
+  * Flax Dense (I, O) over tokens -> Conv1d (O, I, 1)   [1D attention]
+  * Flax Dense (I, O) over planes -> 1x1 Conv2d (O, I, 1, 1) [video post_*]
   * ADM qkv: qkv-major output channels -> head-major (QKVAttentionLegacy)
 """
 
@@ -205,4 +209,91 @@ def mlp_image_from_jax(tree, cfg) -> SD:
     _modconv(sd, "torgb.conv", tree["torgb"]["conv"])
     bias = np.asarray(tree["torgb"]["bias"])
     sd["torgb.bias"] = _t(bias.reshape(1, -1, 1, 1))
+    return sd
+
+
+# ----------------------------------------------------------------- video
+
+
+def _attn1d(sd: SD, key: str, p) -> None:
+    """AttnBlock1D[Expand] -> reference MemoryEfficientAttnBlock1D[_expand]."""
+    _gn(sd, key + ".norm", p["GroupNormTokens_0"]["GroupNorm_0"])
+    for name in ("q", "k", "v", "proj_out"):
+        sd[f"{key}.{name}.weight"] = _t(np.transpose(p[name]["kernel"])[:, :, None])
+        sd[f"{key}.{name}.bias"] = _t(p[name]["bias"])
+
+
+def triplane_unet_from_jax(tree, cfg) -> SD:
+    """JAX TriplaneUNet params (nn/unet_triplane.py) -> port TriplaneUNet
+    state_dict; inverts reference_ckpt.convert_unet_triplane."""
+    sd = unet_from_jax(tree, cfg)
+    idx = 1
+    for level in range(len(cfg.channel_mult)):
+        for i in range(cfg.num_res_blocks):
+            _attn1d(sd, f"input_attns.{idx}", tree[f"down_xattn_{level}_{i}"])
+            idx += 1
+        if level != len(cfg.channel_mult) - 1:
+            _attn1d(sd, f"input_attns.{idx}", tree[f"down_xattn_ds_{level}"])
+            idx += 1
+    _attn1d(sd, "mid_attn", tree["mid_xattn"])
+    idx = 0
+    for level in reversed(range(len(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            _attn1d(sd, f"output_attns.{idx}", tree[f"up_xattn_{level}_{i}"])
+            idx += 1
+    return sd
+
+
+def video_decoder_from_jax(tree, cfg) -> SD:
+    """JAX VideoAutoencoder params (nn/video_vae.py) -> state_dict of the
+    port's decode-only VideoAutoencoder (`decoder.*`, `post_{xy,xt,yt}.*`).
+    Inverts the decoder half of reference_ckpt.convert_video_vae; the
+    encoder is not read."""
+    if cfg.attn_type not in ("vanilla", "vanilla-multihead", "none"):
+        raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
+    dec = tree["decoder"]
+    sd: SD = {}
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    ab = 0
+    _vae_resnet(sd, "decoder.mid.block_1", dec["mid_block1"])
+    if cfg.attn_type != "none":
+        _vae_attn(sd, "decoder.mid.attn_1", dec[f"AttnBlock_{ab}"])
+        ab += 1
+    _vae_resnet(sd, "decoder.mid.block_2", dec["mid_block2"])
+    _attn1d(sd, "decoder.mid_attn", dec["mid_inter_attn"])
+    n = len(cfg.ch_mult)
+    curr = cfg.resolution // 2 ** (n - 1)
+    for i in reversed(range(n)):
+        for j in range(cfg.num_res_blocks + 1):
+            _vae_resnet(sd, f"decoder.up.{i}.block.{j}", dec[f"up_{i}_{j}"])
+            if curr in cfg.attn_resolutions:
+                _vae_attn(sd, f"decoder.up.{i}.attn.{j}", dec[f"AttnBlock_{ab}"])
+                ab += 1
+        if curr in cfg.inter_attn_resolutions:
+            _attn1d(sd, f"decoder.up.{i}.inter_attn.0", dec[f"inter_attn_{i}"])
+        if curr in cfg.hdbf_resolutions:
+            _conv(sd, f"decoder.up.{i}.hdbf.0", dec[f"hdbf_{curr}"])
+        if i != 0:
+            _conv(sd, f"decoder.up.{i}.upsample.conv", dec[f"upsample_{i}"]["Conv_0"])
+            curr *= 2
+    _gn(sd, "decoder.norm_out", dec["norm_out"]["GroupNorm_0"])
+    _conv(sd, "decoder.conv_out", dec["conv_out"])
+    for plane in ("xy", "xt", "yt"):
+        p = tree[f"post_{plane}"]
+        sd[f"post_{plane}.weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
+        sd[f"post_{plane}.bias"] = _t(p["bias"])
+    return sd
+
+
+def mlp_video_from_jax(tree) -> SD:
+    """JAX INRVideo params (nn/inr.py) -> port INRVideo state_dict (the
+    reference MLPVideo's keys); inverts reference_ckpt.convert_mlp_video."""
+    sd: SD = {}
+    for i in (1, 2, 3, 4):
+        blk = tree[f"net_res{i}"]
+        _dense(sd, f"net_res{i}.fc_0", blk["fc_0"])
+        _dense(sd, f"net_res{i}.fc_1", blk["fc_1"])
+        if "shortcut" in blk:
+            sd[f"net_res{i}.shortcut.weight"] = _t(np.transpose(blk["shortcut"]["kernel"]))
+    _dense(sd, "net_out", tree["net_out"])
     return sd

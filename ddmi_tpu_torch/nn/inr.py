@@ -1,8 +1,10 @@
-"""Scale-aware image INR head (counterpart of ddmi_tpu/nn/inr.py::INRImage,
-regular-grid path only).
+"""INR heads of the sampling paths (counterpart of ddmi_tpu/nn/inr.py):
+the scale-aware image head `INRImage` and the video head `INRVideo`, both on
+regular grids only (the separable sampling of ops/resample.py).
 
-The state keys are the reference MLP's (models/d2c_vae/mlp.py):
-`time_mlp.{1,3}` for the style MLP, `net_res{1..4}` and `torgb`.
+The state keys are the reference MLPs' (models/d2c_vae/mlp.py): for
+INRImage `time_mlp.{1,3}` for the style MLP, `net_res{1..4}` and `torgb`;
+for INRVideo (MLPVideo) `net_res{1..4}` and `net_out`.
 """
 
 from __future__ import annotations
@@ -10,9 +12,16 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ddmi_tpu_torch.nn.stylegan import SinusoidalPosEmb, StyledResBlock, ToRGB, gelu_tanh
+from ddmi_tpu_torch.nn.stylegan import (
+    ResnetBlockFC,
+    SinusoidalPosEmb,
+    StyledResBlock,
+    ToRGB,
+    gelu_tanh,
+)
 from ddmi_tpu_torch.ops.resample import separable_grid_sample
 
 
@@ -75,3 +84,58 @@ class INRImage(nn.Module):
         x = self.net_res3(torch.cat([x, x_h], -1), style, generator)
         x = self.net_res4(x, style, generator)
         return self.torgb(x, style)
+
+
+def triplane_pe_concat_video(planes: Sequence[torch.Tensor],
+                             axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+                             ) -> torch.Tensor:
+    """Voxel features from the xy / yt / xt planes (NCHW) on the regular grid
+    axes = (ts, ys, xs): each plane sampled bilinearly (align_corners=True,
+    border), broadcast and concatenated -> (b, t * h * w, 3c), tokens
+    t-major, then y, then x.  The yt and xt planes are sampled with the t
+    values on their W axis and the y / x values on their H axis, as the
+    reference's coordinate dicts do (ddmi_tpu/nn/inr.py).  Sampling runs in
+    fp32, as the JAX package's fp32 interpolation matrices make it."""
+    xy, yt, xt = (p.float() for p in planes)
+    ts, ys, xs = axes
+    b, c = xy.shape[:2]
+    t, h, w = ts.shape[0], ys.shape[0], xs.shape[0]
+    f_xy = separable_grid_sample(xy, xs, ys, align_corners=True)           # (b, h, w, c)
+    f_yt = separable_grid_sample(yt, ts, ys, align_corners=True).transpose(1, 2)  # (b, t, h, c)
+    f_xt = separable_grid_sample(xt, ts, xs, align_corners=True).transpose(1, 2)  # (b, t, w, c)
+    shape = (b, t, h, w, c)
+    out = torch.cat([
+        f_xy[:, None].expand(shape),
+        f_yt[:, :, :, None].expand(shape),
+        f_xt[:, :, None].expand(shape),
+    ], dim=-1)
+    return out.reshape(b, t * h * w, 3 * c)
+
+
+class INRVideo(nn.Module):
+    """forward(hdbf = (xy, yt, xt) pyramids of 3 NCHW planes each, axes =
+    (ts, ys, xs)) -> (b, t * h * w, out_ch).  Runs in the parameters'
+    dtype."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        ch, in0 = cfg.ch, 3 * cfg.latent_dim
+        self.net_res1 = ResnetBlockFC(in0, ch)
+        self.net_res2 = ResnetBlockFC(ch + in0, ch)
+        self.net_res3 = ResnetBlockFC(ch + in0, ch)
+        self.net_res4 = ResnetBlockFC(ch)
+        self.net_out = nn.Linear(ch, cfg.out_ch)
+
+    def forward(self, hdbf, axes) -> torch.Tensor:
+        xy, yt, xt = hdbf
+        assert len(xy) == 3, "expects 3-level HDBF pyramids"
+        dtype = self.net_out.weight.dtype
+        x, x_m, x_h = (
+            triplane_pe_concat_video((xy[i], yt[i], xt[i]), axes).to(dtype) for i in range(3)
+        )
+        x = self.net_res1(x)
+        x = self.net_res2(torch.cat([x, x_m], -1))
+        x = self.net_res3(torch.cat([x, x_h], -1))
+        x = self.net_res4(x)
+        return self.net_out(F.leaky_relu(x, 0.2))

@@ -162,3 +162,26 @@ class StyledResBlock(nn.Module):
 def gelu_tanh(x):
     """GELU in its tanh form, the default of jax.nn.gelu."""
     return F.gelu(x, approximate="tanh")
+
+
+class ResnetBlockFC(nn.Module):
+    """Fully connected residual block (counterpart of
+    ddmi_tpu/nn/stylegan.py::ResnetBlockFC; reference blocks.py): fc_1 is
+    zero-initialised, and a bias-free `shortcut` maps the input when the
+    widths differ."""
+
+    def __init__(self, size_in: int, size_out: Optional[int] = None,
+                 size_h: Optional[int] = None):
+        super().__init__()
+        size_out = size_out or size_in
+        size_h = size_h or min(size_in, size_out)
+        self.fc_0 = nn.Linear(size_in, size_h)
+        self.fc_1 = nn.Linear(size_h, size_out)
+        nn.init.zeros_(self.fc_1.weight)
+        self.shortcut = (
+            nn.Linear(size_in, size_out, bias=False) if size_in != size_out else None
+        )
+
+    def forward(self, x):
+        dx = self.fc_1(F.relu(self.fc_0(F.relu(x))))
+        return (x if self.shortcut is None else self.shortcut(x)) + dx

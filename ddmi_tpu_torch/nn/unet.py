@@ -5,7 +5,8 @@ Module tree and state keys follow the reference `openaimodel.UNetModel`:
 `out.{0,2}`; ResBlocks have `in_layers`/`emb_layers`/`out_layers`/
 `skip_connection`; attention has `norm`, a head-major `qkv` Conv1d and
 `proj_out`.  Tensors are NCHW; on CUDA the UNet runs channels-last so that
-the attention kernel's NHWC view of a feature map is free.
+the attention kernel's NHWC view of a feature map is free.  The triplane
+(video) variant builds on this one in nn/unet_triplane.py.
 
 Dtype plan (as the JAX UNet's): everything in the parameters' dtype (bf16
 for sampling), GroupNorm statistics in fp32, and the final `out.2` conv in
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ddmi_tpu_torch.ops import attn_block
+from ddmi_tpu_torch.ops import attention, attn_block, flash_attention
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -84,9 +85,14 @@ class ResBlock(TimestepBlock):
 
 
 class AttentionBlock(nn.Module):
-    """Self-attention over the flattened feature map, as one fused block
-    (ops/attn_block.py): the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    """Self-attention over the flattened feature map, through the JAX
+    package's tiers in its order (ddmi_tpu/nn/unet.py::AttentionBlock):
+    the fused block (ops/attn_block.py) where its predicate takes the shape,
+    else GroupNorm + qkv in PyTorch and then mha_vmem (ops/attention.py),
+    flash (ops/flash_attention.py, n >= 512) or dense attention with fp32
+    softmax.  The tier depends on the shape alone: on a CUDA tensor the
+    first three launch the port's kernels (or raise for a shape a kernel
+    does not take), on a CPU tensor they run their plain versions."""
 
     def __init__(self, channels: int, num_heads: int):
         super().__init__()
@@ -102,21 +108,30 @@ class AttentionBlock(nn.Module):
     def forward(self, x):
         B, C, H, W = x.shape
         nh = self.num_heads
-        if x.is_cuda and not attn_block.supported(H * W, C, nh):
-            # the JAX package sends this shape to mha_vmem, not ported yet
-            raise NotImplementedError(
-                f"attention at n={H * W}, C={C}, heads={nh} needs the mha_vmem "
-                "kernel, which is not ported"
+        hd = C // nh
+        n = H * W
+        if attn_block.jax_supported(n, C, nh):
+            w_qkv = self.qkv.weight[:, :, 0][self.perm].t()   # (C, 3C) qkv-major
+            b_qkv = self.qkv.bias[self.perm]
+            w_proj = self.proj_out.weight[:, :, 0].t()         # (C, C), rows (head, dim)
+            x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+            out = attn_block.fused_attention_block(
+                x_nhwc, self.norm.weight, self.norm.bias, w_qkv, b_qkv, w_proj,
+                self.proj_out.bias, nh, hd**-0.5, 32, self.norm.eps,
             )
-        w_qkv = self.qkv.weight[:, :, 0][self.perm].t()   # (C, 3C) qkv-major
-        b_qkv = self.qkv.bias[self.perm]
-        w_proj = self.proj_out.weight[:, :, 0].t()         # (C, C), rows (head, dim)
-        x_nhwc = x.permute(0, 2, 3, 1).contiguous()
-        out = attn_block.fused_attention_block(
-            x_nhwc, self.norm.weight, self.norm.bias, w_qkv, b_qkv, w_proj,
-            self.proj_out.bias, nh, (C // nh) ** -0.5, 32, self.norm.eps,
-        )
-        return out.permute(0, 3, 1, 2)
+            return out.permute(0, 3, 1, 2)
+        # head-major qkv channels (QKVAttentionLegacy): (B, nh, 3, hd, n)
+        qkv = self.qkv(self.norm(x).reshape(B, C, n)).reshape(B, nh, 3, hd, n)
+        q, k, v = (qkv[:, :, i].transpose(-1, -2).contiguous() for i in range(3))
+        if attention.supported(n, hd):
+            out = attention.mha_vmem(q, k, v, hd**-0.5)
+        elif n >= flash_attention.MIN_TOKENS:
+            out = flash_attention.flash_attention(q, k, v, hd**-0.5)
+        else:
+            s = (q @ k.transpose(-1, -2)).float() * hd**-0.5
+            out = torch.softmax(s, dim=-1).to(v.dtype) @ v
+        out = out.transpose(-1, -2).reshape(B, C, n)
+        return x + self.proj_out(out).reshape(B, C, H, W)
 
 
 class Downsample(nn.Module):

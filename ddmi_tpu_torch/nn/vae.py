@@ -17,7 +17,6 @@ import torch.nn.functional as F
 from torch import nn
 
 
-
 def Norm(channels: int) -> nn.GroupNorm:
     """GroupNorm(32, eps=1e-6) as used throughout the LDM VAE."""
     return nn.GroupNorm(32, channels, eps=1e-6)
@@ -46,11 +45,13 @@ class ResnetBlock(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Single-head spatial self-attention (plain PyTorch: not a TPU kernel in
-    the JAX package).  Scores are taken in the input dtype, softmax in fp32."""
+    """Spatial self-attention, single-head or with `num_heads` head-major
+    channel groups (plain PyTorch: not a TPU kernel in the JAX package).
+    Scores are taken in the input dtype, softmax in fp32."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, num_heads: int = 1):
         super().__init__()
+        self.num_heads = num_heads
         self.norm = Norm(channels)
         self.q = nn.Conv2d(channels, channels, 1)
         self.k = nn.Conv2d(channels, channels, 1)
@@ -59,14 +60,16 @@ class AttnBlock(nn.Module):
 
     def forward(self, x):
         B, C, H, W = x.shape
+        nh = self.num_heads
+        hd = C // nh
         h = self.norm(x)
-        q = self.q(h).reshape(B, C, H * W).transpose(1, 2)   # (B, n, C)
-        k = self.k(h).reshape(B, C, H * W)                   # (B, C, n)
-        v = self.v(h).reshape(B, C, H * W).transpose(1, 2)   # (B, n, C)
-        s = torch.bmm(q, k).float() * C**-0.5
+        q = self.q(h).reshape(B, nh, hd, H * W).transpose(-1, -2)   # (B, nh, n, hd)
+        k = self.k(h).reshape(B, nh, hd, H * W)                     # (B, nh, hd, n)
+        v = self.v(h).reshape(B, nh, hd, H * W).transpose(-1, -2)   # (B, nh, n, hd)
+        s = (q @ k).float() * hd**-0.5
         p = torch.softmax(s, dim=-1).to(v.dtype)
         del s
-        out = torch.bmm(p, v).transpose(1, 2).reshape(B, C, H, W)
+        out = (p @ v).transpose(-1, -2).reshape(B, C, H, W)
         return x + self.proj_out(out)
 
 
@@ -82,6 +85,8 @@ class Upsample(nn.Module):
 def _make_attn(channels: int, attn_type: str):
     if attn_type == "vanilla":
         return AttnBlock(channels)
+    if attn_type == "vanilla-multihead":
+        return AttnBlock(channels, num_heads=16)
     if attn_type == "none":
         return None
     raise NotImplementedError(f"attn_type {attn_type!r} is not ported")

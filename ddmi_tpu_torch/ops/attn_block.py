@@ -7,10 +7,15 @@ head-major input rows.
 
 On a CUDA tensor the block runs as the hand-written kernel in
 csrc/attn_block.cu (qkv GEMM with GroupNorm in its prologue, attention with
-K/V of one head in shared memory, proj GEMM with bias + residual in its
+K/V streamed through shared memory, proj GEMM with bias + residual in its
 epilogue); GroupNorm statistics and their fold into per-(b, c) scale/shift
 stay tensor code, as they are (B, C)-sized.  On a CPU tensor it runs
 `attention_block_plain`, the same function in plain fp32 PyTorch.
+
+`supported` is the JAX kernel's predicate (n % 8 == 0, n <= 1024, hd <= 128,
+C % 128 == 0) restricted to head dims that are multiples of 16, the ones the
+CUDA kernel has instances for; every repo config's head dim is one.  A shape
+the JAX predicate takes and the kernel does not raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,21 +25,23 @@ import ctypes
 import torch
 
 from ddmi_tpu_torch.ops import build
+from ddmi_tpu_torch.ops.attention import kernel_takes
 
-HEAD_DIM = 32    # the kernel's head dim (csrc/attn_block.cu HD)
-Q_TILE = 64      # q rows per block, and the granularity of n
 MAX_TOKENS = 1024
 
 
+def jax_supported(n: int, C: int, num_heads: int) -> bool:
+    """ddmi_tpu/ops/pallas/attn_block.py::supported."""
+    hd = C // num_heads
+    return (n % 8 == 0 and n <= MAX_TOKENS and num_heads * hd == C and hd <= 128
+            and C % 128 == 0)
+
+
 def supported(n: int, C: int, num_heads: int) -> bool:
-    """Whether the CUDA kernel takes this shape (every celebahq block does:
-    n = 1024/256/64, C = 512/1024/2048, head dim 32)."""
-    return (
-        num_heads * HEAD_DIM == C
-        and n % Q_TILE == 0
-        and 0 < n <= MAX_TOKENS
-        and C % 64 == 0
-    )
+    """Whether the CUDA kernel takes this shape: the JAX predicate with a
+    head dim that is a multiple of 16 (celebahq: hd 32, n 1024/256/64;
+    skytimelapse: hd 64, n 256...8)."""
+    return jax_supported(n, C, num_heads) and kernel_takes(C // num_heads)
 
 
 def fold_group_norm(x: torch.Tensor, gn_scale, gn_bias, num_groups: int, eps: float):
@@ -112,7 +119,8 @@ def fused_attention_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
     bq = b_qkv.float().contiguous()
     wp = w_proj.to(torch.bfloat16).contiguous()
     bp = b_proj.float().contiguous()
-    qkv = torch.empty((3, B, num_heads, n, HEAD_DIM), dtype=torch.bfloat16, device=x.device)
+    qkv = torch.empty((3, B, num_heads, n, C // num_heads), dtype=torch.bfloat16,
+                      device=x.device)
     attn = torch.empty((B * n, C), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     err = _lib().ddmi_attn_block(

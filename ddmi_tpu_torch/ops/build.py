@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface.  On first use it is compiled
 with `nvcc` for `sm_90a` into a shared library under `build/kernels/` at the
 root of the checkout (listed in `.gitignore`) and loaded with `ctypes`.  The
-library's file name carries a hash of the source and flags, so an edited
-source is rebuilt.  Nothing here runs at import time.
+library's file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt.  `build_all`
+runs one `nvcc` per library, all at once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -41,31 +42,53 @@ def _nvcc() -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library built from csrc/<name>.cu, building it if needed."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> None:
+    """Compile every library of `names` that is not built yet, one `nvcc`
+    process each, all started together."""
+    todo = [(n, _lib_path(n)) for n in names if n not in _LIBS]
+    todo = [(n, p) for n, p in todo if not p.exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, lib_path in todo:
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, lib_path, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, lib_path, tmp, t0, proc in procs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+            failed.append(f"nvcc failed for {name}.cu:\n{out}\n{err}")
+            continue
         os.replace(tmp, lib_path)
         BUILD_LOG[name] = {
             "seconds": time.perf_counter() - t0,
             "ptxas": [
-                ln.strip() for ln in proc.stderr.splitlines()
+                ln.strip() for ln in err.splitlines()
                 if "registers" in ln or "Compiling entry" in ln or "spill" in ln
             ],
         }
-    lib = ctypes.CDLL(str(lib_path))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from csrc/<name>.cu, building it if needed."""
+    if name in _LIBS:
+        return _LIBS[name]
+    build_all([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
     _LIBS[name] = lib
     return lib

@@ -1,12 +1,14 @@
-"""In-process batching image service (counterpart of
-ddmi_tpu/serve/server.py::SamplerService, image domain, no HTTP front end).
+"""In-process batching sampling service (counterpart of
+ddmi_tpu/serve/server.py::SamplerService, image and video domains, no HTTP
+front end).
 
 Concurrent `generate` calls are coalesced into one device batch of
 `service_batch` samples (a linger window collects them): a DDIM run costs
 the same for 1 or `service_batch` samples.  Each request's initial latent is
 drawn on the host from its own seed (numpy, the same draw as the JAX
 service), so a seed reproduces its sample however requests were batched.
-The INR's NoiseInjection draws are keyed by the first seed in the batch.
+The image INR's NoiseInjection draws are keyed by the first seed in the
+batch; the video INR draws none.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ddmi_tpu_torch.domains.image import ImagePipeline
+from ddmi_tpu_torch.domains.video import VideoPipeline
 
 
 class _Request:
@@ -36,28 +39,35 @@ class _Request:
 
 
 class SamplerService:
-    """Serves (n, res, res, 3) uint8 samples of an image config.
+    """Serves uint8 samples of an image config, (n, res, res, 3), or of a
+    video config, (n, frames, res, res, 3) at the VAE's resolution.
 
-    `state_dicts` holds the port state_dicts for `ImagePipeline.
-    load_state_dicts` (unet / vae / mlp / mixing_logit).  Without them the
+    `state_dicts` holds the port state_dicts for the pipeline's
+    `load_state_dicts` (unet / vae / mlp / mixing_logit).  Without them the
     service refuses to start unless `allow_init`, in which case it serves the
     seeded, untrained initialisation (for latency measurement and smoke
-    runs; it warns, and `initialized` is True).  Parameters are bf16 on a
-    CUDA device (the DDIM carry stays fp32) and fp32 on the CPU."""
+    runs; it warns, and `initialized` is True).  It runs on the card unless
+    `device="cpu"`.  Parameters are bf16 on a CUDA device (the DDIM carry
+    and the mixing logit stay fp32) and fp32 on the CPU."""
 
     def __init__(self, cfg, service_batch: int = 8, resolution: Optional[int] = None,
-                 linger_ms: float = 20.0, device="cpu",
+                 linger_ms: float = 20.0, device="cuda",
                  state_dicts: Optional[dict] = None, allow_init: bool = False):
-        if cfg.data.domain != "image":
-            raise NotImplementedError(f"domain {cfg.data.domain!r} is not ported")
+        self.domain = cfg.data.domain
+        if self.domain not in ("image", "video"):
+            raise NotImplementedError(f"domain {self.domain!r} is not ported")
         self.cfg = cfg
         self.batch = int(service_batch)
-        self.res = int(resolution or cfg.data.test_resolution)
         self._linger = max(0.0, linger_ms) / 1000.0
         u = cfg.model.ddpmconfig
-        self._noise_shape = (u.image_size, u.image_size, u.channels)  # NHWC, as JAX draws it
-
-        pipe = ImagePipeline(cfg, device=device)
+        if self.domain == "video":
+            pipe = VideoPipeline(cfg, device=device)
+            self.res = pipe.res
+            self._noise_shape = (pipe.n_latent_tokens, u.channels)
+        else:
+            pipe = ImagePipeline(cfg, device=device)
+            self.res = int(resolution or cfg.data.test_resolution)
+            self._noise_shape = (u.image_size, u.image_size, u.channels)  # NHWC, as JAX draws it
         self.initialized = state_dicts is None
         if state_dicts is None:
             if not allow_init:
@@ -84,13 +94,23 @@ class SamplerService:
     def warmup(self) -> None:
         """Run one batch so the first real request does not pay start-up."""
         noise = torch.zeros((self.batch,) + self._noise_shape, device=self.pipe.device)
-        self.pipe.sample_images(self.batch, self.res, noise=noise.permute(0, 3, 1, 2))
+        self._sample(noise, 0)
         if self.pipe.device.type == "cuda":
             torch.cuda.synchronize(self.pipe.device)
 
+    def _sample(self, noise: torch.Tensor, seed: int) -> torch.Tensor:
+        """One service batch from its initial latent, in [0, 1]."""
+        if self.domain == "video":
+            return self.pipe.sample_videos(self.batch, noise=noise)
+        return self.pipe.sample_images(
+            self.batch, self.res, noise=noise.permute(0, 3, 1, 2).contiguous(),
+            render_seed=seed,
+        )
+
     def generate(self, n: int = 1, seed: Optional[int] = None,
                  timeout: Optional[float] = None) -> np.ndarray:
-        """Blocking; thread-safe.  Returns (n, res, res, 3) uint8."""
+        """Blocking; thread-safe.  Returns (n, res, res, 3) uint8 images or
+        (n, frames, res, res, 3) uint8 videos."""
         if not (1 <= n <= self.batch):
             raise ValueError(f"n must be in [1, {self.batch}], got {n}")
         req = _Request(n, int(seed) if seed is not None else time.time_ns() % (1 << 31))
@@ -167,10 +187,7 @@ class SamplerService:
                 )
             )
         noise = torch.from_numpy(np.concatenate(rows, axis=0)).to(self.pipe.device)
-        out = self.pipe.sample_images(
-            self.batch, self.res, noise=noise.permute(0, 3, 1, 2).contiguous(),
-            render_seed=take[0].seed,
-        )
+        out = self._sample(noise, take[0].seed)
         if not bool(torch.isfinite(out).all()):
             raise FloatingPointError("the sampler produced non-finite pixels")
         out = (out.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()

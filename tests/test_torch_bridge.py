@@ -16,11 +16,22 @@ import torch
 from ddmi_tpu.core.config import DDConfig, MLPConfig, UNetConfig
 from ddmi_tpu.interop.reference_ckpt import (
     _convert_vae_decoder,
+    _convert_video_decoder,
+    _dense_from_1x1,
     _Source,
     convert_mlp_image,
+    convert_mlp_video,
     convert_unet,
+    convert_unet_triplane,
 )
-from ddmi_tpu_torch.interop import mlp_image_from_jax, unet_from_jax, vae_decoder_from_jax
+from ddmi_tpu_torch.interop import (
+    mlp_image_from_jax,
+    mlp_video_from_jax,
+    triplane_unet_from_jax,
+    unet_from_jax,
+    vae_decoder_from_jax,
+    video_decoder_from_jax,
+)
 
 torch.set_num_threads(1)
 
@@ -104,6 +115,67 @@ def test_mlp_bridge_round_trip_is_exact():
     _assert_trees_equal(convert_mlp_image(sd, MLP), t)
 
 
+TRIPLANE = UNetConfig(
+    in_channels=8, model_channels=64, out_channels=8, num_res_blocks=1,
+    attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=16,
+    plane_sizes=((4, 4), (4, 4), (4, 4)),
+)
+VIDEO_DD = DDConfig(
+    double_z=True, timesformer_channels=64, patch_size=8, splits=1, resolution=32,
+    z_channels=32, out_ch=8, ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1,
+    hdbf_resolutions=(8, 16), inter_attn_resolutions=(4, 8),
+    attn_type="vanilla-multihead",
+)
+
+
+def test_triplane_unet_bridge_round_trip_is_exact():
+    from ddmi_tpu.nn.unet_triplane import TriplaneUNet
+    from ddmi_tpu_torch.nn.unet_triplane import TriplaneUNet as TorchUNet
+
+    t = TriplaneUNet(TRIPLANE).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 48, 8)), jnp.zeros((1,), jnp.int32)
+    )["params"]
+    t = _random_tree(t, 4)
+    sd = triplane_unet_from_jax(t, TRIPLANE)
+    TorchUNet(TRIPLANE).load_state_dict(sd, strict=True)
+    _assert_trees_equal(convert_unet_triplane(sd, TRIPLANE), t)
+
+
+def test_video_decoder_bridge_round_trip_is_exact():
+    from ddmi_tpu.nn.video_vae import VideoAutoencoder
+    from ddmi_tpu_torch.nn.video_vae import VideoAutoencoder as TorchAE
+
+    t = VideoAutoencoder(VIDEO_DD, embed_dim=8, frames=4).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 4, 32, 32, 3)),
+        jax.random.PRNGKey(1),
+    )["params"]
+    t = _random_tree(t, 5)
+    sd = video_decoder_from_jax(t, VIDEO_DD)
+    TorchAE(VIDEO_DD, embed_dim=8, frames=4).load_state_dict(sd, strict=True)
+    src = _Source(sd)
+    dec = _convert_video_decoder(src.sub("decoder."), VIDEO_DD)
+    post = {f"post_{p}": _dense_from_1x1(src, f"post_{p}") for p in ("xy", "xt", "yt")}
+    src.finish()
+    _assert_trees_equal(dec, t["decoder"])
+    _assert_trees_equal(post, {k: t[k] for k in post})
+
+
+def test_mlp_video_bridge_round_trip_is_exact():
+    from ddmi_tpu.nn.inr import INRVideo
+    from ddmi_tpu_torch.nn.inr import INRVideo as TorchINR
+
+    cfg = MLPConfig(in_ch=3, out_ch=3, ch=32, latent_dim=8)
+    hdbf = tuple([jnp.zeros(s) for s in shapes] for shapes in (
+        [(1, r, r, 8) for r in (4, 8, 16)], [(1, 4, r, 8) for r in (4, 8, 16)],
+        [(1, 4, r, 8) for r in (4, 8, 16)]))
+    axes = {"axes": (jnp.linspace(-1, 1, 2), jnp.linspace(-1, 1, 3), jnp.linspace(-1, 1, 3))}
+    t = INRVideo(cfg).init({"params": jax.random.PRNGKey(0)}, axes, hdbf)["params"]
+    t = _random_tree(t, 6)
+    sd = mlp_video_from_jax(t)
+    TorchINR(cfg).load_state_dict(sd, strict=True)
+    _assert_trees_equal(convert_mlp_video(sd), t)
+
+
 def test_port_slice_never_imports_jax():
     """A fresh interpreter imports the port and runs the whole slice (a
     tiny config, 2 DDIM steps, through the service) without loading jax or
@@ -128,10 +200,26 @@ def test_port_slice_never_imports_jax():
             "mlpconfig": dict(ch=32, latent_dim=8),
             "ddpmconfig": dict(image_size=4, channels=4, sampling_timesteps=2)}},
             "data": {"domain": "image", "test_resolution": 16}})
-        s = SamplerService(cfg, service_batch=2, allow_init=True)
+        s = SamplerService(cfg, service_batch=2, device="cpu", allow_init=True)
         out = s.generate(1, seed=0)
         s.close()
         assert out.shape == (1, 16, 16, 3), out.shape
+        from ddmi_tpu_torch.ops import attention, flash_attention, mea
+        vcfg = config_from_dict({"model": {"embed_dim": 8, "params": {
+            "unetconfig": dict(in_channels=8, model_channels=64, out_channels=8,
+                               num_res_blocks=1, attention_resolutions=[2],
+                               channel_mult=[1, 2], num_head_channels=16),
+            "ddconfig": dict(resolution=32, z_channels=32, out_ch=8, ch=32,
+                             ch_mult=[1, 1, 2, 2], num_res_blocks=1,
+                             hdbf_resolutions=[8, 16], inter_attn_resolutions=[4, 8],
+                             attn_type="vanilla-multihead"),
+            "mlpconfig": dict(ch=32, latent_dim=8),
+            "ddpmconfig": dict(timesteps=20, channels=8, sampling_timesteps=2)}},
+            "data": {"domain": "video", "frames": 4}})
+        s = SamplerService(vcfg, service_batch=2, device="cpu", allow_init=True)
+        out = s.generate(1, seed=0)
+        s.close()
+        assert out.shape == (1, 4, 32, 32, 3), out.shape
         assert "jax" not in sys.modules, "the port loaded jax"
         assert not [m for m in sys.modules if m.split(".")[0] == "ddmi_tpu"]
         print("OK")
@@ -149,15 +237,16 @@ def test_port_slice_never_imports_jax():
 def test_port_config_reader_matches_jax():
     """The port's own YAML reader (ddmi_tpu_torch/core/config.py) gives the
     JAX package's values for every field the port reads, on each image
-    stage-2 config."""
+    stage-2 config and on the skytimelapse stage-2 and stage-1 configs."""
     import dataclasses
 
     from ddmi_tpu.core.config import load_config as jax_load
     from ddmi_tpu_torch.core.config import load_config
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for name in ("celebahq.yaml", "afhq.yaml", "celebahq_tpu.yaml"):
-        path = os.path.join(root, "configs", "ldm", name)
+    for name in ("ldm/celebahq.yaml", "ldm/afhq.yaml", "ldm/celebahq_tpu.yaml",
+                 "ldm/skytimelapse.yaml", "d2c-vae/skytimelapse.yaml"):
+        path = os.path.join(root, "configs", name)
         ours, ref = load_config(path), jax_load(path)
         pairs = [(ours.model, ref.model), (ours.data, ref.data)] + [
             (getattr(ours.model, k), getattr(ref.model, k))

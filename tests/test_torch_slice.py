@@ -80,7 +80,7 @@ def test_sample_images_matches_jax(shared):
     noise = np.random.default_rng(1).standard_normal((2, 4, 4, 4)).astype(np.float32)
     ref = jpipe.sample_images(s2, s1, jax.random.PRNGKey(2), batch=2, resolution=16,
                               noise=jax.numpy.asarray(noise))
-    pipe = ImagePipeline(cfg)
+    pipe = ImagePipeline(cfg, device="cpu")
     pipe.load_state_dicts(**sds)
     got = pipe.sample_images(
         2, 16, noise=torch.from_numpy(np.ascontiguousarray(np.transpose(noise, (0, 3, 1, 2))))
@@ -96,7 +96,7 @@ def test_service_coalesces_concurrent_requests(shared):
 
     cfg, _, _, _, sds = shared
     svc = SamplerService(cfg, service_batch=4, resolution=16, linger_ms=500,
-                         state_dicts=sds)
+                         device="cpu", state_dicts=sds)
     batches = []
     run = svc.pipe.sample_images
 
