@@ -32,7 +32,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
      torch's scaled_dot_product_attention where one call computes the same;
   9. video reference: a small video config, bf16 with the kernels on the GPU
      against fp32 plain versions on the CPU, that goes through all three
-     attention kernels.
+     attention kernels;
+ 10. nerf kernel: nerf_mlp against its plain version at the render's shape
+     (4096 rays x 256 samples) and at a ragged N, timed against the plain
+     version and against the bf16 INRNeRF module (a chain of cuBLAS GEMMs);
+     attn_block at the two srn_cars UNet shapes;
+ 11. nerf slice: the NeRF SamplerService on configs/ldm/srn_cars.yaml at
+     full width (bf16, batch 2, 8 views at 128^2, 256 samples per ray, NFE
+     200): two concurrent requests coalesce, a repeat of a seed is
+     bit-identical, and the counters read exactly attn_block 2200 (11 blocks
+     per forward, counted from the module tree) and nerf_mlp 64 per batch;
+ 12. nerf breakdown: one UNet forward, one scene's decode and one view's
+     render (split into the triplane gather with the embeddings, the MLP
+     kernel and the compositing) timed, with profiles of the render and the
+     forward;
+ 13. nerf reference: a small config with a width-256 MLP, bf16 with the
+     kernels on the GPU against fp32 plain versions on the CPU.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -56,6 +71,10 @@ BATCH = 8
 RESOLUTION = 256
 VIDEO_BATCH = 2
 VIDEO_NFE = 200
+NERF_BATCH = 2
+NERF_NFE = 200
+NERF_VIEWS = 8
+NERF_RES = 128
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # attn_block against its fp32 plain version (the JAX bf16 bar)
@@ -65,8 +84,15 @@ ATTN_MAX_ERR, ATTN_MIN_CORR = 0.031, 0.99999
 MHA_REL_ERR, MHA_MIN_CORR = 0.02, 0.9999
 # inr_decode: bf16 activations between 13 matmuls
 INR_REL_MEAN_ERR = 0.02
+# nerf_mlp against its plain version on the same bf16 operands: fp32 sums in
+# another order may flip a bf16 rounding of h (the JAX kernel's bar)
+NERF_RGB_ERR, NERF_SIGMA_REL_ERR = 0.005, 0.01
 # references: bf16 + kernels vs fp32 plain, 4 DDIM steps, pixels in [0, 1]
 REF_MEAN_ERR, REF_MAX_ERR = 0.02, 0.25
+# the NeRF reference's random-weight scene is nearly uniform (pixel std about
+# 0.02), so its bars are tighter, and its std must be several times the mean
+# bar: a flat image at the mean colour then fails
+NERF_REF_MEAN_ERR, NERF_REF_MAX_ERR, NERF_REF_MIN_STD = 0.002, 0.02, 0.01
 # celebahq attention blocks per UNet forward by (H, C, heads): 5 at 32x32,
 # 5 at 16x16, 6 at 8x8
 ATTN_SHAPES = [((32, 512, 16), 5), ((16, 1024, 32), 5), ((8, 2048, 64), 6)]
@@ -75,11 +101,18 @@ ATTN_SHAPES = [((32, 512, 16), 5), ((16, 1024, 32), 5), ((8, 2048, 64), 6)]
 # mha_vmem and 6 flash attentions per UNet forward, 2 flash in the decode
 VIDEO_LAUNCHES = {"attn_block": 32 * VIDEO_NFE, "mha_vmem": 18 * VIDEO_NFE,
                   "flash_attention": 6 * VIDEO_NFE + 2}
+# srn_cars UNet attention blocks per forward by (H, C, heads): 5 at 8x8 (ds 2),
+# 6 at 4x4 (ds 4); per batch 11 per forward and one MLP launch per 4096-ray
+# chunk: 2 scenes x 8 views x 4 chunks
+NERF_ATTN_SHAPES = [((8, 512, 16), 5), ((4, 1024, 32), 6)]
+NERF_LAUNCHES = {"attn_block": 11 * NERF_NFE,
+                 "nerf_mlp": NERF_BATCH * NERF_VIEWS * (NERF_RES * NERF_RES // 4096)}
 KERNELS = {
     "attn_block": ("ddmi_tpu_torch/csrc/attn_block.cu", "ddmi_tpu/ops/pallas/attn_block.py:199"),
     "inr_decode": ("ddmi_tpu_torch/csrc/inr_decode.cu", "ddmi_tpu/ops/pallas/inr_decode.py:307"),
     "mha_vmem": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/ops/pallas/attention.py:100"),
     "flash_attention": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/nn/attention1d.py:77"),
+    "nerf_mlp": ("ddmi_tpu_torch/csrc/nerf_mlp.cu", "ddmi_tpu/ops/pallas/nerf_mlp.py:213"),
 }
 
 
@@ -194,12 +227,13 @@ def perturb_zero_init(module, seed: int, noise: bool = True) -> None:
 
 
 def reset_launches():
-    from ddmi_tpu_torch.ops import attention, attn_block, flash_attention, inr_decode
+    from ddmi_tpu_torch.ops import attention, attn_block, flash_attention, inr_decode, nerf_mlp
 
     fns = {"attn_block": attn_block.fused_attention_block,
            "inr_decode": inr_decode.inr_decode_fused,
            "mha_vmem": attention.mha_vmem,
-           "flash_attention": flash_attention.flash_attention}
+           "flash_attention": flash_attention.flash_attention,
+           "nerf_mlp": nerf_mlp.nerf_mlp_fused}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -668,6 +702,235 @@ def video_reference_phase(torch, dev):
         raise AssertionError("the GPU video slice disagrees with the CPU reference")
 
 
+def nerf_mlp_macs(f) -> int:
+    """Multiply-adds per point of the NeRF MLP of folded weights `f`, at its
+    real widths (no padding): trunk, sigma, feature, dir and rgb heads."""
+    W = f.width
+    trunk = sum((f.in_xyz if i == 0 or i in f.skips else 0) + (W if i else 0)
+                for i in range(f.depth)) * W
+    return trunk + W + W * W + (W + f.in_dir) * (W // 2) + (W // 2) * 3
+
+
+def nerf_kernel_phase(torch, dev):
+    """nerf_mlp against its plain version at the render's 4096 x 256 points
+    and at a ragged N; timed against the plain version and the bf16 INRNeRF
+    module (cuBLAS GEMMs, one per layer).  attn_block at the srn_cars UNet
+    shapes."""
+    from ddmi_tpu_torch.nn.inr import INRNeRF
+    from ddmi_tpu_torch.ops import nerf_mlp
+
+    for i, ((H, C, nh), per_forward) in enumerate(NERF_ATTN_SHAPES):
+        attn_block_case(torch, dev, "nerf", per_forward * NERF_NFE, NERF_BATCH, H, H, C, nh,
+                        300 + i)
+    torch.manual_seed(31)
+    mlp = INRNeRF(6, 256, 3 * 32 + 63, 27, (2, 4)).to(dev)
+    perturb_zero_init(mlp, 32)
+    folded = nerf_mlp.fold_nerf_params(mlp)
+    chain = INRNeRF(6, 256, 3 * 32 + 63, 27, (2, 4)).to(dev).bfloat16()
+    chain.load_state_dict(mlp.state_dict())
+    g = torch.Generator(device=dev).manual_seed(33)
+    calls = NERF_LAUNCHES["nerf_mlp"]
+    for N in (4096 * 256 - 37, 4096 * 256):
+        x = torch.randn((N, 186), generator=g, device=dev).bfloat16()
+        kern = lambda: nerf_mlp.nerf_mlp_fused(folded, x)
+        plain = lambda: nerf_mlp.nerf_mlp_plain(folded, x)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        rgb_err = (out[:, :3] - ref[:, :3]).abs().max().item()
+        sig_err = (out[:, 3] - ref[:, 3]).abs().max().item()
+        sig_max = ref[:, 3].abs().max().item()
+        log(f"[nerf-kernel] nerf_mlp N={N}: rgb max|err| {rgb_err:.6f}, sigma max|err| "
+            f"{sig_err:.6f} (max|sigma| {sig_max:.4f})")
+        if not (rgb_err <= NERF_RGB_ERR and sig_err <= NERF_SIGMA_REL_ERR * max(1.0, sig_max)
+                and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"nerf_mlp disagrees at N={N}")
+        del out, ref
+    with torch.inference_mode():
+        kms, pms = paired_ms(kern, plain, 5)
+        cms = cuda_ms(lambda: chain(x), 5)
+    N = x.shape[0]
+    flops = 2 * N * nerf_mlp_macs(folded)
+    nbytes = x.numel() * 2 + N * 4 * 4 + 2 * nerf_mlp_macs(folded)
+    bms, by = bound(flops, nbytes)
+    log(f"[nerf-kernel] nerf_mlp N={N} (x{calls}/batch): kernel {kms:.4f} ms, plain fp32 "
+        f"{pms:.4f} ms, bf16 INRNeRF (cuBLAS GEMM chain, not one call) {cms:.4f} ms, library "
+        f"none (no single PyTorch call), bound {bms:.4f} ms ({by}; {flops / 1e12:.4f} TFLOP, "
+        f"{nbytes / 1e9:.4f} GB); {flops / kms / 1e9:.1f} TFLOP/s")
+    LEDGER.add("nerf_mlp", "nerf", calls, kms, pms, None, flops, nbytes,
+               max(rgb_err, sig_err))
+    LEDGER.rows["nerf_mlp"]["by_path"]["nerf"]["cublas_chain_ms"] = calls * cms
+
+
+def nerf_config():
+    """configs/ldm/srn_cars.yaml with its data.conv_config made absolute."""
+    from ddmi_tpu_torch.core.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs/ldm/srn_cars.yaml"))
+    data = dataclasses.replace(cfg.data, conv_config=os.path.join(ROOT, cfg.data.conv_config))
+    return dataclasses.replace(cfg, data=data)
+
+
+def count_attention_blocks(torch, unet, x, t):
+    """(shape -> count) of the UNet's AttentionBlock calls in one forward,
+    from forward hooks on the module tree, and how many the fused block
+    takes."""
+    from ddmi_tpu_torch.nn.unet import AttentionBlock
+    from ddmi_tpu_torch.ops import attn_block
+
+    seen = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.update([(tuple(args[0].shape[1:]), mod.num_heads)]))
+        for m in unet.modules() if isinstance(m, AttentionBlock)]
+    try:
+        with torch.inference_mode():
+            unet(x, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    fused = sum(c for ((C, H, W), nh), c in seen.items() if attn_block.jax_supported(H * W, C, nh))
+    return dict(seen), fused, len(hooks)
+
+
+def nerf_slice_phase(torch, dev):
+    """The NeRF service at full width; returns (launches, service) with the
+    service still open for the breakdown."""
+    from ddmi_tpu_torch.serve.server import SamplerService
+
+    cfg = nerf_config()
+    if cfg.model.ddpmconfig.sampling_timesteps != NERF_NFE:
+        raise AssertionError("configs/ldm/srn_cars.yaml no longer samples at NFE 200")
+    t0 = time.perf_counter()
+    svc = SamplerService(cfg, service_batch=NERF_BATCH, resolution=NERF_RES,
+                         n_views=NERF_VIEWS, linger_ms=500, device=dev, allow_init=True)
+    perturb_zero_init(svc.pipe, 21)
+    pipe = svc.pipe
+    n_params = sum(p.numel() for p in pipe.parameters())
+    mlp = pipe.mlp
+    log(f"[nerf] srn_cars at full width: {n_params} parameters (bf16), latents "
+        f"{pipe.latent_res}^2 x {cfg.model.ddpmconfig.channels}, MLP D {mlp.depth} W "
+        f"{mlp.width} skips {mlp.skips} xyz {mlp.in_channels_xyz} dir {mlp.in_channels_dir}, "
+        f"{pipe.n_samples} samples per ray, {NERF_VIEWS} views at {NERF_RES}^2, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    r, c = pipe.latent_res, cfg.model.ddpmconfig.channels
+    x = torch.zeros((NERF_BATCH, c, r, r), device=dev)
+    t = torch.full((NERF_BATCH,), 500, device=dev, dtype=torch.long)
+    shapes, fused, blocks = count_attention_blocks(torch, pipe.unet, x, t)
+    log(f"[nerf] UNet attention blocks in the module tree: {blocks}, called as "
+        f"{shapes}; the fused block takes {fused} per forward")
+    if fused * NERF_NFE != NERF_LAUNCHES["attn_block"] or blocks != fused:
+        raise AssertionError(f"expected 11 fused attention blocks per forward, got {fused}")
+    requests = [(1, 301), (1, 302)]
+    try:
+        t0 = time.perf_counter()
+        svc.warmup()
+        log(f"[nerf] warm-up batch {time.perf_counter() - t0:.3f} s")
+        results, t_batch, t_repeat, launches, peak = serve(torch, dev, svc, requests, "nerf")
+    except BaseException:
+        svc.close()
+        raise
+    shape = (1, NERF_VIEWS, NERF_RES, NERF_RES, 3)
+    for n, seed in requests:
+        res = results[seed]
+        log(f"[nerf] request seed={seed} n={n}: {res.shape} {res.dtype} mean {res.mean():.3f}")
+        if res.shape != shape or res.dtype.name != "uint8":
+            raise AssertionError(f"bad NeRF views for seed {seed}: {res.shape} {res.dtype}")
+    expect = {k: 2 * v for k, v in NERF_LAUNCHES.items()}
+    got = {k: launches[k] for k in expect}
+    others = {k: v for k, v in launches.items() if k not in expect}
+    log(f"[nerf] launches over 2 batches: {got} (expected {expect}); others {others} "
+        f"(expected 0)")
+    if got != expect or any(others.values()):
+        raise AssertionError(f"the NeRF slice's launch counts are off: {launches}")
+    log(f"[nerf] coalesced batch of {NERF_BATCH} scenes x {NERF_VIEWS} views at "
+        f"{NERF_RES}^2, NFE {NERF_NFE}: {t_batch:.3f} s = {NERF_BATCH / t_batch:.4f} scenes/s "
+        f"on {nvidia_smi()}; repeat request {t_repeat:.3f} s; peak allocated "
+        f"{peak / 2**30:.2f} GiB")
+    return launches, svc
+
+
+def nerf_breakdown_phase(torch, dev, pipe):
+    """One UNet forward, one scene's decode and one view's render at the
+    slice's shapes, the render split over one 4096-ray chunk into the
+    triplane gather with the embeddings, the MLP kernel and the compositing;
+    profiles of one view's render and of one forward."""
+    from ddmi_tpu_torch.domains.nerf import get_rays, raw2outputs, spherical_poses
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    r, c = pipe.latent_res, pipe.cfg.model.ddpmconfig.channels
+    x = torch.randn((NERF_BATCH, c, r, r), generator=g, device=dev)
+    t = torch.full((NERF_BATCH,), 500, device=dev, dtype=torch.long)
+    pose = spherical_poses(1, device=dev)[0]
+    with torch.inference_mode():
+        unet_ms = cuda_ms(lambda: pipe.unet(x, t), 5)
+        z1 = x[:1]
+        dec_ms = cuda_ms(lambda: pipe.decode_planes(z1), 3)
+        planes = pipe.decode_planes(z1)
+        folded = pipe.fold_mlp()
+        view_ms = cuda_ms(lambda: pipe.render_image(planes, pose, NERF_RES, NERF_RES, folded), 3)
+        ro, rd = (a.reshape(-1, 3)[:4096] for a in get_rays(NERF_RES, NERF_RES, pose))
+        gather_ms = cuda_ms(lambda: pipe.mlp_input(planes, ro, rd), 3)
+        xin, zv = pipe.mlp_input(planes, ro, rd)
+        mlp_ms = cuda_ms(lambda: pipe.run_mlp(xin, folded), 3)
+        raw = pipe.run_mlp(xin, folded)
+        comp_ms = cuda_ms(lambda: raw2outputs(raw, zv, rd, pipe.white_bkgd), 3)
+    per_batch = (NERF_NFE * unet_ms + NERF_BATCH * dec_ms
+                 + NERF_BATCH * NERF_VIEWS * view_ms) / 1000
+    log(f"[nerf-breakdown] batch {NERF_BATCH}: UNet forward {unet_ms:.3f} ms (x{NERF_NFE} = "
+        f"{unet_ms * NERF_NFE / 1000:.3f} s), decode of one scene {dec_ms:.3f} ms, one "
+        f"{NERF_RES}^2 view {view_ms:.3f} ms (x{NERF_BATCH * NERF_VIEWS} = "
+        f"{NERF_BATCH * NERF_VIEWS * view_ms / 1000:.3f} s); sum {per_batch:.3f} s per batch")
+    log(f"[nerf-breakdown] one 4096-ray chunk (x4 per view): triplane gather + embeddings "
+        f"{gather_ms:.3f} ms, MLP kernel {mlp_ms:.3f} ms, compositing {comp_ms:.3f} ms")
+    profile_top(torch, lambda: pipe.render_image(planes, pose, NERF_RES, NERF_RES, folded),
+                "nerf-breakdown render", ("nerf_mlp_kernel",))
+    profile_top(torch, lambda: pipe.unet(x, t), "nerf-breakdown forward",
+                ("gemm_kernel", "attn_fwd_kernel"))
+
+
+def nerf_reference_phase(torch, dev):
+    """bf16 + kernels on the GPU against fp32 plain versions on the CPU, at a
+    small config whose MLP width (256) the kernel takes and whose UNet
+    attention (C 128, 4 heads at 4x4) the fused block takes; NFE 4, 2 views
+    at 16^2."""
+    import numpy as np
+
+    from ddmi_tpu_torch.core.config import config_from_dict
+    from ddmi_tpu_torch.domains.nerf import NeRFPipeline
+
+    cfg = config_from_dict({
+        "model": {"embed_dim": 4, "params": {
+            "unetconfig": dict(in_channels=12, model_channels=64, out_channels=12,
+                               num_res_blocks=1, attention_resolutions=[2],
+                               channel_mult=[1, 2], num_head_channels=32),
+            "ddconfig": dict(z_channels=16, resolution=32, out_ch=32, ch=32,
+                             ch_mult=[1, 2, 2], num_res_blocks=1, hdbf_resolutions=[],
+                             inter_attn_resolutions=[32, 16, 8]),
+            "mlpconfig": dict(D=6, W=256, skips=[2, 4], N_samples=64),
+            "ddpmconfig": dict(channels=12, sampling_timesteps=4)}},
+        "data": {"domain": "nerf"}})
+    cpu = NeRFPipeline(cfg, device="cpu", seed=5)
+    perturb_zero_init(cpu, 6)
+    gpu = NeRFPipeline(cfg, device=dev, seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cast(torch.bfloat16)
+    noise = np.random.default_rng(9).standard_normal((2, 12, 8, 8)).astype(np.float32)
+    ref = cpu.sample_nerfs(2, n_views=2, H=16, W=16, noise=torch.from_numpy(noise))
+    read = reset_launches()
+    got = gpu.sample_nerfs(2, n_views=2, H=16, W=16, noise=torch.from_numpy(noise).to(dev))
+    got = got.cpu()
+    launches = read()
+    d = (got.clamp(0, 1) - ref.clamp(0, 1)).abs()
+    log(f"[nerf-reference] small config, NFE 4, 2 views at 16^2: bf16 kernels vs fp32 plain "
+        f"on the CPU: mean|diff| {d.mean().item():.6f}, max|diff| {d.max().item():.6f}, pixel "
+        f"std {ref.std().item():.4f}; launches {launches}")
+    if not (launches["nerf_mlp"] == 2 * 2 and launches["attn_block"] > 0):
+        raise AssertionError(f"the NeRF reference missed a kernel: {launches}")
+    if not ref.clamp(0, 1).std().item() >= NERF_REF_MIN_STD:
+        raise AssertionError("the NeRF reference render is too flat to compare")
+    if not (d.mean().item() <= NERF_REF_MEAN_ERR and d.max().item() <= NERF_REF_MAX_ERR):
+        raise AssertionError("the GPU NeRF slice disagrees with the CPU reference")
+
+
 def main() -> int:
     import torch
 
@@ -690,7 +953,7 @@ def main() -> int:
     from ddmi_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    names = ("attn_block", "inr_decode", "attention")
+    names = ("attn_block", "inr_decode", "attention", "nerf_mlp")
     build.build_all(names)
     log(f"[build] {len(names)} libraries, one nvcc each in parallel: "
         f"{time.perf_counter() - t0:.2f} s wall")
@@ -717,8 +980,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     video_kernel_phase(torch, dev, shapes)
     video_reference_phase(torch, dev)
+    torch.cuda.empty_cache()
+    nerf_kernel_phase(torch, dev)
+    nerf, svc = nerf_slice_phase(torch, dev)
+    try:
+        nerf_breakdown_phase(torch, dev, svc.pipe)
+    finally:
+        svc.close()
+    del svc
+    torch.cuda.empty_cache()
+    nerf_reference_phase(torch, dev)
 
-    kernels = [LEDGER.entry(name, image[name] + video[name]) for name in KERNELS]
+    kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name]) for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,11 +1,14 @@
 """Typed configuration for the port's sampling slice.
 
 Reads the same YAML files as ddmi_tpu/core/config.py (e.g.
-configs/ldm/celebahq.yaml, configs/ldm/skytimelapse.yaml), into dataclasses that carry the fields the
-ported slice uses, with the JAX package's defaults; every other key lands in
-an `extra` dict.  The port keeps its own reader, although the JAX one
-imports no JAX, so that a run of the port loads no module of the JAX
-package.  Parsing uses PyYAML, which the GPU machine has.
+configs/ldm/celebahq.yaml, configs/ldm/skytimelapse.yaml,
+configs/ldm/srn_cars.yaml), into dataclasses that carry the fields the
+ported slices use, with the JAX package's defaults; every other key lands in
+an `extra` dict (the NeRF MLP's D / W / skips / multires / N_samples are
+read from `mlpconfig.extra`, as the JAX NeRF pipeline reads them).  The
+port keeps its own reader, although the JAX one imports no JAX, so that a
+run of the port loads no module of the JAX package.  Parsing uses PyYAML,
+which the GPU machine has.
 """
 
 from __future__ import annotations
@@ -122,6 +125,7 @@ class DataConfig:
     domain: str = "image"
     test_resolution: int = 256
     frames: int = 16
+    conv_config: Optional[str] = None  # nested convocc YAML (NeRF render kwargs)
     extra: Dict[str, Any] = field(default_factory=dict)
 
 

@@ -4,7 +4,8 @@ The exact inverse of the sampling-path converters in
 ddmi_tpu/interop/reference_ckpt.py: for images `convert_unet`, the decoder
 half of `convert_vae` and `convert_mlp_image`; for video
 `convert_unet_triplane`, the decoder half of `convert_video_vae` and
-`convert_mlp_video`.  The port's modules use the reference
+`convert_mlp_video`; for NeRF the decoder half of `convert_triplane_vae` and
+`convert_mlp_nerf` (the UNet is the image one).  The port's modules use the reference
 PyTorch layouts, so every map here is a transpose, reshape or channel
 permutation and the round trip is bit-exact:
 
@@ -14,7 +15,8 @@ permutation and the round trip is bit-exact:
   * GroupNorm scale / bias     -> weight / bias
   * ModulatedConv (k, k, I, O) -> (1, O, I, k, k)
   * Flax Dense (I, O) over tokens -> Conv1d (O, I, 1)   [1D attention]
-  * Flax Dense (I, O) over planes -> 1x1 Conv2d (O, I, 1, 1) [video post_*]
+  * Flax Dense (I, O) over planes -> 1x1 Conv2d (O, I, 1, 1) [video post_*,
+                                                    triplane post_quant_conv_*]
   * ADM qkv: qkv-major output channels -> head-major (QKVAttentionLegacy)
 """
 
@@ -296,4 +298,73 @@ def mlp_video_from_jax(tree) -> SD:
         if "shortcut" in blk:
             sd[f"net_res{i}.shortcut.weight"] = _t(np.transpose(blk["shortcut"]["kernel"]))
     _dense(sd, "net_out", tree["net_out"])
+    return sd
+
+
+# ------------------------------------------------------------------ NeRF
+
+
+def _inter_plane(sd: SD, key_a: str, key_attn: str, key_b: str, p) -> None:
+    """JAX InterPlaneBlock {block_a, AttnBlock_0?, block_b} -> the
+    reference's [ResnetBlock(3c), attn(3c), ResnetBlock(3c)] keys."""
+    _vae_resnet(sd, key_a, p["block_a"])
+    if "AttnBlock_0" in p:
+        _vae_attn(sd, key_attn, p["AttnBlock_0"])
+    _vae_resnet(sd, key_b, p["block_b"])
+
+
+def triplane_decoder_from_jax(tree, cfg) -> SD:
+    """JAX TriplaneAutoencoder params (nn/triplane_vae.py) -> state_dict of
+    the port's decode-only TriplaneAutoencoder (`decoder.*`,
+    `post_quant_conv_{xy,yz,xz}.*`).  Inverts the decoder half of
+    reference_ckpt.convert_triplane_vae; the encoder is not read."""
+    if cfg.attn_type not in ("vanilla", "vanilla-multihead", "none"):
+        raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
+    dec = tree["decoder"]
+    sd: SD = {}
+    _conv(sd, "decoder.conv_in", dec["conv_in"])
+    ab = 0
+    _vae_resnet(sd, "decoder.mid.block_1", dec["mid_block1"])
+    if cfg.attn_type != "none":
+        _vae_attn(sd, "decoder.mid.attn_1", dec[f"AttnBlock_{ab}"])
+        ab += 1
+    _vae_resnet(sd, "decoder.mid.block_2", dec["mid_block2"])
+    _inter_plane(sd, "decoder.mid.block_3", "decoder.mid_attn", "decoder.mid.block_4",
+                 dec["mid_inter"])
+    n = len(cfg.ch_mult)
+    curr = cfg.resolution // 2 ** (n - 1)
+    for i in reversed(range(n)):
+        for j in range(cfg.num_res_blocks + 1):
+            _vae_resnet(sd, f"decoder.up.{i}.block.{j}", dec[f"up_{i}_{j}"])
+            if curr in cfg.attn_resolutions:
+                _vae_attn(sd, f"decoder.up.{i}.attn.{j}", dec[f"AttnBlock_{ab}"])
+                ab += 1
+        if curr in cfg.inter_attn_resolutions:
+            key = f"decoder.up.{i}.inter_attn"
+            _inter_plane(sd, key + ".0", key + ".1", key + ".2", dec[f"inter_{i}"])
+        if curr in cfg.hdbf_resolutions:
+            _conv(sd, f"decoder.up.{i}.hdbf.0", dec[f"hdbf_{curr}"])
+        if i != 0:
+            _conv(sd, f"decoder.up.{i}.upsample.conv", dec[f"upsample_{i}"]["Conv_0"])
+            curr *= 2
+    _gn(sd, "decoder.norm_out", dec["norm_out"]["GroupNorm_0"])
+    _conv(sd, "decoder.conv_out", dec["conv_out"])
+    for plane in ("xy", "yz", "xz"):
+        p = tree[f"post_{plane}"]
+        sd[f"post_quant_conv_{plane}.weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
+        sd[f"post_quant_conv_{plane}.bias"] = _t(p["bias"])
+    return sd
+
+
+def mlp_nerf_from_jax(tree, depth: int) -> SD:
+    """JAX INRNeRF params (nn/inr.py) -> port INRNeRF state_dict (the
+    reference MLPNeRF's keys, Linear at index 0 of each Sequential);
+    inverts reference_ckpt.convert_mlp_nerf."""
+    sd: SD = {}
+    for i in range(1, depth + 1):
+        _dense(sd, f"xyz_encoding_{i}.0", tree[f"xyz_encoding_{i}"])
+    _dense(sd, "xyz_encoding_final", tree["xyz_encoding_final"])
+    _dense(sd, "dir_encoding.0", tree["dir_encoding"])
+    _dense(sd, "sigma", tree["sigma"])
+    _dense(sd, "rgb.0", tree["rgb"])
     return sd

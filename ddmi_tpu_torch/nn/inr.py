@@ -1,10 +1,13 @@
 """INR heads of the sampling paths (counterpart of ddmi_tpu/nn/inr.py):
 the scale-aware image head `INRImage` and the video head `INRVideo`, both on
-regular grids only (the separable sampling of ops/resample.py).
+regular grids only (the separable sampling of ops/resample.py), and the NeRF
+MLP `INRNeRF` with its `FreqEmbedding`.
 
 The state keys are the reference MLPs' (models/d2c_vae/mlp.py): for
 INRImage `time_mlp.{1,3}` for the style MLP, `net_res{1..4}` and `torgb`;
-for INRVideo (MLPVideo) `net_res{1..4}` and `net_out`.
+for INRVideo (MLPVideo) `net_res{1..4}` and `net_out`; for INRNeRF
+(MLPNeRF) `xyz_encoding_{i}.0`, `xyz_encoding_final`, `dir_encoding.0`,
+`sigma` and `rgb.0`.
 """
 
 from __future__ import annotations
@@ -139,3 +142,61 @@ class INRVideo(nn.Module):
         x = self.net_res3(torch.cat([x, x_h], -1))
         x = self.net_res4(x)
         return self.net_out(F.leaky_relu(x, 0.2))
+
+
+class FreqEmbedding(nn.Module):
+    """NeRF frequency embedding x -> [x, sin(2^0 x), cos(2^0 x), ...,
+    sin(2^(n-1) x), cos(2^(n-1) x)], interleaved per frequency, in fp32."""
+
+    def __init__(self, n_freqs: int):
+        super().__init__()
+        self.n_freqs = n_freqs
+
+    def out_dim(self, in_dim: int = 3) -> int:
+        return in_dim * (2 * self.n_freqs + 1)
+
+    def forward(self, x):
+        x = x.float()
+        out = [x]
+        for k in range(self.n_freqs):
+            out += [torch.sin(2.0**k * x), torch.cos(2.0**k * x)]
+        return torch.cat(out, dim=-1)
+
+
+class INRNeRF(nn.Module):
+    """The NeRF MLP: `depth` layers of width `width` with LeakyReLU 0.01 (the
+    JAX package's slope; the reference's LeakyReLU(True) acts as slope 1),
+    the xyz input concatenated in front of h before each layer in `skips`, a
+    sigma head, and a view-conditioned rgb head.  x (..., in_xyz + in_dir)
+    -> (..., 4) [sigmoid(rgb), sigma] in the parameters' dtype."""
+
+    def __init__(self, depth: int = 8, width: int = 256, in_channels_xyz: int = 96,
+                 in_channels_dir: int = 27, skips=(2, 4, 6)):
+        super().__init__()
+        self.depth, self.width = depth, width
+        self.in_channels_xyz, self.in_channels_dir = in_channels_xyz, in_channels_dir
+        self.skips = tuple(skips)
+        for i in range(depth):
+            fan_in = (in_channels_xyz if i == 0 else width) + (
+                in_channels_xyz if i in self.skips else 0)
+            layer = nn.Sequential(nn.Linear(fan_in, width), nn.LeakyReLU(0.01))
+            setattr(self, f"xyz_encoding_{i + 1}", layer)
+        self.xyz_encoding_final = nn.Linear(width, width)
+        self.dir_encoding = nn.Sequential(
+            nn.Linear(width + in_channels_dir, width // 2), nn.LeakyReLU(0.01))
+        self.sigma = nn.Linear(width, 1)
+        self.rgb = nn.Sequential(nn.Linear(width // 2, 3), nn.Sigmoid())
+
+    def forward(self, x):
+        x = x.to(self.sigma.weight.dtype)
+        input_xyz = x[..., : self.in_channels_xyz]
+        input_dir = x[..., self.in_channels_xyz :]
+        h = input_xyz
+        for i in range(self.depth):
+            if i in self.skips:
+                h = torch.cat([input_xyz, h], dim=-1)
+            h = getattr(self, f"xyz_encoding_{i + 1}")(h)
+        sigma = self.sigma(h)
+        feat = self.xyz_encoding_final(h)
+        rgb = self.rgb(self.dir_encoding(torch.cat([feat, input_dir], dim=-1)))
+        return torch.cat([rgb, sigma], dim=-1)

@@ -1,0 +1,132 @@
+"""Triplane VAE for NeRF, decode half (counterpart of
+ddmi_tpu/nn/triplane_vae.py: `InterPlaneBlock`, `TriplaneDecoder`,
+`TriplaneAutoencoder.decode`).
+
+The three planes (xy, yz, xz) share every weight, so they run stacked on the
+batch axis, (3b, C, H, W), plane-major.  At `inter_attn_resolutions` and at
+the bottleneck the planes mix through a channel concat: ResnetBlock(3c),
+spatial attention over 3c channels, ResnetBlock(3c), split back.  The
+attention is the dense `AttnBlock` of nn/vae.py, as in the JAX package, which
+runs it as an einsum and not as a kernel (at 64^2 it is n = 4096, hd 192).
+
+State keys follow the reference Decoder_triplane and Autoencoder3D:
+`decoder.conv_in`, `decoder.mid.{block_1,attn_1,block_2,block_3,block_4}`,
+`decoder.mid_attn` (the bottleneck mix's attention sits at the decoder's
+top level, between mid.block_3 and mid.block_4), `decoder.up.{i}.{block,
+attn,inter_attn.{0,1,2},hdbf.0,upsample.conv}`, `decoder.norm_out`,
+`decoder.conv_out`, and the 1x1 convs `post_quant_conv_{xy,yz,xz}` (Dense
+layers in the JAX package).  The encoder and the posterior wait for the
+training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddmi_tpu_torch.nn.vae import Norm, ResnetBlock, Upsample, _make_attn
+
+
+def inter_plane(h: torch.Tensor, block_a, attn, block_b) -> torch.Tensor:
+    """Channel-concat plane mixing of plane-major stacked planes (3b, c, H,
+    W): ResnetBlock(3c) -> attention(3c) -> ResnetBlock(3c) -> split."""
+    x = torch.cat(h.chunk(3, dim=0), dim=1)
+    x = block_a(x)
+    if attn is not None:
+        x = attn(x)
+    x = block_b(x)
+    return torch.cat(x.chunk(3, dim=1), dim=0)
+
+
+class TriplaneDecoder(nn.Module):
+    """(xy, yz, xz) NCHW latent planes -> three HDBF pyramids (xy, yz, xz),
+    each coarse to fine (one level when hdbf_resolutions is empty)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        n = len(cfg.ch_mult)
+        curr = cfg.resolution // 2 ** (n - 1)
+        block_in = cfg.ch * cfg.ch_mult[-1]
+        self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
+        self.mid = nn.Module()
+        self.mid.block_1 = ResnetBlock(block_in, block_in)
+        self.mid.attn_1 = _make_attn(block_in, cfg.attn_type)
+        self.mid.block_2 = ResnetBlock(block_in, block_in)
+        self.mid.block_3 = ResnetBlock(3 * block_in, 3 * block_in)
+        self.mid.block_4 = ResnetBlock(3 * block_in, 3 * block_in)
+        self.mid_attn = _make_attn(3 * block_in, cfg.attn_type)
+        levels = {}
+        for i in reversed(range(n)):
+            lvl = nn.Module()
+            block_out = cfg.ch * cfg.ch_mult[i]
+            lvl.block = nn.ModuleList()
+            lvl.attn = nn.ModuleList()
+            for _ in range(cfg.num_res_blocks + 1):
+                lvl.block.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if curr in cfg.attn_resolutions:
+                    lvl.attn.append(_make_attn(block_in, cfg.attn_type))
+            lvl.inter_attn = None
+            if curr in cfg.inter_attn_resolutions:
+                c3 = 3 * block_in
+                lvl.inter_attn = nn.ModuleList([
+                    ResnetBlock(c3, c3), _make_attn(c3, cfg.attn_type) or nn.Identity(),
+                    ResnetBlock(c3, c3)])
+            lvl.hdbf = (
+                nn.Sequential(nn.Conv2d(block_in, cfg.out_ch, 1))
+                if curr in cfg.hdbf_resolutions else None
+            )
+            lvl.upsample = Upsample(block_in) if i != 0 else None
+            if i != 0:
+                curr *= 2
+            levels[i] = lvl
+        self.up = nn.ModuleList([levels[i] for i in range(n)])
+        self.norm_out = Norm(block_in)
+        self.conv_out = nn.Conv2d(block_in, cfg.out_ch, 3, padding=1)
+
+    def forward(self, planes):
+        b = planes[0].shape[0]
+        h = self.conv_in(torch.cat(list(planes), dim=0))
+        h = self.mid.block_1(h)
+        if self.mid.attn_1 is not None:
+            h = self.mid.attn_1(h)
+        h = self.mid.block_2(h)
+        h = inter_plane(h, self.mid.block_3, self.mid_attn, self.mid.block_4)
+        taps = []
+        for i in reversed(range(len(self.up))):
+            lvl = self.up[i]
+            for j, blk in enumerate(lvl.block):
+                h = blk(h)
+                if len(lvl.attn):
+                    h = lvl.attn[j](h)
+            if lvl.inter_attn is not None:
+                h = inter_plane(h, *lvl.inter_attn)
+            if lvl.hdbf is not None:
+                taps.append(lvl.hdbf(h))
+            if lvl.upsample is not None:
+                h = lvl.upsample(h)
+        taps.append(self.conv_out(F.silu(self.norm_out(h))))
+        return tuple([t[k * b : (k + 1) * b] for t in taps] for k in range(3))
+
+
+class TriplaneAutoencoder(nn.Module):
+    """The decode half of the reference Autoencoder3D."""
+
+    def __init__(self, cfg, embed_dim: int = 64):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.decoder = TriplaneDecoder(cfg)
+        for plane in ("xy", "yz", "xz"):
+            setattr(self, f"post_quant_conv_{plane}", nn.Conv2d(embed_dim, cfg.z_channels, 1))
+
+    def decode(self, z: torch.Tensor):
+        """z (b, 3 * embed_dim, r, r), channels [xy | xz | yz] -> (pyr_xy,
+        pyr_yz, pyr_xz).  The slice order differs from the plane order, as
+        in the reference and the JAX package."""
+        e = self.embed_dim
+        xy = self.post_quant_conv_xy(z[:, :e])
+        xz = self.post_quant_conv_xz(z[:, e : 2 * e])
+        yz = self.post_quant_conv_yz(z[:, 2 * e :])
+        return self.decoder((xy, yz, xz))

@@ -1,6 +1,6 @@
 """In-process batching sampling service (counterpart of
-ddmi_tpu/serve/server.py::SamplerService, image and video domains, no HTTP
-front end).
+ddmi_tpu/serve/server.py::SamplerService, image, video and NeRF domains, no
+HTTP front end).
 
 Concurrent `generate` calls are coalesced into one device batch of
 `service_batch` samples (a linger window collects them): a DDIM run costs
@@ -8,7 +8,7 @@ the same for 1 or `service_batch` samples.  Each request's initial latent is
 drawn on the host from its own seed (numpy, the same draw as the JAX
 service), so a seed reproduces its sample however requests were batched.
 The image INR's NoiseInjection draws are keyed by the first seed in the
-batch; the video INR draws none.
+batch; the video and NeRF renders draw none.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ddmi_tpu_torch.domains.image import ImagePipeline
+from ddmi_tpu_torch.domains.nerf import NeRFPipeline
 from ddmi_tpu_torch.domains.video import VideoPipeline
 
 
@@ -39,8 +40,10 @@ class _Request:
 
 
 class SamplerService:
-    """Serves uint8 samples of an image config, (n, res, res, 3), or of a
-    video config, (n, frames, res, res, 3) at the VAE's resolution.
+    """Serves uint8 samples of an image config, (n, res, res, 3), of a
+    video config, (n, frames, res, res, 3) at the VAE's resolution, or of a
+    NeRF config, (n, n_views, res, res, 3): a spherical camera path of
+    `n_views` views at `resolution` (default 128) per scene.
 
     `state_dicts` holds the port state_dicts for the pipeline's
     `load_state_dicts` (unet / vae / mlp / mixing_logit).  Without them the
@@ -52,9 +55,10 @@ class SamplerService:
 
     def __init__(self, cfg, service_batch: int = 8, resolution: Optional[int] = None,
                  linger_ms: float = 20.0, device="cuda",
-                 state_dicts: Optional[dict] = None, allow_init: bool = False):
+                 state_dicts: Optional[dict] = None, allow_init: bool = False,
+                 n_views: int = 8):
         self.domain = cfg.data.domain
-        if self.domain not in ("image", "video"):
+        if self.domain not in ("image", "video", "nerf"):
             raise NotImplementedError(f"domain {self.domain!r} is not ported")
         self.cfg = cfg
         self.batch = int(service_batch)
@@ -64,6 +68,12 @@ class SamplerService:
             pipe = VideoPipeline(cfg, device=device)
             self.res = pipe.res
             self._noise_shape = (pipe.n_latent_tokens, u.channels)
+        elif self.domain == "nerf":
+            pipe = NeRFPipeline(cfg, device=device)
+            self.res = int(resolution or 128)
+            self.n_views = int(n_views)
+            r = pipe.latent_res
+            self._noise_shape = (r, r, u.channels)  # NHWC, as JAX draws it
         else:
             pipe = ImagePipeline(cfg, device=device)
             self.res = int(resolution or cfg.data.test_resolution)
@@ -102,6 +112,9 @@ class SamplerService:
         """One service batch from its initial latent, in [0, 1]."""
         if self.domain == "video":
             return self.pipe.sample_videos(self.batch, noise=noise)
+        if self.domain == "nerf":
+            return self.pipe.sample_nerfs(self.batch, self.n_views, self.res, self.res,
+                                          noise=noise.permute(0, 3, 1, 2).contiguous())
         return self.pipe.sample_images(
             self.batch, self.res, noise=noise.permute(0, 3, 1, 2).contiguous(),
             render_seed=seed,
@@ -109,8 +122,9 @@ class SamplerService:
 
     def generate(self, n: int = 1, seed: Optional[int] = None,
                  timeout: Optional[float] = None) -> np.ndarray:
-        """Blocking; thread-safe.  Returns (n, res, res, 3) uint8 images or
-        (n, frames, res, res, 3) uint8 videos."""
+        """Blocking; thread-safe.  Returns (n, res, res, 3) uint8 images,
+        (n, frames, res, res, 3) uint8 videos or (n, n_views, res, res, 3)
+        uint8 NeRF views."""
         if not (1 <= n <= self.batch):
             raise ValueError(f"n must be in [1, {self.batch}], got {n}")
         req = _Request(n, int(seed) if seed is not None else time.time_ns() % (1 << 31))

@@ -15,18 +15,22 @@ import torch
 
 from ddmi_tpu.core.config import DDConfig, MLPConfig, UNetConfig
 from ddmi_tpu.interop.reference_ckpt import (
+    _convert_triplane_decoder,
     _convert_vae_decoder,
     _convert_video_decoder,
     _dense_from_1x1,
     _Source,
     convert_mlp_image,
+    convert_mlp_nerf,
     convert_mlp_video,
     convert_unet,
     convert_unet_triplane,
 )
 from ddmi_tpu_torch.interop import (
     mlp_image_from_jax,
+    mlp_nerf_from_jax,
     mlp_video_from_jax,
+    triplane_decoder_from_jax,
     triplane_unet_from_jax,
     unet_from_jax,
     vae_decoder_from_jax,
@@ -174,6 +178,86 @@ def test_mlp_video_bridge_round_trip_is_exact():
     sd = mlp_video_from_jax(t)
     TorchINR(cfg).load_state_dict(sd, strict=True)
     _assert_trees_equal(convert_mlp_video(sd), t)
+
+
+NERF_DD = DDConfig(
+    double_z=True, z_channels=16, resolution=16, in_channels=8, out_ch=8, ch=32,
+    ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,), hdbf_resolutions=(8,),
+    inter_attn_resolutions=(16, 8), attn_type="vanilla",
+)
+
+
+def test_triplane_decoder_bridge_round_trip_is_exact():
+    from ddmi_tpu.nn.triplane_vae import TriplaneAutoencoder
+    from ddmi_tpu_torch.nn.triplane_vae import TriplaneAutoencoder as TorchAE
+
+    planes = tuple(jnp.zeros((1, 16, 16, 8)) for _ in range(3))
+    t = TriplaneAutoencoder(NERF_DD, embed_dim=4).init(
+        {"params": jax.random.PRNGKey(0)}, planes, jax.random.PRNGKey(1)
+    )["params"]
+    t = _random_tree(t, 7)
+    sd = triplane_decoder_from_jax(t, NERF_DD)
+    TorchAE(NERF_DD, embed_dim=4).load_state_dict(sd, strict=True)
+    src = _Source(sd)
+    dec = _convert_triplane_decoder(src.sub("decoder."), NERF_DD)
+    post = {f"post_{p}": _dense_from_1x1(src, f"post_quant_conv_{p}") for p in ("xy", "yz", "xz")}
+    src.finish()
+    _assert_trees_equal(dec, t["decoder"])
+    _assert_trees_equal(post, {k: t[k] for k in post})
+
+
+def test_mlp_nerf_bridge_round_trip_is_exact():
+    from ddmi_tpu.nn.inr import INRNeRF
+    from ddmi_tpu_torch.nn.inr import INRNeRF as TorchNeRF
+
+    t = INRNeRF(depth=6, width=64, in_channels_xyz=39, in_channels_dir=15,
+                skips=(2, 4)).init(jax.random.PRNGKey(0), jnp.zeros((4, 54)))["params"]
+    t = _random_tree(t, 8)
+    sd = mlp_nerf_from_jax(t, 6)
+    TorchNeRF(6, 64, 39, 15, (2, 4)).load_state_dict(sd, strict=True)
+    _assert_trees_equal(convert_mlp_nerf(sd, depth=6), t)
+
+
+def test_port_nerf_service_never_imports_jax():
+    """A fresh interpreter serves a tiny NeRF config (2 DDIM steps, a
+    width-256 MLP, so the render goes through the kernel wrapper's plain
+    version) without loading jax or any module of the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        torch.set_num_threads(1)
+        from ddmi_tpu_torch.core.config import config_from_dict
+        from ddmi_tpu_torch.ops import nerf_mlp
+        from ddmi_tpu_torch.serve.server import SamplerService
+        cfg = config_from_dict({"model": {"embed_dim": 4, "params": {
+            "unetconfig": dict(in_channels=12, model_channels=32, out_channels=12,
+                               attention_resolutions=[2], num_res_blocks=1,
+                               channel_mult=[1, 2], num_head_channels=16),
+            "ddconfig": dict(z_channels=16, resolution=16, out_ch=8, ch=32,
+                             ch_mult=[1, 2], num_res_blocks=1, hdbf_resolutions=[],
+                             inter_attn_resolutions=[16]),
+            "mlpconfig": dict(D=2, W=256, skips=[1], multires=2, multires_views=1,
+                              N_samples=8),
+            "ddpmconfig": dict(timesteps=20, channels=12, sampling_timesteps=2)}},
+            "data": {"domain": "nerf"}})
+        s = SamplerService(cfg, service_batch=2, resolution=8, n_views=2, device="cpu",
+                           allow_init=True)
+        assert s.pipe.fold_mlp() is not None
+        out = s.generate(1, seed=0)
+        s.close()
+        assert out.shape == (1, 2, 8, 8, 3) and out.dtype.name == "uint8", out.shape
+        assert "jax" not in sys.modules, "the port loaded jax"
+        assert not [m for m in sys.modules if m.split(".")[0] == "ddmi_tpu"]
+        print("OK")
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run(
+        [sys.executable, "-W", "ignore", "-c", code], capture_output=True, text=True,
+        env=env, cwd=root, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_port_slice_never_imports_jax():

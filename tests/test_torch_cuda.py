@@ -6,13 +6,15 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from ddmi_tpu_torch.core.config import MLPConfig
-from ddmi_tpu_torch.nn.inr import INRImage
-from ddmi_tpu_torch.ops import attention, attn_block, flash_attention, inr_decode
+from ddmi_tpu_torch.core.config import MLPConfig, config_from_dict
+from ddmi_tpu_torch.nn.inr import INRImage, INRNeRF
+from ddmi_tpu_torch.ops import attention, attn_block, flash_attention, inr_decode, nerf_mlp
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +146,74 @@ def test_inr_decode_kernel_matches_plain(cuda_device):
     b = inr_decode.inr_decode_fused(folded, *toks, 5)
     c = inr_decode.inr_decode_fused(folded, *toks, 6)
     assert torch.isfinite(a.float()).all() and torch.equal(a, b) and not torch.equal(a, c)
+
+
+def _nerf_mlp(dev, width=256):
+    """The srn_cars NeRF MLP (D 6, skips 2 and 4, xyz 159, dir 27) with
+    seeded weights and nonzero biases."""
+    torch.manual_seed(0)
+    m = INRNeRF(6, width, 159, 27, (2, 4)).to(dev)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn_like(p))
+    return m
+
+
+@pytest.mark.parametrize("N", [300, 1_048_576])
+def test_nerf_mlp_kernel_matches_plain(cuda_device, N):
+    """The kernel vs its plain version on the same bf16 operands (fp32 sums
+    in another order, so a bf16 rounding of h may flip): rgb max|err| <=
+    0.005, sigma <= 0.01 * max(1, max|sigma|), at a ragged N and at the
+    render's 4096 rays x 256 samples."""
+    folded = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device))
+    g = torch.Generator(device=cuda_device).manual_seed(N)
+    x = torch.randn((N, 186), generator=g, device=cuda_device).bfloat16()
+    before = nerf_mlp.nerf_mlp_fused.launches
+    out = nerf_mlp.nerf_mlp_fused(folded, x)
+    ref = nerf_mlp.nerf_mlp_plain(folded, x)
+    torch.cuda.synchronize()
+    assert out.shape == (N, 4) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert (out[:, :3] - ref[:, :3]).abs().max().item() <= 0.005
+    sig_tol = 0.01 * max(1.0, ref[:, 3].abs().max().item())
+    assert (out[:, 3] - ref[:, 3]).abs().max().item() <= sig_tol
+    assert nerf_mlp.nerf_mlp_fused.launches == before + 1
+
+
+def test_nerf_mlp_kernel_refuses_what_it_does_not_take(cuda_device):
+    folded = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device))
+    x = torch.zeros((64, 186), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        nerf_mlp.nerf_mlp_fused(dataclasses.replace(folded, width=128), x)
+    with pytest.raises(NotImplementedError):
+        nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device, width=128))
+    with pytest.raises(ValueError):
+        nerf_mlp.nerf_mlp_fused(folded, x.float())
+    with pytest.raises(ValueError):
+        nerf_mlp.nerf_mlp_fused(folded, x[:, :100])
+
+
+def test_nerf_render_goes_through_the_kernel(cuda_device):
+    """A bf16 NeRF pipeline at MLP width 256 renders a 128^2 view in 4096-ray
+    chunks: exactly 4 kernel launches, finite pixels."""
+    from ddmi_tpu_torch.domains.nerf import NeRFPipeline, spherical_poses
+
+    cfg = config_from_dict({"model": {"embed_dim": 4, "params": {
+        "unetconfig": dict(in_channels=12, model_channels=32, out_channels=12,
+                           attention_resolutions=[2], num_res_blocks=1, channel_mult=[1, 2],
+                           num_head_channels=16),
+        "ddconfig": dict(z_channels=16, resolution=16, out_ch=8, ch=32, ch_mult=[1, 2],
+                         num_res_blocks=1, hdbf_resolutions=[], inter_attn_resolutions=[16]),
+        "mlpconfig": dict(D=6, W=256, skips=[2, 4], N_samples=32),
+        "ddpmconfig": dict(timesteps=20, channels=12, sampling_timesteps=2)}},
+        "data": {"domain": "nerf"}})
+    pipe = NeRFPipeline(cfg, device=cuda_device).cast(torch.bfloat16)
+    z = torch.randn((1, 12, 8, 8), device=cuda_device)
+    with torch.inference_mode():
+        planes = pipe.decode_planes(z)
+        before = nerf_mlp.nerf_mlp_fused.launches
+        img = pipe.render_image(planes, spherical_poses(1, device=cuda_device)[0], 128, 128)
+    torch.cuda.synchronize()
+    assert nerf_mlp.nerf_mlp_fused.launches == before + 4
+    assert img.shape == (128, 128, 3) and torch.isfinite(img).all()
