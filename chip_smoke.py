@@ -6,7 +6,7 @@
 Phases, each of which ends the run with a non-zero exit on failure:
   1. device: name, count, `nvidia-smi` name and power limit; no CUDA device
      means exit 3 (there is no CPU fallback);
-  2. build: the three CUDA libraries from ddmi_tpu_torch/csrc with nvcc
+  2. build: the four CUDA libraries from ddmi_tpu_torch/csrc with nvcc
      (sm_90a), one nvcc each, all at once, with the ptxas register report;
   3. image kernels: attn_block and inr_decode against their plain PyTorch
      versions at celebahq's shapes, timed against them with CUDA events;
@@ -47,7 +47,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
      kernel and the compositing) timed, with profiles of the render and the
      forward;
  13. nerf reference: a small config with a width-256 MLP, bf16 with the
-     kernels on the GPU against fp32 plain versions on the CPU.
+     kernels on the GPU against fp32 plain versions on the CPU;
+ 14. train kernels: the flash backward (dk/dv and dq kernels) against its
+     plain version at the celebahq training shape (5, 16, 1024, 32), at
+     (2, 4, 2048, 16) and at a ragged (1, 2, 1000, 64), timed against the
+     plain version and the backward of torch's scaled_dot_product_attention;
+     the forward's row log-sum-exp against torch.logsumexp;
+ 15. train slice: Trainer.train_stage2 on configs/ldm/celebahq.yaml at full
+     width (fp32 master parameters, bf16 compute, batch 5 of 256^2
+     synthetic images, accumulation over 5, 10 micro-steps): the counters
+     read exactly flash forward 50 and backward 50 (and 0 for the
+     inference kernels), every loss is finite, the parameters change at
+     micro-steps 5 and 10 only; micro-steps/s, one micro-step split into
+     encode / forward / backward / optimizer+EMA, a profile, peak memory;
+ 16. train reference: one micro-step at a small config, bf16 with the
+     kernels on the GPU against fp32 plain versions on the CPU (loss and
+     gradient cosine).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -59,6 +74,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -107,12 +123,29 @@ VIDEO_LAUNCHES = {"attn_block": 32 * VIDEO_NFE, "mha_vmem": 18 * VIDEO_NFE,
 NERF_ATTN_SHAPES = [((8, 512, 16), 5), ((4, 1024, 32), 6)]
 NERF_LAUNCHES = {"attn_block": 11 * NERF_NFE,
                  "nerf_mlp": NERF_BATCH * NERF_VIEWS * (NERF_RES * NERF_RES // 4096)}
+# stage-2 training on configs/ldm/celebahq.yaml: batch 5 of 256^2 images,
+# gradient accumulation over 5 micro-steps, 10 micro-steps (2 optimizer
+# updates); 5 flash attentions per UNet forward (the 32 x 32 blocks: C 512,
+# 16 heads of 32), each differentiated once
+TRAIN_STEPS = 10
+TRAIN_SHAPE = (5, 16, 1024, 32)
+TRAIN_LAUNCHES = {"flash_attention": 5 * TRAIN_STEPS, "flash_attention_bwd": 5 * TRAIN_STEPS}
+# the flash backward against its fp32 plain version on the same bf16 operands:
+# bf16 rounding of p and ds before their products and of the outputs
+FLASH_BWD_REL_ERR, FLASH_BWD_MIN_CORR = 0.03, 0.999
+# the forward's row log-sum-exp against torch.logsumexp of the fp32 scores
+LSE_MAX_ERR = 1e-4
+# one micro-step at a small config, bf16 + kernels on the GPU against fp32
+# plain versions on the CPU: the loss, and the cosine of all gradients
+TRAIN_REF_LOSS_REL, TRAIN_REF_MIN_COS = 0.02, 0.999
 KERNELS = {
     "attn_block": ("ddmi_tpu_torch/csrc/attn_block.cu", "ddmi_tpu/ops/pallas/attn_block.py:199"),
     "inr_decode": ("ddmi_tpu_torch/csrc/inr_decode.cu", "ddmi_tpu/ops/pallas/inr_decode.py:307"),
     "mha_vmem": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/ops/pallas/attention.py:100"),
     "flash_attention": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/nn/attention1d.py:77"),
     "nerf_mlp": ("ddmi_tpu_torch/csrc/nerf_mlp.cu", "ddmi_tpu/ops/pallas/nerf_mlp.py:213"),
+    "flash_attention_bwd": ("ddmi_tpu_torch/csrc/flash_attn_bwd.cuh",
+                            "jax/experimental/pallas/ops/tpu/flash_attention.py:1121,1456"),
 }
 
 
@@ -202,7 +235,8 @@ class Ledger:
                 "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "operations" if r["t_op"] >= r["t_mem"] else "bytes",
-                "library_ms": r["library_ms"], "per": "service batch",
+                "library_ms": r["library_ms"],
+                "per": "service batch of each sampling path; the train path's 10 micro-steps",
                 "by_path": r["by_path"]}
 
 
@@ -233,7 +267,8 @@ def reset_launches():
            "inr_decode": inr_decode.inr_decode_fused,
            "mha_vmem": attention.mha_vmem,
            "flash_attention": flash_attention.flash_attention,
-           "nerf_mlp": nerf_mlp.nerf_mlp_fused}
+           "nerf_mlp": nerf_mlp.nerf_mlp_fused,
+           "flash_attention_bwd": flash_attention.flash_attention_bwd}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -270,7 +305,7 @@ def attn_block_case(torch, dev, path, calls, B, H, W, C, nh, seed):
     LEDGER.add("attn_block", path, calls, kms, pms, None, flops, nbytes, err)
 
 
-def attention_case(torch, dev, name, calls, B, nh, n, hd, seed):
+def attention_case(torch, dev, name, calls, B, nh, n, hd, seed, path="video"):
     """mha_vmem or flash_attention at one (B, nh, n, hd) against its plain
     version and torch's scaled_dot_product_attention; adds to LEDGER."""
     import torch.nn.functional as F
@@ -302,7 +337,7 @@ def attention_case(torch, dev, name, calls, B, nh, n, hd, seed):
         f"library sdpa {lms:.4f} ms, bound {bms:.4f} ms ({by})")
     if not (rel <= MHA_REL_ERR and corr >= MHA_MIN_CORR):
         raise AssertionError(f"{name} disagrees at n={n}, hd={hd}: rel {rel}, corr {corr}")
-    LEDGER.add(name, "video", calls, kms, pms, lms, flops, nbytes, err)
+    LEDGER.add(name, path, calls, kms, pms, lms, flops, nbytes, err)
 
 
 def image_kernel_phase(torch, dev):
@@ -447,11 +482,14 @@ def image_slice_phase(torch, dev):
     return launches
 
 
-def profile_top(torch, fn, tag, ours):
+def profile_top(torch, fn, tag, ours, inference=True):
     """Device time of one fn() by kernel name; the share of names in `ours`."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode, profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.device_time_total / 1000) for e in prof.key_averages()
@@ -931,6 +969,232 @@ def nerf_reference_phase(torch, dev):
         raise AssertionError("the GPU NeRF slice disagrees with the CPU reference")
 
 
+def train_kernel_phase(torch, dev):
+    """The flash backward against flash_bwd_plain at the celebahq training
+    shape, a video-like shape and a ragged n, each timed against its plain
+    version and the backward of torch's scaled_dot_product_attention (a
+    yardstick the port never calls); the forward's LSE against
+    torch.logsumexp; the LSE forward timed at the training shape."""
+    import torch.nn.functional as F
+
+    from ddmi_tpu_torch.ops import flash_attention as fa
+
+    for i, (B, nh, n, hd) in enumerate([TRAIN_SHAPE, (2, 4, 2048, 16), (1, 2, 1000, 64)]):
+        g = torch.Generator(device=dev).manual_seed(400 + i)
+        q, k, v, do = (torch.randn((B, nh, n, hd), generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        s = hd**-0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, s, with_lse=True)
+        ref_out, ref_lse = fa.flash_plain(q, k, v, s, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, s)
+        ref = fa.flash_bwd_plain(q, k, v, out, lse, do, s)
+        torch.cuda.synchronize()
+        lse_err = (lse - ref_lse).abs().max().item()
+        stats = []
+        for a, r in zip(got, ref):
+            a, r = a.float(), r.float()
+            err = (a - r).abs().max().item()
+            corr = torch.corrcoef(torch.stack([a.flatten(), r.flatten()]))[0, 1].item()
+            stats.append((err, err / r.abs().max().item(), corr))
+        del got, ref
+        kern = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, s)
+        plain = lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, s)
+        kms, pms = paired_ms(kern, plain)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o2 = F.scaled_dot_product_attention(*leaves, scale=s)
+        lms = cuda_ms(lambda: torch.autograd.grad(o2, leaves, do, retain_graph=True))
+        flops = 10 * B * nh * n * n * hd
+        nbytes = 8 * q.numel() * 2 + 2 * lse.numel() * 4
+        bms, by = bound(flops, nbytes)
+        log(f"[train-kernel] flash_attention_bwd B={B} heads={nh} n={n} hd={hd}: "
+            + ", ".join(f"d{c} max|err| {e:.6f} (/max|ref| {r:.5f}) corr {c2:.6f}"
+                        for c, (e, r, c2) in zip("qkv", stats))
+            + f"; LSE max|err| {lse_err:.2e}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms, "
+            f"library sdpa backward {lms:.4f} ms, bound {bms:.4f} ms ({by}); "
+            f"{flops / kms / 1e9:.1f} TFLOP/s")
+        if not all(r <= FLASH_BWD_REL_ERR and c2 >= FLASH_BWD_MIN_CORR for _, r, c2 in stats):
+            raise AssertionError(f"flash backward disagrees at {(B, nh, n, hd)}: {stats}")
+        if not lse_err <= LSE_MAX_ERR:
+            raise AssertionError(f"flash forward LSE off by {lse_err} at {(B, nh, n, hd)}")
+        if i == 0:
+            LEDGER.add("flash_attention_bwd", "train", TRAIN_LAUNCHES["flash_attention_bwd"],
+                       kms, pms, lms, flops, nbytes, max(e for e, _, _ in stats))
+            fwd = lambda: fa.flash_attention_fwd(q, k, v, s, with_lse=True)
+            fwd_plain = lambda: fa.flash_plain(q, k, v, s, with_lse=True)
+            fms, fpms = paired_ms(fwd, fwd_plain)
+            flms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=s))
+            fflops, fbytes = 4 * B * nh * n * n * hd, 4 * q.numel() * 2 + lse.numel() * 4
+            fbms, fby = bound(fflops, fbytes)
+            ferr = (out.float() - ref_out.float()).abs().max().item()
+            log(f"[train-kernel] flash_attention with LSE B={B} heads={nh} n={n} hd={hd}: "
+                f"max|err| {ferr:.6f}; kernel {fms:.4f} ms, plain fp32 {fpms:.4f} ms, library "
+                f"sdpa {flms:.4f} ms, bound {fbms:.4f} ms ({fby})")
+            LEDGER.add("flash_attention", "train", TRAIN_LAUNCHES["flash_attention"], fms, fpms,
+                       flms, fflops, fbytes, ferr)
+        del q, k, v, do, out, lse, leaves, o2
+        torch.cuda.empty_cache()
+
+
+def train_slice_phase(torch, dev):
+    """Trainer.train_stage2 on configs/ldm/celebahq.yaml at full width
+    (seeded weights, zero-init layers perturbed, a random-weight VAE
+    encoder; fp32 master parameters, bf16 compute): batch 5 of 256^2
+    SyntheticImages, accumulation over 5 micro-steps, 10 micro-steps.  The
+    counters, the losses and when the parameters change are checked; then
+    one micro-step's time split and profile."""
+    from ddmi_tpu_torch.core.amp import amp_denoiser
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.data.synthetic import SyntheticImages
+    from ddmi_tpu_torch.diffusion.process import diffusion_loss
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+
+    cfg = load_config(os.path.join(ROOT, "configs/ldm/celebahq.yaml"))
+    m = cfg.model
+    if not (m.amp and m.lossconfig.gradient_accumulate_every == 5 and cfg.data.batch_size == 5):
+        raise AssertionError("configs/ldm/celebahq.yaml no longer trains with amp, batch 5 "
+                             "and accumulation over 5")
+    extra = {**cfg.data.extra, "nan_check_every": 5, "prefetch": 2}
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, extra=extra))
+    t0 = time.perf_counter()
+    pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
+    perturb_zero_init(pipe, 41)
+    n_unet = sum(p.numel() for p in pipe.unet.parameters())
+    n_enc = sum(p.numel() for p in pipe.vae.encoder.parameters())
+    log(f"[train] celebahq stage 2 at full width: UNet {n_unet} parameters (fp32 masters, "
+        f"bf16 compute), VAE encoder {n_enc} (frozen, bf16), set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = SyntheticImages(cfg.data.batch_size, 256, length=TRAIN_STEPS, seed=0)
+    trainer = Trainer(cfg, pipe, data, save_dir=os.path.join(ROOT, "build", "train_smoke"))
+    watch = {"input conv": pipe.unet.input_blocks[0][0].weight,
+             "middle attention qkv": pipe.unet.middle_block[1].qkv.weight,
+             "output conv": pipe.unet.out[2].weight, "mixing logit": pipe.mixing_logit}
+    steps, step_fn = [], pipe.stage2_train_step
+
+    def recording(state, x, **kw):
+        before = {k: w.detach().clone() for k, w in watch.items()}
+        out = step_fn(state, x, **kw)
+        changed = [k for k, w in watch.items() if not torch.equal(before[k], w)]
+        steps.append((state.step, changed, out[1]["loss"], time.perf_counter()))
+        return out
+
+    pipe.stage2_train_step = recording
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.train_stage2(epochs=1)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    pipe.stage2_train_step = step_fn
+    losses = [float(loss) for _, _, loss, _ in steps]
+    changes = {i + 1: changed for i, (_, changed, _, _) in enumerate(steps)}
+    log(f"[train] {len(steps)} micro-steps, losses {[round(v, 5) for v in losses]}; "
+        f"parameters changed at {[i for i, c in changes.items() if c]}")
+    log(f"[train] launches: {launches} (expected {TRAIN_LAUNCHES}, the others 0)")
+    expect = {k: TRAIN_LAUNCHES.get(k, 0) for k in launches}
+    if launches != expect:
+        raise AssertionError(f"the train slice's launch counts are off: {launches}")
+    if len(steps) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train slice: {len(steps)} micro-steps, losses {losses}")
+    for i, changed in changes.items():
+        if (i % 5 == 0) != (len(changed) == len(watch)) or (i % 5 and changed):
+            raise AssertionError(f"micro-step {i} changed {changed}: parameters must change "
+                                 f"at every 5th micro-step and only there")
+    steady = (steps[-1][3] - steps[0][3]) / (len(steps) - 1)
+    log(f"[train] {len(steps)} micro-steps in {t_run:.3f} s (the first includes set-up); "
+        f"steady {1 / steady:.4f} micro-steps/s = {cfg.data.batch_size / steady:.4f} training "
+        f"samples/s on {nvidia_smi()}; peak allocated {peak / 2**30:.2f} GiB")
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    x = torch.from_numpy(next(iter(data))).to(dev)
+    split = {"encode": [], "forward": [], "backward": [], "optimizer+EMA": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = pipe.encode_latents(x, generator=g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, _ = diffusion_loss(pipe.gd, amp_denoiser(pipe.unet, pipe.amp), pipe.mixing_logit,
+                                 z, g)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        pipe.stage2_apply(state)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[key].append(1e3 * dt)
+    log("[train-breakdown] one micro-step (host clock with sync, 5 in a row, one of them an "
+        "optimizer update and one an EMA update): " + "; ".join(
+            f"{k} {sum(v) / len(v):.3f} ms mean ({', '.join(f'{x:.1f}' for x in v)})"
+            for k, v in split.items()))
+    profile_top(torch, lambda: pipe.stage2_train_step(state, x, generator=g), "train-profile",
+                ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel"),
+                inference=False)
+    return launches
+
+
+def train_reference_phase(torch, dev):
+    """One micro-step's loss and gradients at a small config (a UNet whose
+    32 x 32 blocks take the flash tier, a tiny encoder): bf16 compute with
+    the kernels on the GPU against fp32 plain versions on the CPU, on the
+    same weights, images, t, noise and posterior eps."""
+    import numpy as np
+
+    from ddmi_tpu_torch.core.config import config_from_dict
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+
+    def cfg(amp):
+        return config_from_dict({
+            "model": {"amp": amp, "embed_dim": 4, "params": {
+                "unetconfig": dict(image_size=32, in_channels=4, model_channels=64,
+                                   out_channels=4, attention_resolutions=[1, 2],
+                                   num_res_blocks=1, channel_mult=[1, 2],
+                                   num_head_channels=32),
+                "ddconfig": dict(z_channels=8, resolution=128, out_ch=8, ch=32,
+                                 ch_mult=[1, 1, 2], num_res_blocks=1,
+                                 hdbf_resolutions=[64, 32]),
+                "mlpconfig": dict(ch=32, latent_dim=8),
+                "ddpmconfig": dict(image_size=32, channels=4)}},
+            "data": {"domain": "image"}})
+
+    cpu = ImagePipeline(cfg(False), device="cpu", seed=5)
+    perturb_zero_init(cpu, 6)
+    gpu = ImagePipeline(cfg(True), device=dev, seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.init_stage2()
+    gpu.init_stage2()
+    rng = np.random.default_rng(10)
+    x = rng.random((2, 128, 128, 3)).astype(np.float32)
+    t = rng.integers(0, 1000, (2,))
+    noise, eps = (rng.standard_normal((2, 4, 32, 32)).astype(np.float32) for _ in range(2))
+    draws = {k: torch.from_numpy(a) for k, a in (("t", t), ("noise", noise), ("eps", eps))}
+    ref, _ = cpu.stage2_loss(torch.from_numpy(x), **draws)
+    ref.backward()
+    read = reset_launches()
+    got, _ = gpu.stage2_loss(torch.from_numpy(x).to(dev),
+                             **{k: a.to(dev) for k, a in draws.items()})
+    got.backward()
+    torch.cuda.synchronize()
+    launches = read()
+    flat = lambda p: torch.cat([v.grad.float().cpu().flatten() for v in p.stage2_params().values()])
+    a, r = flat(gpu), flat(cpu)
+    cos = torch.nn.functional.cosine_similarity(a, r, dim=0).item()
+    rel = abs(got.item() - ref.item()) / abs(ref.item())
+    log(f"[train-reference] small config, one micro-step: bf16 kernels loss {got.item():.6f} vs "
+        f"fp32 plain on the CPU {ref.item():.6f} (relative {rel:.5f}); gradient cosine "
+        f"{cos:.6f}, |g - ref| / |ref| {((a - r).norm() / r.norm()).item():.5f}; launches "
+        f"{launches}")
+    if not (launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0):
+        raise AssertionError(f"the train reference missed the flash kernels: {launches}")
+    if not (rel <= TRAIN_REF_LOSS_REL and cos >= TRAIN_REF_MIN_COS):
+        raise AssertionError("the GPU train step disagrees with the CPU reference")
+
+
 def main() -> int:
     import torch
 
@@ -990,8 +1254,14 @@ def main() -> int:
     del svc
     torch.cuda.empty_cache()
     nerf_reference_phase(torch, dev)
+    torch.cuda.empty_cache()
+    train_kernel_phase(torch, dev)
+    train = train_slice_phase(torch, dev)
+    torch.cuda.empty_cache()
+    train_reference_phase(torch, dev)
 
-    kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name]) for name in KERNELS]
+    kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name])
+               for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

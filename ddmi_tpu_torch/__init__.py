@@ -6,12 +6,13 @@ reference PyTorch repo's `state_dict` names and layouts (NCHW convolutions,
 head-major ADM `qkv`), so `ddmi_tpu/interop/reference_ckpt.py` maps a port
 `state_dict` onto the JAX parameter tree and `interop.py` maps it back.
 
-Plain tensor code is PyTorch; the TPU kernels on the image- and
-video-generation paths (the fused attention block, the fused image INR
-render, mha_vmem and the flash-attention forward) are hand-written CUDA C++
-for `sm_90a` (`csrc/`), built with `nvcc` on first use (`ops/build.py`).  On
-a CPU tensor each kernel wrapper runs its plain PyTorch version instead.
-The entry points run on the card unless given `device="cpu"`.
+Plain tensor code is PyTorch; the TPU kernels on the ported paths (the
+fused attention block, the fused image INR render, mha_vmem, the
+flash-attention forward and backward, the fused NeRF MLP) are hand-written
+CUDA C++ for `sm_90a` (`csrc/`), built with `nvcc` on first use
+(`ops/build.py`).  On a CPU tensor each kernel wrapper runs its plain
+PyTorch version instead.  The entry points run on the card unless given
+`device="cpu"`.
 
 This package never imports JAX.
 """

@@ -1,4 +1,4 @@
-"""Typed configuration for the port's sampling slice.
+"""Typed configuration for the port's slices.
 
 Reads the same YAML files as ddmi_tpu/core/config.py (e.g.
 configs/ldm/celebahq.yaml, configs/ldm/skytimelapse.yaml,
@@ -39,6 +39,18 @@ def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
     extra = {k: v for k, v in d.items() if k not in fields}
     known["extra"] = {**extra, **(known.get("extra") or {})}
     return known
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """The stage-2 training fields of the JAX LossConfig."""
+
+    epochs: int = 200
+    save_and_sample_every: int = 25
+    gradient_accumulate_every: int = 1
+    ema_decay: float = 0.9999
+    ema_update_every: int = 10
+    extra: Dict[str, Any] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -102,6 +114,10 @@ class DDPMConfig:
     channels: int = 64
     clip_denoised: bool = False
     parameterization: str = "eps"
+    loss_type: str = "l2"
+    l_simple_weight: float = 1.0
+    original_elbo_weight: float = 0.0
+    v_posterior: float = 0.0
     mixed_prediction: bool = True
     mixed_init: float = -6.0
     sampling_timesteps: int = 50
@@ -112,7 +128,10 @@ class DDPMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     DiT: bool = False
+    amp: bool = True   # stage-2 training: bf16 compute, fp32 master parameters
+    lr: float = 1e-4
     embed_dim: int = 64
+    lossconfig: LossConfig = field(default_factory=LossConfig)
     ddconfig: DDConfig = field(default_factory=DDConfig)
     mlpconfig: MLPConfig = field(default_factory=MLPConfig)
     unetconfig: UNetConfig = field(default_factory=UNetConfig)
@@ -123,6 +142,7 @@ class ModelConfig:
 @dataclass(frozen=True)
 class DataConfig:
     domain: str = "image"
+    batch_size: int = 8
     test_resolution: int = 256
     frames: int = 16
     conv_config: Optional[str] = None  # nested convocc YAML (NeRF render kwargs)
@@ -130,13 +150,26 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
-class Config:
-    model: ModelConfig = field(default_factory=ModelConfig)
-    data: DataConfig = field(default_factory=DataConfig)
+class MeshConfig:
+    """The JAX package's device mesh.  The port runs on one card, where it
+    changes nothing (the trainer says so once)."""
+
+    data: int = -1
+    fsdp: int = 1
+    model: int = 1
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
-_SUB = (("ddconfig", DDConfig), ("mlpconfig", MLPConfig),
+@dataclass(frozen=True)
+class Config:
+    seed: int = 42
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+
+_SUB = (("lossconfig", LossConfig), ("ddconfig", DDConfig), ("mlpconfig", MLPConfig),
         ("unetconfig", UNetConfig), ("ddpmconfig", DDPMConfig))
 
 
@@ -151,6 +184,8 @@ def config_from_dict(d: Dict[str, Any]) -> Config:
         out["model"] = ModelConfig(**_filter_kwargs(ModelConfig, {**m, **sub}))
     if "data" in d:
         out["data"] = DataConfig(**_filter_kwargs(DataConfig, dict(d.pop("data"))))
+    if "mesh" in d:
+        out["mesh"] = MeshConfig(**_filter_kwargs(MeshConfig, dict(d.pop("mesh"))))
     out.update(_filter_kwargs(Config, d))
     return Config(**out)
 

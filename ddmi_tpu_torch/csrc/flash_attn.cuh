@@ -17,7 +17,10 @@
 // the probabilities as bf16, and accumulates P.V into an fp32 output tile in
 // shared memory after rescaling it by exp(m_old - m_new).  A ragged q tile
 // (n % 64 != 0) reads zero rows and writes none; keys past n in the last
-// tile are masked to -inf before the max.
+// tile are masked to -inf before the max.  Where `lse` is given (the
+// flash forward under autograd), each row's log-sum-exp m + log(l) of the
+// scaled scores is written after the last tile for the backward
+// (flash_attn_bwd.cuh).
 //
 // Scale.  `prescale_q` = 1 multiplies q by the scale in fp32 and rounds it
 // once to bf16 before q.k (mha_vmem's rounding); 0 multiplies the fp32
@@ -57,6 +60,7 @@ struct Params {
   int B, nh, n;
   float scale;
   int prescale_q;
+  float* lse;  // optional (B, nh, n) fp32 log-sum-exp of the scaled scores, for the backward
 };
 
 template <int HD>
@@ -201,6 +205,8 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(Params p) {
 
   // normalise after P.V and write the rows that exist
   if (hf == 0) R[r] = 1.0f / l_run;
+  if (p.lse != nullptr && hf == 0 && q0 + r < n)
+    p.lse[((size_t)b * p.nh + h) * n + q0 + r] = m_run + logf(l_run);
   __syncwarp();
   __nv_bfloat16* out = p.out + (size_t)b * p.out_sb + (size_t)h * p.out_sh;
   for (int i = lane; i < 16 * HD; i += 32) {

@@ -1,9 +1,9 @@
-"""DDIM sampling with learned mixed prediction (counterpart of
-ddmi_tpu/diffusion/process.py, sampling half).
+"""DDIM sampling with learned mixed prediction, and the training loss
+(counterpart of ddmi_tpu/diffusion/process.py).
 
 The JAX `lax.scan` over (time, time_next) pairs is a Python loop here, run
-under `torch.inference_mode()`.  Noise is an argument, or is drawn from an
-explicit `torch.Generator`.
+under `torch.inference_mode()`.  Noise and timesteps are arguments, or are
+drawn from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -22,6 +22,20 @@ def extract(a: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """a[t] for per-sample timesteps t (b,), broadcast to ndim dims."""
     out = a[t]
     return out.reshape(out.shape[0], *((1,) * (ndim - 1)))
+
+
+def q_sample(sched: DiffusionSchedule, x_start, t, noise):
+    """Forward diffusion q(x_t | x_0) sample."""
+    nd = x_start.ndim
+    return (extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+            + extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+
+def get_velocity(sched: DiffusionSchedule, sample, noise, t):
+    """The reference's velocity: sqrt(acp) * noise - sqrt(1 - acp) * sample."""
+    nd = sample.ndim
+    return (extract(sched.sqrt_alphas_cumprod, t, nd) * noise
+            - extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * sample)
 
 
 def predict_start_from_noise(sched: DiffusionSchedule, x_t, t, noise):
@@ -49,13 +63,17 @@ def mixed_prediction(model_out, mixing_logit: Optional[torch.Tensor], mix_comp):
 
 @dataclasses.dataclass(frozen=True)
 class GaussianDiffusion:
-    """Diffusion configuration + schedule, the fields sampling reads."""
+    """Diffusion configuration + schedule, the fields sampling and the
+    training loss read."""
 
     schedule: DiffusionSchedule
     parameterization: str = "eps"
+    loss_type: str = "l2"
     mixed_prediction: bool = True
     sampling_timesteps: int = 50
     ddim_sampling_eta: float = 0.0
+    original_elbo_weight: float = 0.0
+    l_simple_weight: float = 1.0
     clip_denoised: bool = False
 
     @classmethod
@@ -63,13 +81,16 @@ class GaussianDiffusion:
         sched = make_schedule(
             beta_schedule=c.beta_schedule, timesteps=c.timesteps,
             linear_start=c.linear_start, linear_end=c.linear_end,
-            cosine_s=c.cosine_s,
+            cosine_s=c.cosine_s, v_posterior=c.v_posterior,
+            parameterization=c.parameterization,
         )
         return cls(
             schedule=sched, parameterization=c.parameterization,
-            mixed_prediction=c.mixed_prediction,
+            loss_type=c.loss_type, mixed_prediction=c.mixed_prediction,
             sampling_timesteps=c.sampling_timesteps,
             ddim_sampling_eta=c.ddim_sampling_eta,
+            original_elbo_weight=c.original_elbo_weight,
+            l_simple_weight=c.l_simple_weight,
             clip_denoised=c.clip_denoised,
         )
 
@@ -79,6 +100,54 @@ class GaussianDiffusion:
 
     def to(self, device) -> "GaussianDiffusion":
         return dataclasses.replace(self, schedule=self.schedule.to(device))
+
+
+def p_losses(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit, x_start, t, noise):
+    """The training loss for timesteps t (b,) and noise: per-sample MSE or
+    L1 of the (mixed) model output against the parameterization's target,
+    plus the VLB-weighted term.  -> (loss, {loss_simple, loss_vlb, loss})."""
+    sched = gd.schedule
+    x_noisy = q_sample(sched, x_start, t, noise)
+    model_out = model_fn(x_noisy, t)
+    if gd.mixed_prediction:
+        model_out = mixed_prediction(model_out, mixing_logit,
+                                     mixing_component(sched, x_noisy, t))
+    if gd.parameterization == "eps":
+        target = noise
+    elif gd.parameterization == "x0":
+        target = x_start
+        model_out = predict_start_from_noise(sched, x_noisy, t, model_out)
+    elif gd.parameterization == "v":
+        target = get_velocity(sched, x_start, noise, t)
+        model_out = get_velocity(sched, x_start, model_out, t)
+    else:
+        raise NotImplementedError(gd.parameterization)
+    err = model_out - target
+    dims = tuple(range(1, err.ndim))
+    if gd.loss_type == "l2":
+        per_sample = (err**2).mean(dim=dims)
+    elif gd.loss_type == "l1":
+        per_sample = err.abs().mean(dim=dims)
+    else:
+        raise NotImplementedError(gd.loss_type)
+    loss_simple = per_sample.mean() * gd.l_simple_weight
+    loss_vlb = (sched.lvlb_weights[t] * per_sample).mean()
+    loss = loss_simple + gd.original_elbo_weight * loss_vlb
+    return loss, {"loss_simple": loss_simple, "loss_vlb": loss_vlb, "loss": loss}
+
+
+def diffusion_loss(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit, x_start,
+                   generator: Optional[torch.Generator] = None, t=None, noise=None):
+    """p_losses at t ~ U[0, T) and Gaussian noise, each drawn from
+    `generator` unless given."""
+    b = x_start.shape[0]
+    if t is None:
+        t = torch.randint(0, gd.num_timesteps, (b,), generator=generator,
+                          device=x_start.device)
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                            dtype=x_start.dtype)
+    return p_losses(gd, model_fn, mixing_logit, x_start, t, noise)
 
 
 def model_predictions(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit, x, t,

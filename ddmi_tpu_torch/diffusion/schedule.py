@@ -31,13 +31,16 @@ def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-
 
 
 class DiffusionSchedule(NamedTuple):
-    """The schedule arrays the sampler reads; float32 tensors of shape (T,)."""
+    """The schedule arrays the sampler and the training loss read; float32
+    tensors of shape (T,)."""
 
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
+    lvlb_weights: torch.Tensor
 
     @property
     def num_timesteps(self) -> int:
@@ -47,9 +50,33 @@ class DiffusionSchedule(NamedTuple):
         return DiffusionSchedule(*(a.to(device) for a in self))
 
 
+def lvlb_weights(betas: np.ndarray, v_posterior: float, parameterization: str) -> np.ndarray:
+    """The VLB weights of the training loss (ddmi_tpu/diffusion/schedule.py):
+    for eps, beta^2 / (2 var_posterior alpha (1 - acp)); for x0 and v the
+    reference's shipped expression 0.5 sqrt(acp) / (2 * 1 - acp).  Index 0
+    takes index 1's value."""
+    alphas = 1.0 - betas
+    acp = np.cumprod(alphas, axis=0)
+    acp_prev = np.append(1.0, acp[:-1])
+    post_var = (1 - v_posterior) * betas * (1.0 - acp_prev) / (1.0 - acp) + v_posterior * betas
+    if parameterization == "eps":
+        with np.errstate(divide="ignore"):  # post_var[0] == 0; index 0 is replaced
+            w = betas**2 / (2 * post_var * alphas * (1 - acp))
+    elif parameterization in ("x0", "v"):
+        w = 0.5 * np.sqrt(acp) / (2.0 * 1 - acp)
+    else:
+        raise NotImplementedError(parameterization)
+    w = np.asarray(w)
+    w[0] = w[1]
+    if np.isnan(w).any():
+        raise ValueError("lvlb_weights has NaNs")
+    return w
+
+
 def make_schedule(beta_schedule: str = "linear", timesteps: int = 1000,
                   linear_start: float = 1e-4, linear_end: float = 2e-2,
-                  cosine_s: float = 8e-3) -> DiffusionSchedule:
+                  cosine_s: float = 8e-3, v_posterior: float = 0.0,
+                  parameterization: str = "eps") -> DiffusionSchedule:
     betas = make_beta_schedule(
         beta_schedule, timesteps, linear_start, linear_end, cosine_s
     )
@@ -58,9 +85,11 @@ def make_schedule(beta_schedule: str = "linear", timesteps: int = 1000,
     return DiffusionSchedule(
         betas=f32(betas),
         alphas_cumprod=f32(acp),
+        sqrt_alphas_cumprod=f32(np.sqrt(acp)),
         sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
         sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
         sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1)),
+        lvlb_weights=f32(lvlb_weights(betas, v_posterior, parameterization)),
     )
 
 

@@ -1,28 +1,50 @@
-"""Image domain, sampling half (counterpart of ddmi_tpu/domains/image.py::
-ImagePipeline): DDIM over the UNet, HDBF decode, INR render.
+"""Image domain (counterpart of ddmi_tpu/domains/image.py::ImagePipeline):
+sampling (DDIM over the UNet, HDBF decode, INR render) and stage-2 training
+(the frozen VAE encoder, the diffusion loss through the UNet, AdamW with
+gradient accumulation, EMA).
 
-Training, reconstruction and the MDTv2 denoiser wait for later slices.
+Stage-1 training, reconstruction and the MDTv2 denoiser wait for later
+slices.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from ddmi_tpu_torch.core.coords import get_scale_injection, unsymmetrize
+from ddmi_tpu_torch.core.amp import amp_denoiser
+from ddmi_tpu_torch.core.coords import (
+    get_scale_injection, resize_antialias, symmetrize, unsymmetrize,
+)
 from ddmi_tpu_torch.core.device import resolve_device
-from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
+from ddmi_tpu_torch.core.ema import ema_update
+from ddmi_tpu_torch.core.optim import stage2_adamw
+from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet, diffusion_loss
 from ddmi_tpu_torch.nn.inr import INRImage
 from ddmi_tpu_torch.nn.unet import UNet
 from ddmi_tpu_torch.nn.vae import Autoencoder
 from ddmi_tpu_torch.ops.inr_decode import render_tokens_fused
 
 
+@dataclasses.dataclass
+class Stage2State:
+    """Stage-2 training state (JAX Stage2State): `step` counts micro-steps;
+    `params` are the trainable parameters themselves (`unet.<name>` and
+    `mixing_logit`, fp32 masters updated in place), `ema` their fp32
+    averages, `opt` the optimizer (core/optim.py) with its moments."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    ema: Dict[str, torch.Tensor]
+    opt: object
+
+
 class ImagePipeline(nn.Module):
-    """The sampling models of one image config: `unet` + `mixing_logit`
-    (stage 2), `vae` (decode half) + `mlp` (stage 1).
+    """The models of one image config: `unet` + `mixing_logit` (stage 2),
+    `vae` + `mlp` (stage 1).
 
     Parameters are initialised on `device` (the card unless the caller asks
     for the CPU) from `seed`; `load_state_dicts`
@@ -52,6 +74,8 @@ class ImagePipeline(nn.Module):
         )
         self.gd = GaussianDiffusion.from_config(d).to(device)
         self.anchor = m.ddconfig.resolution
+        self.amp = bool(m.amp)
+        self.lc = m.lossconfig
         self.eval()
 
     @property
@@ -120,3 +144,81 @@ class ImagePipeline(nn.Module):
         out = self._render_grid(hdbf, res, si, render_seed)
         img = out.float().reshape(batch, res, res, -1)
         return unsymmetrize(img.clamp(-1.0, 1.0))
+
+    # ------------------------------------------------------------ stage 2
+
+    def stage2_params(self) -> Dict[str, torch.Tensor]:
+        """The trainable parameters: the UNet's and the mixing logit."""
+        params = {f"unet.{k}": p for k, p in self.unet.named_parameters()}
+        params["mixing_logit"] = self.mixing_logit
+        return params
+
+    def stage2_optimizer(self, params: Dict[str, torch.Tensor]):
+        """AdamW(lr, wd 0, bf16 mu) with gradient accumulation."""
+        return stage2_adamw(self.cfg, list(params.values()))
+
+    def init_stage2(self) -> Stage2State:
+        """Ready the pipeline for stage-2 training from its current weights:
+        the UNet and the mixing logit train in fp32 (on the card laid out
+        channels-last), the VAE and the INR are frozen, and under model.amp
+        the frozen VAE is cast to bf16 once (the bf16 cast JAX takes of it
+        every step).  Returns the state with fp32 EMA copies and a fresh
+        optimizer."""
+        for module in (self.vae, self.mlp):
+            module.requires_grad_(False)
+        self.unet.float().requires_grad_(True)
+        self.mixing_logit.requires_grad_(True)
+        if self.device.type == "cuda":
+            for module in (self.unet, self.vae):
+                module.to(memory_format=torch.channels_last)
+        if self.amp:
+            self.vae.to(torch.bfloat16)
+        params = self.stage2_params()
+        ema = {k: p.detach().clone() for k, p in params.items()}
+        return Stage2State(0, params, ema, self.stage2_optimizer(params))
+
+    @torch.no_grad()
+    def encode_latents(self, x, eps=None, generator: Optional[torch.Generator] = None):
+        """The frozen stage-1 encode: x (b, H, W, 3) in [0, 1] is resized to
+        the anchor, symmetrized and clipped, encoded (bf16 under model.amp)
+        and sampled with standard-normal fp32 `eps` (drawn from `generator`
+        when not given) -> fp32 latents (b, embed_dim, h, w)."""
+        y = resize_antialias(symmetrize(x.float()), self.anchor).clamp(-1.0, 1.0)
+        y = y.permute(0, 3, 1, 2).to(self.vae.quant_conv.weight.dtype)
+        if y.is_cuda:
+            y = y.contiguous(memory_format=torch.channels_last)
+        posterior = self.vae.encode(y)
+        if eps is None:
+            eps = torch.randn(posterior.mean.shape, generator=generator, device=y.device)
+        return posterior.sample(eps).float()
+
+    def stage2_loss(self, x, generator: Optional[torch.Generator] = None, t=None, noise=None,
+                    eps=None):
+        """The stage-2 loss: encode, then the diffusion loss through the UNet
+        (bf16 compute under model.amp, core/amp.py).  The posterior eps,
+        the timesteps t and the diffusion noise are drawn from `generator`,
+        in that order, where not given.  -> (loss, aux)."""
+        z = self.encode_latents(x, eps, generator)
+        model_fn = amp_denoiser(self.unet, self.amp)
+        return diffusion_loss(self.gd, model_fn, self.mixing_logit, z, generator, t, noise)
+
+    def stage2_apply(self, state: Stage2State) -> None:
+        """The optimizer (gradients taken from the parameters' .grad, which
+        are cleared) and the EMA for one micro-step; advances state.step."""
+        params = list(state.params.values())
+        state.opt.update(params, [p.grad for p in params])
+        for p in params:
+            p.grad = None
+        ema_update(state.ema, state.params, state.step, beta=self.lc.ema_decay,
+                   update_every=self.lc.ema_update_every)
+        state.step += 1
+
+    def stage2_train_step(self, state: Stage2State, x, generator: Optional[torch.Generator] = None,
+                          t=None, noise=None, eps=None):
+        """One micro-step: the loss and its gradients, then the optimizer and
+        the EMA; the draws as in `stage2_loss`.  -> (state, aux of detached
+        fp32 scalars)."""
+        loss, aux = self.stage2_loss(x, generator, t=t, noise=noise, eps=eps)
+        loss.backward()
+        self.stage2_apply(state)
+        return state, {k: v.detach() for k, v in aux.items()}

@@ -1,8 +1,8 @@
 """Weight bridge: JAX parameter trees (numpy arrays) -> port `state_dict`s.
 
-The exact inverse of the sampling-path converters in
-ddmi_tpu/interop/reference_ckpt.py: for images `convert_unet`, the decoder
-half of `convert_vae` and `convert_mlp_image`; for video
+The exact inverse of the converters in
+ddmi_tpu/interop/reference_ckpt.py that the ported slices need: for images
+`convert_unet`, `convert_vae` and `convert_mlp_image`; for video
 `convert_unet_triplane`, the decoder half of `convert_video_vae` and
 `convert_mlp_video`; for NeRF the decoder half of `convert_triplane_vae` and
 `convert_mlp_nerf` (the UNet is the image one).  The port's modules use the reference
@@ -145,14 +145,42 @@ def _vae_attn(sd: SD, key: str, p) -> None:
         _conv(sd, f"{key}.{name}", p[name])
 
 
-def vae_decoder_from_jax(tree, cfg) -> SD:
+def _vae_encoder(sd: SD, enc, cfg) -> None:
+    """JAX Encoder params -> `encoder.*` (reference_ckpt._convert_vae_encoder
+    inverted: flax numbers the ResnetBlock/AttnBlock/Downsample instances in
+    construction order, mid blocks included)."""
+    _conv(sd, "encoder.conv_in", enc["conv_in"])
+    rb = ab = 0
+    curr = cfg.resolution
+    n = len(cfg.ch_mult)
+    for i in range(n):
+        for j in range(cfg.num_res_blocks):
+            _vae_resnet(sd, f"encoder.down.{i}.block.{j}", enc[f"ResnetBlock_{rb}"])
+            rb += 1
+            if curr in cfg.attn_resolutions:
+                _vae_attn(sd, f"encoder.down.{i}.attn.{j}", enc[f"AttnBlock_{ab}"])
+                ab += 1
+        if i != n - 1:
+            _conv(sd, f"encoder.down.{i}.downsample.conv", enc[f"Downsample_{i}"]["Conv_0"])
+            curr //= 2
+    _vae_resnet(sd, "encoder.mid.block_1", enc[f"ResnetBlock_{rb}"])
+    if cfg.attn_type != "none":
+        _vae_attn(sd, "encoder.mid.attn_1", enc[f"AttnBlock_{ab}"])
+    _vae_resnet(sd, "encoder.mid.block_2", enc[f"ResnetBlock_{rb + 1}"])
+    _gn(sd, "encoder.norm_out", enc["Norm_0"]["GroupNorm_0"])
+    _conv(sd, "encoder.conv_out", enc["conv_out"])
+
+
+def vae_from_jax(tree, cfg) -> SD:
     """JAX Autoencoder params (nn/vae.py) -> state_dict of the port's
-    decode-only Autoencoder (`decoder.*`, `post_quant_conv.*`).  Inverts the
-    decoder half of reference_ckpt.convert_vae; the encoder is not read."""
+    Autoencoder (`encoder.*`, `quant_conv.*`, `decoder.*`,
+    `post_quant_conv.*`); inverts reference_ckpt.convert_vae."""
     if cfg.attn_type not in ("vanilla", "none"):
         raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
     dec = tree["decoder"]
     sd: SD = {}
+    _vae_encoder(sd, tree["encoder"], cfg)
+    _conv(sd, "quant_conv", tree["quant_conv"])
     _conv(sd, "decoder.conv_in", dec["conv_in"])
     rb = ab = up = 0
     n = len(cfg.ch_mult)

@@ -17,18 +17,25 @@ from torch import nn
 from ddmi_tpu_torch.ops import attention, flash_attention, mea
 
 
+# ddmi_tpu/nn/attention1d.py's training cap on flash (DDMI_FLASH_TRAIN_MAX
+# there): with a gradient recorded, longer sequences take the MEA path
+FLASH_TRAIN_MAX_TOKENS = 32768
+
+
 def tiered_attention(q, k, v) -> torch.Tensor:
     """Attention over (B, nh, n, hd) through the JAX package's tiers, in its
-    order: mha_vmem (n % 8 == 0, n <= 1024, hd <= 128), then flash (n >= 512,
-    n % min(n, 1024) == 0, hd in {16, 32, 64, 128}), then the chunked MEA
-    path.  The tier depends on the shape alone: on a CUDA tensor the first
-    two launch the port's kernels, on a CPU tensor they run their plain
-    versions (the JAX package on the CPU takes MEA for all three, which
-    computes the same exact attention)."""
+    order: mha_vmem (n % 8 == 0, n <= 1024, hd <= 128) when no gradient is
+    recorded (JAX: inference traces only), then flash (n >= 512,
+    n % min(n, 1024) == 0, hd in {16, 32, 64, 128}; with a gradient only up
+    to FLASH_TRAIN_MAX_TOKENS), then the chunked MEA path.  On a CUDA
+    tensor the first two launch the port's kernels, on a CPU tensor they
+    run their plain versions (the JAX package on the CPU takes MEA for all
+    three, which computes the same exact attention)."""
     n, hd = q.shape[-2], q.shape[-1]
-    if attention.supported(n, hd):
+    inference = not torch.is_grad_enabled()
+    if inference and attention.supported(n, hd):
         return attention.mha_vmem(q, k, v, hd**-0.5)
-    if flash_attention.supported(n, hd):
+    if flash_attention.supported(n, hd) and (inference or n <= FLASH_TRAIN_MAX_TOKENS):
         return flash_attention.flash_attention(q, k, v, hd**-0.5)
     return mea.attention(q, k, v)
 

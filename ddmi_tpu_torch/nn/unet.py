@@ -86,13 +86,16 @@ class ResBlock(TimestepBlock):
 
 class AttentionBlock(nn.Module):
     """Self-attention over the flattened feature map, through the JAX
-    package's tiers in its order (ddmi_tpu/nn/unet.py::AttentionBlock):
+    package's tiers in its order (ddmi_tpu/nn/unet.py::AttentionBlock).
+    With no gradient recorded (the counterpart of JAX's inference traces):
     the fused block (ops/attn_block.py) where its predicate takes the shape,
     else GroupNorm + qkv in PyTorch and then mha_vmem (ops/attention.py),
-    flash (ops/flash_attention.py, n >= 512) or dense attention with fp32
-    softmax.  The tier depends on the shape alone: on a CUDA tensor the
-    first three launch the port's kernels (or raise for a shape a kernel
-    does not take), on a CPU tensor they run their plain versions."""
+    flash (ops/flash_attention.py, n >= 512) or dense attention.  With a
+    gradient (training): flash for n >= 512, else dense attention (scores
+    in the input dtype, fp32 softmax, probabilities cast back before P.V).
+    On a CUDA tensor the kernel tiers launch the port's kernels (or raise
+    for a shape a kernel does not take), on a CPU tensor they run their
+    plain versions."""
 
     def __init__(self, channels: int, num_heads: int):
         super().__init__()
@@ -110,7 +113,8 @@ class AttentionBlock(nn.Module):
         nh = self.num_heads
         hd = C // nh
         n = H * W
-        if attn_block.jax_supported(n, C, nh):
+        inference = not torch.is_grad_enabled()
+        if inference and attn_block.jax_supported(n, C, nh):
             w_qkv = self.qkv.weight[:, :, 0][self.perm].t()   # (C, 3C) qkv-major
             b_qkv = self.qkv.bias[self.perm]
             w_proj = self.proj_out.weight[:, :, 0].t()         # (C, C), rows (head, dim)
@@ -123,7 +127,7 @@ class AttentionBlock(nn.Module):
         # head-major qkv channels (QKVAttentionLegacy): (B, nh, 3, hd, n)
         qkv = self.qkv(self.norm(x).reshape(B, C, n)).reshape(B, nh, 3, hd, n)
         q, k, v = (qkv[:, :, i].transpose(-1, -2).contiguous() for i in range(3))
-        if attention.supported(n, hd):
+        if inference and attention.supported(n, hd):
             out = attention.mha_vmem(q, k, v, hd**-0.5)
         elif n >= flash_attention.MIN_TOKENS:
             out = flash_attention.flash_attention(q, k, v, hd**-0.5)

@@ -1,11 +1,13 @@
-"""D2C-VAE decoder emitting the HDBF plane pyramid (counterpart of
-ddmi_tpu/nn/vae.py, decode half).
+"""D2C-VAE: the conv encoder to a diagonal-Gaussian posterior and the
+decoder emitting the HDBF plane pyramid (counterpart of ddmi_tpu/nn/vae.py).
 
-State keys follow the reference `autoencoder_unet` Decoder
-(`decoder.conv_in`, `decoder.mid.{block_1,attn_1,block_2}`,
-`decoder.up.{i}.{block,attn,hdbf,upsample}`, `decoder.norm_out`,
-`decoder.conv_out`) plus the Autoencoder's `post_quant_conv`.  The encoder,
-the linear-attention variant and the posterior wait for the training slice.
+State keys follow the reference `autoencoder_unet` Autoencoder: the Encoder
+(`encoder.conv_in`, `encoder.down.{i}.{block,attn,downsample}`,
+`encoder.mid.{block_1,attn_1,block_2}`, `encoder.norm_out`,
+`encoder.conv_out`), `quant_conv`, the Decoder (`decoder.conv_in`,
+`decoder.mid.*`, `decoder.up.{i}.{block,attn,hdbf,upsample}`,
+`decoder.norm_out`, `decoder.conv_out`) and `post_quant_conv`.  The
+linear-attention variant waits for stage-1 training.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ddmi_tpu_torch.nn.distributions import DiagonalGaussian
 
 
 def Norm(channels: int) -> nn.GroupNorm:
@@ -73,6 +77,17 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(out)
 
 
+class Downsample(nn.Module):
+    """Asymmetric (0, 1) pad, then a stride-2 valid 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class Upsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -90,6 +105,54 @@ def _make_attn(channels: int, attn_type: str):
     if attn_type == "none":
         return None
     raise NotImplementedError(f"attn_type {attn_type!r} is not ported")
+
+
+class Encoder(nn.Module):
+    """Downsampling conv encoder -> 2 * z_channels moments."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if not cfg.double_z:
+            raise NotImplementedError("the Autoencoder needs double_z")
+        curr = cfg.resolution
+        self.conv_in = nn.Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
+        block_in = cfg.ch
+        self.down = nn.ModuleList()
+        for i, mult in enumerate(cfg.ch_mult):
+            lvl = nn.Module()
+            block_out = cfg.ch * mult
+            lvl.block = nn.ModuleList()
+            lvl.attn = nn.ModuleList()
+            for _ in range(cfg.num_res_blocks):
+                lvl.block.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if curr in cfg.attn_resolutions:
+                    lvl.attn.append(_make_attn(block_in, cfg.attn_type))
+            if i != len(cfg.ch_mult) - 1:
+                lvl.downsample = Downsample(block_in)
+                curr //= 2
+            self.down.append(lvl)
+        self.mid = nn.Module()
+        self.mid.block_1 = ResnetBlock(block_in, block_in)
+        self.mid.attn_1 = _make_attn(block_in, cfg.attn_type)
+        self.mid.block_2 = ResnetBlock(block_in, block_in)
+        self.norm_out = Norm(block_in)
+        self.conv_out = nn.Conv2d(block_in, 2 * cfg.z_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for lvl in self.down:
+            for j, blk in enumerate(lvl.block):
+                h = blk(h)
+                if len(lvl.attn):
+                    h = lvl.attn[j](h)
+            if hasattr(lvl, "downsample"):
+                h = lvl.downsample(h)
+        h = self.mid.block_1(h)
+        if self.mid.attn_1 is not None:
+            h = self.mid.attn_1(h)
+        h = self.mid.block_2(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
 
 
 class Decoder(nn.Module):
@@ -151,13 +214,19 @@ class Decoder(nn.Module):
 
 
 class Autoencoder(nn.Module):
-    """The decode half of the reference Autoencoder: post_quant_conv, then
-    the HDBF decoder."""
+    """encode -> DiagonalGaussian over embed_dim latents (encoder, then
+    quant_conv); decode -> HDBF list (post_quant_conv, then the decoder)."""
 
     def __init__(self, cfg, embed_dim: int = 64):
         super().__init__()
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        self.quant_conv = nn.Conv2d(2 * cfg.z_channels, 2 * embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(embed_dim, cfg.z_channels, 1)
+
+    def encode(self, x) -> DiagonalGaussian:
+        """x (b, in_channels, res, res) -> the posterior over latents."""
+        return DiagonalGaussian.from_moments(self.quant_conv(self.encoder(x)))
 
     def decode(self, z) -> List[torch.Tensor]:
         return self.decoder(self.post_quant_conv(z))

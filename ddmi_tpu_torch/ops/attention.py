@@ -9,8 +9,12 @@ it every sampling attention with n % 8 == 0, n <= 1024 and hd <= 128
 
 On a CUDA tensor `mha_vmem` launches the hand-written kernel in
 csrc/attention.cu (K/V streamed through shared memory in 64-key tiles; see
-csrc/flash_attn.cuh), which reproduces that rounding of q.  On a CPU tensor
-it runs `mha_plain`, the same function in dense fp32 PyTorch.
+csrc/flash_attn.cuh), which reproduces that rounding of q; under autograd
+its backward recomputes through the plain version, as the JAX kernel's
+custom_vjp does.  On a CPU tensor it runs `mha_plain`, the same function in
+dense fp32 PyTorch.  The UNet and the 1D blocks take it only when no
+gradient is recorded, as the JAX package takes it only in inference
+traces.
 """
 
 from __future__ import annotations
@@ -44,47 +48,104 @@ def mha_plain(q, k, v, sm_scale: float) -> torch.Tensor:
 
 def _lib():
     lib = build.load("attention")
-    for fn in (lib.ddmi_mha_vmem, lib.ddmi_flash_attention):
+    argtypes = {
+        "ddmi_mha_vmem": 4, "ddmi_flash_attention": 4,  # pointers before B, nh, n, hd
+        "ddmi_flash_attention_lse": 5, "ddmi_flash_attention_bwd": 9,
+    }
+    for name, pointers in argtypes.items():
+        fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
     return lib
 
 
-def launch(entry: str, q, k, v, sm_scale: float) -> torch.Tensor:
-    """Check the operands and launch `entry` of csrc/attention.cu."""
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one (B, nh, n, hd) shape: "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+def check_operands(*ts) -> None:
+    """Raise unless every tensor shares the first one's (B, nh, n, hd) shape
+    with a head dim the kernels have an instance for, and is contiguous bf16
+    on its device."""
+    q = ts[0]
+    if q.ndim != 4 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"attention operands must share one (B, nh, n, hd) shape: "
+                         f"{[tuple(t.shape) for t in ts]}")
     B, nh, n, hd = q.shape
     if not kernel_takes(hd):
         raise NotImplementedError(
             f"the attention kernel has no instance for head dim {hd} "
             f"(B={B}, heads={nh}, n={n}): it takes multiples of 16 up to 128")
-    for t in (q, k, v):
+    for t in ts:
         if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError("q, k, v must be contiguous bf16 on one CUDA device")
-    out = torch.empty_like(q)
+            raise ValueError("attention operands must be contiguous bf16 on one CUDA device")
+
+
+def launch(entry: str, tensors, q_shape, sm_scale: float) -> None:
+    """Launch `entry` of csrc/attention.cu on `tensors` (their data
+    pointers, in the entry's order) for q's (B, nh, n, hd); raise on a
+    launch error."""
+    dev = tensors[0].device
     err = getattr(_lib(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, nh, n, hd,
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        *(t.data_ptr() for t in tensors), *q_shape, float(sm_scale),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def recompute_vjp(plain, inputs, needs, grad_out, *static):
+    """The gradients of `plain(*inputs, *static)` for `grad_out`, by running
+    the plain version again under autograd: the dense-recompute backward the
+    JAX package gives its inference kernels as a correctness net.  None for
+    an input whose flag in `needs` is false."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
+        out = plain(*xs, *static)
+    wanted = [x for x in xs if x.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, grad_out, allow_unused=True))
+    return tuple(next(grads) if x.requires_grad else None for x in xs)
+
+
+def _mha_kernel(q, k, v, sm_scale: float) -> torch.Tensor:
+    check_operands(q, k, v)
+    out = torch.empty_like(q)
+    launch("ddmi_mha_vmem", (q, k, v, out), q.shape, sm_scale)
+    mha_vmem.launches += 1
     return out
 
 
+class _MhaVmem(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through `mha_plain`
+    (ddmi_tpu/ops/pallas/attention.py's custom_vjp recomputes densely)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale = sm_scale
+        return _mha_kernel(q, k, v, sm_scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = recompute_vjp(mha_plain, ctx.saved_tensors, ctx.needs_input_grad, dout,
+                              ctx.sm_scale)
+        return (*grads, None)
+
+
 def mha_vmem(q, k, v, sm_scale: float) -> torch.Tensor:
-    """softmax(bf16(q * s) . k^T) . v over (B, nh, n, hd)."""
+    """softmax(bf16(q * s) . k^T) . v over (B, nh, n, hd).  On the card with
+    autograd recording, the gradient comes from the plain version."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"mha_vmem: unsupported device {q.device}")
-    out = launch("ddmi_mha_vmem", q, k, v, sm_scale)
-    mha_vmem.launches += 1
-    return out
+    if needs_grad(q, k, v):
+        return _MhaVmem.apply(q, k, v, sm_scale)
+    return _mha_kernel(q, k, v, sm_scale)
 
 
 mha_vmem.launches = 0

@@ -9,8 +9,11 @@ On a CUDA tensor the block runs as the hand-written kernel in
 csrc/attn_block.cu (qkv GEMM with GroupNorm in its prologue, attention with
 K/V streamed through shared memory, proj GEMM with bias + residual in its
 epilogue); GroupNorm statistics and their fold into per-(b, c) scale/shift
-stay tensor code, as they are (B, C)-sized.  On a CPU tensor it runs
-`attention_block_plain`, the same function in plain fp32 PyTorch.
+stay tensor code, as they are (B, C)-sized.  Under autograd its backward
+recomputes through the plain version, as the JAX kernel's custom_vjp does;
+the UNet takes the block only when no gradient is recorded.  On a CPU
+tensor it runs `attention_block_plain`, the same function in plain fp32
+PyTorch.
 
 `supported` is the JAX kernel's predicate (n % 8 == 0, n <= 1024, hd <= 128,
 C % 128 == 0) restricted to head dims that are multiples of 16, the ones the
@@ -25,7 +28,7 @@ import ctypes
 import torch
 
 from ddmi_tpu_torch.ops import build
-from ddmi_tpu_torch.ops.attention import kernel_takes
+from ddmi_tpu_torch.ops.attention import kernel_takes, needs_grad, recompute_vjp
 
 MAX_TOKENS = 1024
 
@@ -87,17 +90,8 @@ def _lib():
     return lib
 
 
-def fused_attention_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
-                          num_heads: int, sm_scale: float, num_groups: int = 32,
-                          eps: float = 1e-5) -> torch.Tensor:
-    """Full AttentionBlock forward, NHWC in and out."""
-    if x.device.type == "cpu":
-        return attention_block_plain(
-            x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
-            sm_scale, num_groups, eps,
-        )
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attention_block: unsupported device {x.device}")
+def _kernel(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
+            sm_scale: float, num_groups: int, eps: float) -> torch.Tensor:
     B, H, W, C = x.shape
     n = H * W
     if not supported(n, C, num_heads):
@@ -133,6 +127,41 @@ def fused_attention_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
         raise RuntimeError(f"attention block kernel launch failed: cudaError {err}")
     fused_attention_block.launches += 1
     return out
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through
+    `attention_block_plain` (ddmi_tpu/ops/pallas/attn_block.py's custom_vjp
+    recomputes densely)."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        tensors, static = args[:7], args[7:]
+        ctx.save_for_backward(*tensors)
+        ctx.static = static
+        return _kernel(*args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = recompute_vjp(attention_block_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                              dout, *ctx.static)
+        return (*grads, *(None,) * len(ctx.static))
+
+
+def fused_attention_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+                          num_heads: int, sm_scale: float, num_groups: int = 32,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Full AttentionBlock forward, NHWC in and out.  On the card with
+    autograd recording, the gradient comes from the plain version."""
+    args = (x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads, sm_scale,
+            num_groups, eps)
+    if x.device.type == "cpu":
+        return attention_block_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attention_block: unsupported device {x.device}")
+    if needs_grad(*args[:7]):
+        return _FusedBlock.apply(*args)
+    return _kernel(*args)
 
 
 fused_attention_block.launches = 0

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ddmi_tpu_torch.ops import build
+from ddmi_tpu_torch.ops.attention import needs_grad
 from ddmi_tpu_torch.ops.resample import pixel_center_lin, separable_grid_sample
 
 SQRT2 = math.sqrt(2.0)
@@ -202,6 +203,10 @@ def inr_decode_fused(folded: FoldedINR, x0, xm, xh, seed: int) -> torch.Tensor:
         return inr_decode_plain(folded, x0, xm, xh, seed)
     if x0.device.type != "cuda":
         raise ValueError(f"inr_decode_fused: unsupported device {x0.device}")
+    if needs_grad(x0, xm, xh, folded.wa, folded.wb, folded.act_bias, folded.noise_w,
+                  folded.rgb_bias):
+        raise RuntimeError("inr_decode_fused has no gradient (nor has the JAX kernel): "
+                           "call it under torch.no_grad() or torch.inference_mode()")
     _check_cuda_operands(folded, x0, xm, xh)
     N = x0.shape[0]
     npad = (-N) % TILE

@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 from ddmi_tpu_torch.ops import build
+from ddmi_tpu_torch.ops.attention import needs_grad
 
 LANE = 128
 SLOPE = 0.01
@@ -177,6 +178,9 @@ def nerf_mlp_fused(folded: FoldedNeRF, x: torch.Tensor) -> torch.Tensor:
         return nerf_mlp_plain(folded, x)
     if x.device.type != "cuda":
         raise ValueError(f"nerf_mlp_fused: unsupported device {x.device}")
+    if needs_grad(x, *folded.tensors()):
+        raise RuntimeError("nerf_mlp_fused has no gradient (nor has the JAX kernel): "
+                           "call it under torch.no_grad() or torch.inference_mode()")
     _check_cuda_operands(folded, x)
     N = x.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=x.device)

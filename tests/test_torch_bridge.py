@@ -16,7 +16,6 @@ import torch
 from ddmi_tpu.core.config import DDConfig, MLPConfig, UNetConfig
 from ddmi_tpu.interop.reference_ckpt import (
     _convert_triplane_decoder,
-    _convert_vae_decoder,
     _convert_video_decoder,
     _dense_from_1x1,
     _Source,
@@ -25,6 +24,7 @@ from ddmi_tpu.interop.reference_ckpt import (
     convert_mlp_video,
     convert_unet,
     convert_unet_triplane,
+    convert_vae,
 )
 from ddmi_tpu_torch.interop import (
     mlp_image_from_jax,
@@ -33,7 +33,7 @@ from ddmi_tpu_torch.interop import (
     triplane_decoder_from_jax,
     triplane_unet_from_jax,
     unet_from_jax,
-    vae_decoder_from_jax,
+    vae_from_jax,
     video_decoder_from_jax,
 )
 
@@ -93,15 +93,9 @@ def test_vae_decoder_bridge_round_trip_is_exact():
         jax.random.PRNGKey(1),
     )["params"]
     t = _random_tree(t, 2)
-    sd = vae_decoder_from_jax(t, DD)
+    sd = vae_from_jax(t, DD)
     TorchAE(DD, embed_dim=4).load_state_dict(sd, strict=True)
-    src = _Source(sd)
-    dec = _convert_vae_decoder(src.sub("decoder."), DD)
-    pqc = {"kernel": np.transpose(src.pop("post_quant_conv.weight"), (2, 3, 1, 0)),
-           "bias": src.pop("post_quant_conv.bias")}
-    src.finish()
-    _assert_trees_equal(dec, t["decoder"])
-    _assert_trees_equal(pqc, t["post_quant_conv"])
+    _assert_trees_equal(convert_vae({k: v.numpy() for k, v in sd.items()}, DD), t)
 
 
 def test_mlp_bridge_round_trip_is_exact():

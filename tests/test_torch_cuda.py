@@ -217,3 +217,150 @@ def test_nerf_render_goes_through_the_kernel(cuda_device):
     torch.cuda.synchronize()
     assert nerf_mlp.nerf_mlp_fused.launches == before + 4
     assert img.shape == (128, 128, 3) and torch.isfinite(img).all()
+
+
+@pytest.mark.parametrize("B,nh,n,hd", [(5, 16, 1024, 32), (1, 2, 1000, 64)])
+def test_flash_backward_kernel_matches_plain(cuda_device, B, nh, n, hd):
+    """The backward kernels vs flash_bwd_plain (fp32, from the same bf16
+    operands and the kernel forward's LSE): dq, dk, dv each within
+    max|err| <= 0.03 * max|ref| and correlation >= 0.999 (bf16 rounding of
+    p and ds before their products, bf16 outputs); a repeat is
+    bit-identical (no atomics); one count per call."""
+    q, k, v, do = _qkv(n + hd, B, nh, n, hd, cuda_device) + _qkv(7, B, nh, n, hd, cuda_device)[:1]
+    s = hd**-0.5
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, s, with_lse=True)
+    before = flash_attention.flash_attention_bwd.launches
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, s)
+    ref = flash_attention.flash_bwd_plain(q, k, v, out, lse, do, s)
+    again = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, s)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        a, r = a.float(), r.float()
+        corr = torch.corrcoef(torch.stack([a.flatten(), r.flatten()]))[0, 1].item()
+        assert (a - r).abs().max().item() <= 0.03 * r.abs().max().item() and corr >= 0.999
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert flash_attention.flash_attention_bwd.launches == before + 2
+
+
+def test_flash_forward_lse_matches_logsumexp(cuda_device):
+    """The LSE entry's row statistics vs torch.logsumexp of the fp32 scaled
+    scores (within 1e-4), and its output equal to the plain entry's."""
+    q, k, v = _qkv(3, 2, 4, 1000, 32, cuda_device)
+    s = 32**-0.5
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, s, with_lse=True)
+    plain_out, none = flash_attention.flash_attention_fwd(q, k, v, s, with_lse=False)
+    ref = torch.logsumexp((q.float() @ k.float().transpose(-1, -2)) * s, dim=-1)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, plain_out)
+    assert (lse - ref).abs().max().item() <= 1e-4
+
+
+def test_flash_attention_function_on_the_card(cuda_device):
+    """flash_attention under autograd launches the LSE forward and the
+    backward kernels once each; its gradients are the backward kernels'."""
+    q, k, v = (t.requires_grad_() for t in _qkv(11, 2, 4, 512, 32, cuda_device))
+    do = _qkv(12, 2, 4, 512, 32, cuda_device)[0]
+    f0, b0 = flash_attention.flash_attention.launches, flash_attention.flash_attention_bwd.launches
+    out = flash_attention.flash_attention(q, k, v, 32**-0.5)
+    out.backward(do)
+    assert flash_attention.flash_attention.launches == f0 + 1
+    assert flash_attention.flash_attention_bwd.launches == b0 + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    _, lse = flash_attention.flash_attention_fwd(qd, kd, vd, 32**-0.5, with_lse=True)
+    ref = flash_attention.flash_attention_bwd(qd, kd, vd, out.detach(), lse, do, 32**-0.5)
+    for t, r in zip((q, k, v), ref):
+        assert torch.equal(t.grad, r)
+
+
+def _plain_grads(plain, args, n_tensors, dout):
+    xs = [a.detach().clone().requires_grad_() for a in args[:n_tensors]]
+    plain(*xs, *args[n_tensors:]).backward(dout)
+    return [x.grad for x in xs]
+
+
+def test_inference_kernels_backward_through_their_plain_versions(cuda_device):
+    """The fused block's and mha_vmem's Functions under autograd: the
+    forward is the kernel (one launch each) and the gradients are exactly
+    those of their plain versions on the same inputs."""
+    x, gs, gb, wq, bq, wp, bp = _attn_args(5, 2, 16, 512, cuda_device)
+    args = [x, gs, gb, wq, bq, wp, bp, 16, 32**-0.5, 32, 1e-5]
+    leaves = [a.detach().clone().requires_grad_() for a in args[:7]]
+    before = attn_block.fused_attention_block.launches
+    out = attn_block.fused_attention_block(*leaves, *args[7:])
+    dout = torch.randn_like(out)
+    out.backward(dout)
+    assert attn_block.fused_attention_block.launches == before + 1
+    ref = _plain_grads(attn_block.attention_block_plain, args, 7, dout)
+    for leaf, r in zip(leaves, ref):
+        assert torch.equal(leaf.grad, r)
+
+    q, k, v = _qkv(9, 2, 8, 256, 64, cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = attention.mha_vmem.launches
+    out = attention.mha_vmem(*leaves, 0.125)
+    dout = torch.randn_like(out)
+    out.backward(dout)
+    assert attention.mha_vmem.launches == before + 1
+    for leaf, r in zip(leaves, _plain_grads(attention.mha_plain, [q, k, v, 0.125], 3, dout)):
+        assert torch.equal(leaf.grad, r)
+
+
+def test_render_kernels_refuse_inputs_that_need_grad(cuda_device):
+    """inr_decode and nerf_mlp have no backward (nor have the JAX kernels):
+    with autograd recording they raise instead of returning a tensor
+    without a gradient."""
+    folded = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device))
+    x = torch.zeros((64, 186), device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        nerf_mlp.nerf_mlp_fused(folded, x)
+    m = INRImage(MLPConfig(in_ch=2, out_ch=3, ch=256, latent_dim=64)).to(cuda_device)
+    planes = [torch.randn(1, 64, r, r, device=cuda_device).bfloat16() for r in (4, 8, 16)]
+    folded = inr_decode.fold_inr_image_params(m, 1.0)
+    toks = [t.requires_grad_() for t in inr_decode.render_tokens(planes, 16, 1.0, 2)]
+    with pytest.raises(RuntimeError, match="no gradient"):
+        inr_decode.inr_decode_fused(folded, *toks, 0)
+
+
+def test_unet_attention_gradients_on_the_card_match_the_cpu(cuda_device):
+    """A tiny UNet (attention at n = 1024 through flash, at n = 256 dense)
+    trained one step's worth: the gradients of the attention blocks'
+    parameters under the bf16 policy on the card (flash forward and backward
+    kernels for the three 32 x 32 blocks) against fp32 on the CPU, within 5% relative
+    (L2) per tensor and cosine >= 0.998 (bf16 compute)."""
+    from ddmi_tpu_torch.core.amp import amp_denoiser
+    from ddmi_tpu_torch.nn.unet import UNet
+
+    cfg = config_from_dict({"model": {"params": {"unetconfig": dict(
+        image_size=32, in_channels=4, model_channels=64, out_channels=4,
+        attention_resolutions=[1, 2], num_res_blocks=1, channel_mult=[1, 2],
+        num_head_channels=32)}}}).model.unetconfig
+    torch.manual_seed(0)
+    cpu = UNet(cfg)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if not p.any():
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    gpu = UNet(cfg).to(cuda_device).to(memory_format=torch.channels_last)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 4, 32, 32), generator=g)
+    w = torch.randn((2, 4, 32, 32), generator=g)
+    t = torch.tensor([10, 700])
+    (cpu(x, t) * w).mean().backward()
+    f0, b0 = flash_attention.flash_attention.launches, flash_attention.flash_attention_bwd.launches
+    out = amp_denoiser(gpu, True)(x.to(cuda_device), t.to(cuda_device))
+    (out * w.to(cuda_device)).mean().backward()
+    torch.cuda.synchronize()
+    # the 32 x 32 blocks: one on the way down, two on the way up
+    assert flash_attention.flash_attention.launches == f0 + 3
+    assert flash_attention.flash_attention_bwd.launches == b0 + 3
+    got = dict(gpu.named_parameters())
+    checked = 0
+    for name, p in cpu.named_parameters():
+        if ".qkv." not in name and ".proj_out." not in name and ".norm." not in name:
+            continue
+        a, r = got[name].grad.float().cpu().flatten(), p.grad.flatten()
+        cos = torch.nn.functional.cosine_similarity(a, r, dim=0).item()
+        assert (a - r).norm() <= 0.05 * r.norm() and cos >= 0.998, (name, cos)
+        checked += 1
+    assert checked >= 12

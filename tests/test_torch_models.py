@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ddmi_tpu.core.config import DDConfig, DDPMConfig, MLPConfig, UNetConfig
-from ddmi_tpu_torch.interop import mlp_image_from_jax, unet_from_jax, vae_decoder_from_jax
+from ddmi_tpu_torch.interop import mlp_image_from_jax, unet_from_jax, vae_from_jax
 
 torch.set_num_threads(1)
 
@@ -94,7 +94,7 @@ def test_vae_decoder_matches_jax():
                 jax.random.PRNGKey(1))["params"]
     p = _perturb_zeros(p, 3)
     m = TorchAE(DD, embed_dim=4)
-    m.load_state_dict(vae_decoder_from_jax(p, DD))
+    m.load_state_dict(vae_from_jax(p, DD))
     z = np.random.default_rng(4).standard_normal((2, 4, 4, 4)).astype(np.float32)
     ref = jm.apply({"params": p}, jnp.asarray(z), method=jm.decode)
     with torch.no_grad():

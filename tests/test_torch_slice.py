@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from ddmi_tpu.core.config import config_from_dict
-from ddmi_tpu_torch.interop import mlp_image_from_jax, unet_from_jax, vae_decoder_from_jax
+from ddmi_tpu_torch.interop import mlp_image_from_jax, unet_from_jax, vae_from_jax
 
 torch.set_num_threads(1)
 
@@ -66,7 +66,7 @@ def shared():
     m = cfg.model
     sds = {
         "unet": unet_from_jax(s2["unet"], m.unetconfig),
-        "vae": vae_decoder_from_jax(s1["vae"], m.ddconfig),
+        "vae": vae_from_jax(s1["vae"], m.ddconfig),
         "mlp": mlp_image_from_jax(s1["mlp"], m.mlpconfig),
         "mixing_logit": torch.from_numpy(np.transpose(s2["mixing_logit"], (0, 3, 1, 2))),
     }
