@@ -6,8 +6,10 @@
 Phases, each of which ends the run with a non-zero exit on failure:
   1. device: name, count, `nvidia-smi` name and power limit; no CUDA device
      means exit 3 (there is no CPU fallback);
-  2. build: the four CUDA libraries from ddmi_tpu_torch/csrc with nvcc
-     (sm_90a), one nvcc each, all at once, with the ptxas register report;
+  2. build: the five CUDA libraries from ddmi_tpu_torch/csrc with nvcc
+     (sm_90a), one nvcc each, all at once, with the ptxas register report
+     and, for the flash library's kernel instances, their registers, spills
+     and shared memory;
   3. image kernels: attn_block and inr_decode against their plain PyTorch
      versions at celebahq's shapes, timed against them with CUDA events;
   4. image slice: the image SamplerService on configs/ldm/celebahq.yaml at
@@ -30,6 +32,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
   8. video kernels: attn_block, mha_vmem and flash_attention against their
      plain versions at every one of those shapes, each also timed against
      torch's scaled_dot_product_attention where one call computes the same;
+     each flash line also gives the exp-unit floor beside the tensor bound,
+     TFLOP/s, the wrapper's enqueue time and the time of mha_vmem at the
+     same shape (the streaming core that flash replaced, as a yardstick);
   9. video reference: a small video config, bf16 with the kernels on the GPU
      against fp32 plain versions on the CPU, that goes through all three
      attention kernels;
@@ -52,7 +57,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      plain version at the celebahq training shape (5, 16, 1024, 32), at
      (2, 4, 2048, 16) and at a ragged (1, 2, 1000, 64), timed against the
      plain version and the backward of torch's scaled_dot_product_attention;
-     the forward's row log-sum-exp against torch.logsumexp;
+     the forward's row log-sum-exp against torch.logsumexp; the exp floor,
+     TFLOP/s and mha_vmem's time beside each, as in phase 8;
  15. train slice: Trainer.train_stage2 on configs/ldm/celebahq.yaml at full
      width (fp32 master parameters, bf16 compute, batch 5 of 256^2
      synthetic images, accumulation over 5, 10 micro-steps): the counters
@@ -93,6 +99,8 @@ NERF_VIEWS = 8
 NERF_RES = 128
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# the exp unit: 16 ex2 per clock per SM, 132 SMs at the 1,980 MHz boost clock
+EXP_RATE = 16 * 132 * 1.98e9
 # attn_block against its fp32 plain version (the JAX bf16 bar)
 ATTN_MAX_ERR, ATTN_MIN_CORR = 0.031, 0.99999
 # mha_vmem / flash_attention against their fp32 plain versions: bf16
@@ -142,9 +150,9 @@ KERNELS = {
     "attn_block": ("ddmi_tpu_torch/csrc/attn_block.cu", "ddmi_tpu/ops/pallas/attn_block.py:199"),
     "inr_decode": ("ddmi_tpu_torch/csrc/inr_decode.cu", "ddmi_tpu/ops/pallas/inr_decode.py:307"),
     "mha_vmem": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/ops/pallas/attention.py:100"),
-    "flash_attention": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/nn/attention1d.py:77"),
+    "flash_attention": ("ddmi_tpu_torch/csrc/flash.cu", "ddmi_tpu/nn/attention1d.py:77"),
     "nerf_mlp": ("ddmi_tpu_torch/csrc/nerf_mlp.cu", "ddmi_tpu/ops/pallas/nerf_mlp.py:213"),
-    "flash_attention_bwd": ("ddmi_tpu_torch/csrc/flash_attn_bwd.cuh",
+    "flash_attention_bwd": ("ddmi_tpu_torch/csrc/flash.cu",
                             "jax/experimental/pallas/ops/tpu/flash_attention.py:1121,1456"),
 }
 
@@ -189,6 +197,33 @@ def paired_ms(kernel, plain, reps: int = 0):
     k2 = cuda_ms(kernel, reps)
     p2 = cuda_ms(plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def enqueue_us(torch, fn, calls: int = 50) -> float:
+    """Host time to enqueue one fn() (no synchronise inside the loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
+
+
+def flash_yardsticks(torch, q, k, v, s, kms, flops, exps, kernel=None) -> str:
+    """The text a flash line adds: the exp-unit floor beside the tensor
+    bound, TFLOP/s, the wrapper's enqueue time (for calls under 1 ms) and
+    the time of mha_vmem at the same shape, which runs the streaming core
+    that the Hopper flash kernels replaced."""
+    from ddmi_tpu_torch.ops import attention
+
+    mms = cuda_ms(lambda: attention.mha_vmem(q, k, v, s))
+    text = (f"; exp floor {1e3 * exps / EXP_RATE:.4f} ms; {flops / kms / 1e9:.1f} TFLOP/s; "
+            f"mha_vmem at this shape (old streaming core, yardstick) {mms:.4f} ms")
+    if kernel is not None and kms < 1.0:
+        text += (f"; wrapper enqueue {enqueue_us(torch, kernel):.1f} us/call (mha_vmem's "
+                 f"{enqueue_us(torch, lambda: attention.mha_vmem(q, k, v, s)):.1f})")
+    return text
 
 
 def bound(flops: float, nbytes: float):
@@ -332,9 +367,12 @@ def attention_case(torch, dev, name, calls, B, nh, n, hd, seed, path="video"):
     flops = 4 * B * nh * n * n * hd
     nbytes = 4 * q.numel() * 2
     bms, by = bound(flops, nbytes)
+    extra = ""
+    if name == "flash_attention":
+        extra = flash_yardsticks(torch, q, k, v, s, kms, flops, B * nh * n * n, kern)
     log(f"[kernel] {name} B={B} heads={nh} n={n} hd={hd} (x{calls}/batch): max|err| {err:.6f} "
         f"(/max|ref| {rel:.5f}) corr {corr:.8f}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms, "
-        f"library sdpa {lms:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"library sdpa {lms:.4f} ms, bound {bms:.4f} ms ({by}){extra}")
     if not (rel <= MHA_REL_ERR and corr >= MHA_MIN_CORR):
         raise AssertionError(f"{name} disagrees at n={n}, hd={hd}: rel {rel}, corr {corr}")
     LEDGER.add(name, path, calls, kms, pms, lms, flops, nbytes, err)
@@ -527,7 +565,7 @@ def image_breakdown_phase(torch, dev):
     log(f"[breakdown] batch {BATCH}: UNet forward {unet_ms:.3f} ms (x{NFE} per batch = "
         f"{unet_ms * NFE / 1000:.3f} s), decode {dec_ms:.3f} ms, render {ren_ms:.3f} ms")
     profile_top(torch, lambda: pipe.unet(x, t), "breakdown",
-                ("gemm_kernel", "attn_fwd_kernel"))
+                ("gemm_kernel", "attn_fwd_kernel", "flash_fwd_kernel"))
 
 
 def image_reference_phase(torch, dev):
@@ -644,7 +682,7 @@ def video_breakdown_phase(torch, dev, pipe):
         f"per batch = {unet_ms * VIDEO_NFE / 1000:.3f} s), decode {dec_ms:.3f} ms, render "
         f"({pipe.frames} frames) {ren_ms:.3f} ms")
     profile_top(torch, lambda: pipe.unet(x, t), "video-breakdown",
-                ("gemm_kernel", "attn_fwd_kernel"))
+                ("gemm_kernel", "attn_fwd_kernel", "flash_fwd_kernel"))
 
     shapes = collections.Counter()
     wrapped = [(attn_block, "fused_attention_block"), (attention, "mha_vmem"),
@@ -922,7 +960,7 @@ def nerf_breakdown_phase(torch, dev, pipe):
     profile_top(torch, lambda: pipe.render_image(planes, pose, NERF_RES, NERF_RES, folded),
                 "nerf-breakdown render", ("nerf_mlp_kernel",))
     profile_top(torch, lambda: pipe.unet(x, t), "nerf-breakdown forward",
-                ("gemm_kernel", "attn_fwd_kernel"))
+                ("gemm_kernel", "attn_fwd_kernel", "flash_fwd_kernel"))
 
 
 def nerf_reference_phase(torch, dev):
@@ -1010,8 +1048,8 @@ def train_kernel_phase(torch, dev):
             + ", ".join(f"d{c} max|err| {e:.6f} (/max|ref| {r:.5f}) corr {c2:.6f}"
                         for c, (e, r, c2) in zip("qkv", stats))
             + f"; LSE max|err| {lse_err:.2e}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms, "
-            f"library sdpa backward {lms:.4f} ms, bound {bms:.4f} ms ({by}); "
-            f"{flops / kms / 1e9:.1f} TFLOP/s")
+            f"library sdpa backward {lms:.4f} ms, bound {bms:.4f} ms ({by})"
+            + flash_yardsticks(torch, q, k, v, s, kms, flops, 2 * B * nh * n * n, kern))
         if not all(r <= FLASH_BWD_REL_ERR and c2 >= FLASH_BWD_MIN_CORR for _, r, c2 in stats):
             raise AssertionError(f"flash backward disagrees at {(B, nh, n, hd)}: {stats}")
         if not lse_err <= LSE_MAX_ERR:
@@ -1028,7 +1066,8 @@ def train_kernel_phase(torch, dev):
             ferr = (out.float() - ref_out.float()).abs().max().item()
             log(f"[train-kernel] flash_attention with LSE B={B} heads={nh} n={n} hd={hd}: "
                 f"max|err| {ferr:.6f}; kernel {fms:.4f} ms, plain fp32 {fpms:.4f} ms, library "
-                f"sdpa {flms:.4f} ms, bound {fbms:.4f} ms ({fby})")
+                f"sdpa {flms:.4f} ms, bound {fbms:.4f} ms ({fby})"
+                + flash_yardsticks(torch, q, k, v, s, fms, fflops, B * nh * n * n, fwd))
             LEDGER.add("flash_attention", "train", TRAIN_LAUNCHES["flash_attention"], fms, fpms,
                        flms, fflops, fbytes, ferr)
         del q, k, v, do, out, lse, leaves, o2
@@ -1133,7 +1172,7 @@ def train_slice_phase(torch, dev):
             f"{k} {sum(v) / len(v):.3f} ms mean ({', '.join(f'{x:.1f}' for x in v)})"
             for k, v in split.items()))
     profile_top(torch, lambda: pipe.stage2_train_step(state, x, generator=g), "train-profile",
-                ("attn_fwd_kernel", "attn_bwd_dkv_kernel", "attn_bwd_dq_kernel"),
+                ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"),
                 inference=False)
     return launches
 
@@ -1195,6 +1234,32 @@ def train_reference_phase(torch, dev):
         raise AssertionError("the GPU train step disagrees with the CPU reference")
 
 
+def flash_build_report(ptxas) -> None:
+    """Registers, spills and shared memory of each kernel instance of the
+    flash library, from the ptxas report and the library's own sizes, and
+    any ptxas warning (wgmma serialisation, setmaxnreg)."""
+    import ctypes
+    import re
+
+    from ddmi_tpu_torch.ops import build
+
+    smem = build.load("flash").ddmi_flash_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    name, spills = None, ""
+    for line in ptxas:
+        entry = re.search(r"Compiling entry function '\w*?(flash_\w+?_kernel)ILi(\d+)E", line)
+        if entry:
+            kernel, hd = entry.group(1), int(entry.group(2))
+            name = f"{kernel}<{hd}> (dynamic shared memory {smem(int('bwd' in kernel), hd)} bytes)"
+        elif "spill" in line and name:
+            spills = line
+        elif "registers" in line and name:
+            log(f"[build]   {name}: {line.split(':', 1)[-1].strip()}; {spills}")
+            name = None
+        elif "Compiling entry" not in line and "registers" not in line:
+            log(f"[build]   ptxas: {line}")
+
+
 def main() -> int:
     import torch
 
@@ -1217,7 +1282,7 @@ def main() -> int:
     from ddmi_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    names = ("attn_block", "inr_decode", "attention", "nerf_mlp")
+    names = ("attn_block", "inr_decode", "attention", "nerf_mlp", "flash")
     build.build_all(names)
     log(f"[build] {len(names)} libraries, one nvcc each in parallel: "
         f"{time.perf_counter() - t0:.2f} s wall")
@@ -1227,6 +1292,9 @@ def main() -> int:
             log(f"[build] {name}: library already built")
             continue
         log(f"[build] {name}: nvcc sm_90a {info['seconds']:.2f} s")
+        if name == "flash":
+            flash_build_report(info["ptxas"])
+            continue
         for line in info["ptxas"]:
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line}")

@@ -1,0 +1,169 @@
+// Flash attention over head-major (B, nh, n, hd) bf16 q/k/v for Hopper
+// (sm_90a), with a plain C interface for ctypes:
+//
+//   ddmi_flash_attention       replaces the forward of the library Pallas kernel
+//                              jax.experimental.pallas.ops.tpu.flash_attention,
+//                              as called at ddmi_tpu/nn/attention1d.py:77 and
+//                              ddmi_tpu/nn/unet.py:185 (flash_fwd_sm90.cuh);
+//   ddmi_flash_attention_lse   the same forward, also writing each row's
+//                              log-sum-exp, taken when a gradient will be needed;
+//   ddmi_flash_attention_bwd   replaces the library's backward kernels
+//                              _flash_attention_bwd_dkv and _flash_attention_bwd_dq
+//                              (flash_attention.py:1121, :1456): dq, dk, dv in
+//                              two launches (flash_bwd_sm90.cuh).
+//
+// Every entry builds its TMA tensor maps here, on the host, inside the one
+// call: cuTensorMapEncodeTiled comes from the runtime's driver entry point,
+// so the library needs no -lcuda.  Each (hd, n, B * nh) map reads one
+// head's rows, and TMA fills rows past n with zeros.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "flash_bwd_sm90.cuh"
+#include "flash_fwd_sm90.cuh"
+
+namespace {
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the (hd, n, bh) map of a contiguous (bh, n, hd) bf16 tensor, boxes of
+// `rows` rows by one swizzle panel (min(hd * 2, 128) bytes)
+bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int n, int bh, int rows) {
+  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const int rowb = hd * 2 < 128 ? hd * 2 : 128;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)n * hd * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)rowb / 2, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = rowb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : rowb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int forward(const void* q, const void* k, const void* v, void* out, float* lse, int bh, int n,
+            float sm_scale, cudaStream_t st) {
+  using S = ddmi_flash::FwdShape<HD>;
+  ddmi_flash::FwdParams p{};
+  if (!tensor_map(&p.q, q, HD, n, bh, S::BM) || !tensor_map(&p.k, k, HD, n, bh, S::BN) ||
+      !tensor_map(&p.v, v, HD, n, bh, S::BN))
+    return cudaErrorInvalidValue;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = lse;
+  p.n = n;
+  p.scale_log2 = sm_scale * ddmi_flash::LOG2E;
+  return ddmi_flash::launch_fwd<HD>(p, bh, st);
+}
+
+int forward(const void* q, const void* k, const void* v, void* out, float* lse, int B, int nh, int n,
+            int hd, float sm_scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (n < 1) return cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return forward<16>(q, k, v, out, lse, B * nh, n, sm_scale, st);
+    case 32: return forward<32>(q, k, v, out, lse, B * nh, n, sm_scale, st);
+    case 64: return forward<64>(q, k, v, out, lse, B * nh, n, sm_scale, st);
+    case 128: return forward<128>(q, k, v, out, lse, B * nh, n, sm_scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// in: q, k, v, dout; stats: lse, di; grads: dq, dk, dv
+template <int HD>
+int backward(const void* const (&in)[4], const float* const (&stats)[2], void* const (&grads)[3],
+             int bh, int n, float sm_scale, cudaStream_t st) {
+  using S = ddmi_flash::BwdShape<HD>;
+  ddmi_flash::BwdParams p{};
+  if (!tensor_map(&p.q64, in[0], HD, n, bh, S::SMALL) || !tensor_map(&p.do64, in[3], HD, n, bh, S::SMALL) ||
+      !tensor_map(&p.k128, in[1], HD, n, bh, S::BIG) || !tensor_map(&p.v128, in[2], HD, n, bh, S::BIG) ||
+      !tensor_map(&p.q128, in[0], HD, n, bh, S::BIG) || !tensor_map(&p.do128, in[3], HD, n, bh, S::BIG) ||
+      !tensor_map(&p.k64, in[1], HD, n, bh, S::SMALL) || !tensor_map(&p.v64, in[2], HD, n, bh, S::SMALL))
+    return cudaErrorInvalidValue;
+  p.lse = stats[0];
+  p.di = stats[1];
+  p.dq = static_cast<__nv_bfloat16*>(grads[0]);
+  p.dk = static_cast<__nv_bfloat16*>(grads[1]);
+  p.dv = static_cast<__nv_bfloat16*>(grads[2]);
+  p.n = n;
+  p.scale = sm_scale;
+  p.scale_log2 = sm_scale * ddmi_flash::LOG2E;
+  return ddmi_flash::launch_bwd<HD>(p, bh, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, out: (B, nh, n, hd) bf16, contiguous, 16-byte aligned; hd 16, 32,
+// 64 or 128 (the wrapper zero-pads other head dims), any n >= 1.  Each
+// returns the cudaError_t of its launch (cudaErrorInvalidValue for operands
+// it does not take).
+int ddmi_flash_attention(const void* q, const void* k, const void* v, void* out, int B, int nh,
+                         int n, int hd, float sm_scale, void* stream) {
+  return forward(q, k, v, out, nullptr, B, nh, n, hd, sm_scale, stream);
+}
+
+// As ddmi_flash_attention, and lse (B, nh, n) fp32 gets each row's
+// log-sum-exp (natural log) of the scaled scores.
+int ddmi_flash_attention_lse(const void* q, const void* k, const void* v, void* out, void* lse,
+                             int B, int nh, int n, int hd, float sm_scale, void* stream) {
+  return forward(q, k, v, out, static_cast<float*>(lse), B, nh, n, hd, sm_scale, stream);
+}
+
+// q, k, v, dout, dq, dk, dv: (B, nh, n, hd) bf16, contiguous; lse, di:
+// (B, nh, n) fp32.  Two launches (dk/dv, then dq); returns the first error.
+int ddmi_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* di, void* dq, void* dk, void* dv,
+                             int B, int nh, int n, int hd, float sm_scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const void* in[4] = {q, k, v, dout};
+  void* grads[3] = {dq, dk, dv};
+  const float* stats[2] = {static_cast<const float*>(lse), static_cast<const float*>(di)};
+  if (n < 1) return cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return backward<16>(in, stats, grads, B * nh, n, sm_scale, st);
+    case 32: return backward<32>(in, stats, grads, B * nh, n, sm_scale, st);
+    case 64: return backward<64>(in, stats, grads, B * nh, n, sm_scale, st);
+    case 128: return backward<128>(in, stats, grads, B * nh, n, sm_scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory a launch asks for: the forward (kernel 0) or
+// each backward kernel (1) at head dim hd; 0 for an hd without an instance.
+int ddmi_flash_smem_bytes(int kernel, int hd) {
+  switch (hd) {
+    case 16: return (int)(kernel ? ddmi_flash::BwdShape<16>::SMEM : ddmi_flash::FwdShape<16>::SMEM);
+    case 32: return (int)(kernel ? ddmi_flash::BwdShape<32>::SMEM : ddmi_flash::FwdShape<32>::SMEM);
+    case 64: return (int)(kernel ? ddmi_flash::BwdShape<64>::SMEM : ddmi_flash::FwdShape<64>::SMEM);
+    case 128: return (int)(kernel ? ddmi_flash::BwdShape<128>::SMEM : ddmi_flash::FwdShape<128>::SMEM);
+    default: return 0;
+  }
+}
+
+}  // extern "C"

@@ -2,10 +2,11 @@
 // head-major q/k/v, with an online softmax in fp32 and the division by the
 // row sum after P.V.
 //
-// Shared by csrc/attention.cu (the counterparts of the TPU kernels
-// ddmi_tpu/ops/pallas/attention.py::mha_vmem and the library Pallas
-// flash_attention forward) and csrc/attn_block.cu (the attention step of the
-// fused ADM attention block).
+// Shared by csrc/attention.cu (the counterpart of the TPU kernel
+// ddmi_tpu/ops/pallas/attention.py::mha_vmem) and csrc/attn_block.cu (the
+// attention step of the fused ADM attention block).  The flash attention
+// forward has its own Hopper kernel (flash_fwd_sm90.cuh), whose wgmma/TMA
+// core these two can adopt.
 //
 // Design.  One block of 4 warps per (64-row q tile, head, batch); each warp
 // owns 16 q rows, kept as WMMA bf16 fragments in registers.  K and V stream
@@ -17,15 +18,12 @@
 // the probabilities as bf16, and accumulates P.V into an fp32 output tile in
 // shared memory after rescaling it by exp(m_old - m_new).  A ragged q tile
 // (n % 64 != 0) reads zero rows and writes none; keys past n in the last
-// tile are masked to -inf before the max.  Where `lse` is given (the
-// flash forward under autograd), each row's log-sum-exp m + log(l) of the
-// scaled scores is written after the last tile for the backward
-// (flash_attn_bwd.cuh).
+// tile are masked to -inf before the max.
 //
 // Scale.  `prescale_q` = 1 multiplies q by the scale in fp32 and rounds it
 // once to bf16 before q.k (mha_vmem's rounding); 0 multiplies the fp32
-// scores (the library flash kernel's); the fused block passes q already
-// scaled by its qkv GEMM and a scale of 1.
+// scores (the fused block passes q already scaled by its qkv GEMM and a
+// scale of 1).
 //
 // What bounds it: 4 * n^2 * hd FLOP per (batch, head) on 4 * n * hd * 2
 // bytes, so at n >= 512 the work is far above the card's bf16 ridge and the
@@ -60,7 +58,6 @@ struct Params {
   int B, nh, n;
   float scale;
   int prescale_q;
-  float* lse;  // optional (B, nh, n) fp32 log-sum-exp of the scaled scores, for the backward
 };
 
 template <int HD>
@@ -205,8 +202,6 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(Params p) {
 
   // normalise after P.V and write the rows that exist
   if (hf == 0) R[r] = 1.0f / l_run;
-  if (p.lse != nullptr && hf == 0 && q0 + r < n)
-    p.lse[((size_t)b * p.nh + h) * n + q0 + r] = m_run + logf(l_run);
   __syncwarp();
   __nv_bfloat16* out = p.out + (size_t)b * p.out_sb + (size_t)h * p.out_sh;
   for (int i = lane; i < 16 * HD; i += 32) {

@@ -9,12 +9,15 @@ it every sampling attention with n % 8 == 0, n <= 1024 and hd <= 128
 
 On a CUDA tensor `mha_vmem` launches the hand-written kernel in
 csrc/attention.cu (K/V streamed through shared memory in 64-key tiles; see
-csrc/flash_attn.cuh), which reproduces that rounding of q; under autograd
-its backward recomputes through the plain version, as the JAX kernel's
-custom_vjp does.  On a CPU tensor it runs `mha_plain`, the same function in
-dense fp32 PyTorch.  The UNet and the 1D blocks take it only when no
-gradient is recorded, as the JAX package takes it only in inference
-traces.
+csrc/flash_attn.cuh), which reproduces that rounding of q.  It has an
+instance for every multiple of 16 up to 128; the wrapper zero-pads any
+other head dim to the next one and cuts the output back, which is exact:
+zero columns add nothing to bf16(q * s).k and give zero output columns.
+Under autograd its backward recomputes through the plain version, as the
+JAX kernel's custom_vjp does.  On a CPU tensor it runs `mha_plain`, the
+same function in dense fp32 PyTorch.  The UNet and the 1D blocks take it
+only when no gradient is recorded, as the JAX package takes it only in
+inference traces.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from ddmi_tpu_torch.ops import build
 
 MAX_TOKENS = 1024
+MAX_HEAD_DIM = 128  # the largest head dim the attention kernels take
 
 
 def supported(n: int, hd: int) -> bool:
@@ -34,8 +38,21 @@ def supported(n: int, hd: int) -> bool:
 
 
 def kernel_takes(hd: int) -> bool:
-    """Head dims the CUDA kernel has an instance for (every repo config's)."""
-    return hd % 16 == 0 and 16 <= hd <= 128
+    """Head dims the streaming kernel has an instance for (every repo
+    config's); the fused attention block takes only these."""
+    return hd % 16 == 0 and 16 <= hd <= MAX_HEAD_DIM
+
+
+def mha_head_dim(hd: int) -> int:
+    """The instance `mha_vmem` runs a head dim of `hd` on: the next
+    multiple of 16."""
+    return max(16, -(-hd // 16) * 16)
+
+
+def pad_head_dim(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """t with its last (head) dim zero-padded to `hd`; t itself if it
+    already has it."""
+    return t if t.shape[-1] == hd else torch.nn.functional.pad(t, (0, hd - t.shape[-1]))
 
 
 def mha_plain(q, k, v, sm_scale: float) -> torch.Tensor:
@@ -46,14 +63,13 @@ def mha_plain(q, k, v, sm_scale: float) -> torch.Tensor:
     return (p @ v.float()).to(q.dtype)
 
 
-def _lib():
-    lib = build.load("attention")
-    argtypes = {
-        "ddmi_mha_vmem": 4, "ddmi_flash_attention": 4,  # pointers before B, nh, n, hd
-        "ddmi_flash_attention_lse": 5, "ddmi_flash_attention_bwd": 9,
-    }
-    for name, pointers in argtypes.items():
-        fn = getattr(lib, name)
+def load_entries(name: str, entries: dict):
+    """The library built from csrc/<name>.cu, with each entry of `entries`
+    (entry -> its number of pointers before B, nh, n, hd) typed as
+    (pointers..., B, nh, n, hd, scale, stream) -> cudaError_t."""
+    lib = build.load(name)
+    for entry, pointers in entries.items():
+        fn = getattr(lib, entry)
         if fn.argtypes is None:
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_void_p,
@@ -64,28 +80,26 @@ def _lib():
 
 def check_operands(*ts) -> None:
     """Raise unless every tensor shares the first one's (B, nh, n, hd) shape
-    with a head dim the kernels have an instance for, and is contiguous bf16
-    on its device."""
+    with a head dim of at most 128, and is contiguous bf16 on its device."""
     q = ts[0]
     if q.ndim != 4 or any(t.shape != q.shape for t in ts):
         raise ValueError(f"attention operands must share one (B, nh, n, hd) shape: "
                          f"{[tuple(t.shape) for t in ts]}")
     B, nh, n, hd = q.shape
-    if not kernel_takes(hd):
+    if hd > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"the attention kernel has no instance for head dim {hd} "
-            f"(B={B}, heads={nh}, n={n}): it takes multiples of 16 up to 128")
+            f"the attention kernels have no instance for head dim {hd} "
+            f"(B={B}, heads={nh}, n={n}): they take up to {MAX_HEAD_DIM}")
     for t in ts:
         if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError("attention operands must be contiguous bf16 on one CUDA device")
 
 
-def launch(entry: str, tensors, q_shape, sm_scale: float) -> None:
-    """Launch `entry` of csrc/attention.cu on `tensors` (their data
-    pointers, in the entry's order) for q's (B, nh, n, hd); raise on a
-    launch error."""
+def launch(lib, entry: str, tensors, q_shape, sm_scale: float) -> None:
+    """Launch `entry` of `lib` on `tensors` (their data pointers, in the
+    entry's order) for q's (B, nh, n, hd); raise on a launch error."""
     dev = tensors[0].device
-    err = getattr(_lib(), entry)(
+    err = getattr(lib, entry)(
         *(t.data_ptr() for t in tensors), *q_shape, float(sm_scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -113,10 +127,14 @@ def recompute_vjp(plain, inputs, needs, grad_out, *static):
 
 def _mha_kernel(q, k, v, sm_scale: float) -> torch.Tensor:
     check_operands(q, k, v)
+    hd = q.shape[-1]
+    hp = mha_head_dim(hd)
+    q, k, v = (pad_head_dim(t, hp) for t in (q, k, v))
     out = torch.empty_like(q)
-    launch("ddmi_mha_vmem", (q, k, v, out), q.shape, sm_scale)
+    launch(load_entries("attention", {"ddmi_mha_vmem": 4}), "ddmi_mha_vmem", (q, k, v, out),
+           q.shape, sm_scale)
     mha_vmem.launches += 1
-    return out
+    return out if hp == hd else out[..., :hd].contiguous()
 
 
 class _MhaVmem(torch.autograd.Function):

@@ -77,7 +77,8 @@ def build_all(names) -> None:
             "seconds": time.perf_counter() - t0,
             "ptxas": [
                 ln.strip() for ln in err.splitlines()
-                if "registers" in ln or "Compiling entry" in ln or "spill" in ln
+                if any(w in ln for w in ("registers", "Compiling entry", "spill", "wgmma",
+                                         "setmaxnreg", "arning"))
             ],
         }
     if failed:

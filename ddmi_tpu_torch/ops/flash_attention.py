@@ -9,11 +9,15 @@ an online softmax; the JAX package sends it the cross-plane attentions with
 n >= 512, n % min(n, 1024) == 0 and hd in {16, 32, 64, 128} (`supported`),
 and the UNet attentions with n >= 512 when it trains.
 
-On a CUDA tensor `flash_attention` launches the hand-written kernels in
-csrc/attention.cu: the forward (csrc/flash_attn.cuh; under autograd the
-entry that also writes each row's log-sum-exp) and, from the autograd
-Function, the backward (csrc/flash_attn_bwd.cuh, the counterpart of the
-library's dkv and dq kernels).  On a CPU tensor it runs `flash_plain` and
+On a CUDA tensor `flash_attention` launches the hand-written Hopper kernels
+of csrc/flash.cu (wgmma products, TMA copies through an mbarrier ring): the
+forward (csrc/flash_fwd_sm90.cuh; under autograd the entry that also writes
+each row's log-sum-exp) and, from the autograd Function, the backward
+(csrc/flash_bwd_sm90.cuh, the counterpart of the library's dkv and dq
+kernels).  They have instances for hd 16, 32, 64 and 128; the wrappers
+zero-pad any other head dim up to 128 to the next instance and cut the
+results back, which is exact: zero columns add nothing to q.k and give zero
+output columns.  On a CPU tensor it runs `flash_plain` and
 `flash_bwd_plain`: exact fp32 attention and its gradient, chunked over query
 rows so that they also run at the video decoder's n = 73,728, where dense
 scores would take hundreds of GB.
@@ -23,17 +27,34 @@ from __future__ import annotations
 
 import torch
 
-from ddmi_tpu_torch.ops.attention import check_operands, launch, needs_grad
+from ddmi_tpu_torch.ops.attention import (
+    check_operands, launch, load_entries, needs_grad, pad_head_dim,
+)
 
 MIN_TOKENS = 512   # ddmi_tpu/nn/unet.py FLASH_MIN_TOKENS
 BLOCK = 1024       # ddmi_tpu/nn/unet.py FLASH_BLOCK
 Q_CHUNK = 1024     # query rows per step of the plain versions
+INSTANCES = (16, 32, 64, 128)  # head dims the kernels are built for: the gate's set
 
 
 def supported(n: int, hd: int) -> bool:
     """The JAX package's gate for the cross-plane attentions
     (ddmi_tpu/nn/attention1d.py::tiered_attention)."""
-    return n >= MIN_TOKENS and n % min(n, BLOCK) == 0 and hd in (16, 32, 64, 128)
+    return n >= MIN_TOKENS and n % min(n, BLOCK) == 0 and hd in INSTANCES
+
+
+def instance_hd(hd: int) -> int:
+    """The kernel instance a head dim of `hd` runs on: the smallest of
+    INSTANCES that holds it."""
+    for inst in INSTANCES:
+        if hd <= inst:
+            return inst
+    raise NotImplementedError(f"flash attention has no instance for head dim {hd}")
+
+
+def _lib():
+    return load_entries("flash", {"ddmi_flash_attention": 4, "ddmi_flash_attention_lse": 5,
+                                  "ddmi_flash_attention_bwd": 9})
 
 
 def flash_plain(q, k, v, sm_scale: float, with_lse: bool = False):
@@ -79,15 +100,18 @@ def flash_attention_fwd(q, k, v, sm_scale: float, with_lse: bool):
         out, lse = flash_plain(q, k, v, sm_scale, with_lse=True)
         return out, (lse if with_lse else None)
     check_operands(q, k, v)
+    hd = q.shape[-1]
+    hp = instance_hd(hd)
+    q, k, v = (pad_head_dim(t, hp) for t in (q, k, v))
     out = torch.empty_like(q)
     if with_lse:
         lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-        launch("ddmi_flash_attention_lse", (q, k, v, out, lse), q.shape, sm_scale)
+        launch(_lib(), "ddmi_flash_attention_lse", (q, k, v, out, lse), q.shape, sm_scale)
     else:
         lse = None
-        launch("ddmi_flash_attention", (q, k, v, out), q.shape, sm_scale)
+        launch(_lib(), "ddmi_flash_attention", (q, k, v, out), q.shape, sm_scale)
     flash_attention.launches += 1
-    return out, lse
+    return (out if hp == hd else out[..., :hd].contiguous()), lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float):
@@ -104,10 +128,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float):
     if lse.shape != q.shape[:-1] or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 {tuple(q.shape[:-1])}")
     di = (o.float() * do.float()).sum(-1)
+    hd = q.shape[-1]
+    hp = instance_hd(hd)
+    q, k, v, do = (pad_head_dim(t, hp) for t in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    launch("ddmi_flash_attention_bwd", (q, k, v, do, lse, di, dq, dk, dv), q.shape, sm_scale)
+    launch(_lib(), "ddmi_flash_attention_bwd", (q, k, v, do, lse, di, dq, dk, dv), q.shape,
+           sm_scale)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    if hp == hd:
+        return dq, dk, dv
+    return tuple(t[..., :hd].contiguous() for t in (dq, dk, dv))
 
 
 flash_attention_bwd.launches = 0

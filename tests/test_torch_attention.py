@@ -10,7 +10,10 @@ numpy-made inputs:
 * the widened `attention_block_plain` against `fused_attention_block` in
   interpret mode at head dim 64 with n 8...128 (the triplane UNet's shapes);
 * the port's MEA path and `tiered_attention` against the JAX ones, and the
-  gates against the JAX predicates.
+  gates against the JAX predicates;
+* the wrappers' shape logic: the kernel instance a head dim runs on, the
+  zero-padding helper, and that padded operands cut back give the unpadded
+  result (exactly) through both plain versions.
 
 The CUDA kernels themselves are tested on the card in
 tests/test_torch_cuda.py.  Tolerance: max|diff| <= 1e-4 * max(1, max|ref|),
@@ -136,3 +139,43 @@ def test_wrappers_refuse_other_devices():
     for fn in (attention.mha_vmem, flash_attention.flash_attention):
         with pytest.raises(ValueError):
             fn(x, x, x, 0.1)
+
+
+@pytest.mark.parametrize("hd,flash_hd,mha_hd", [
+    (1, 16, 16), (8, 16, 16), (16, 16, 16), (17, 32, 32), (24, 32, 32), (32, 32, 32),
+    (48, 64, 48), (64, 64, 64), (80, 128, 80), (96, 128, 96), (112, 128, 112),
+    (128, 128, 128)])
+def test_instance_choice(hd, flash_hd, mha_hd):
+    """flash runs on the smallest of its instances (16, 32, 64, 128) that
+    holds hd; mha_vmem on the next multiple of 16."""
+    assert flash_attention.instance_hd(hd) == flash_hd
+    assert attention.mha_head_dim(hd) == mha_hd
+
+
+def test_no_instance_above_128():
+    with pytest.raises(NotImplementedError):
+        flash_attention.instance_hd(129)
+
+
+def test_pad_head_dim():
+    t = torch.randn(2, 3, 5, 24)
+    assert attention.pad_head_dim(t, 24) is t
+    p = attention.pad_head_dim(t, 32)
+    assert p.shape == (2, 3, 5, 32) and p.is_contiguous()
+    assert torch.equal(p[..., :24], t) and not p[..., 24:].any()
+
+
+@pytest.mark.parametrize("hd", [8, 24, 48, 96, 112])
+@pytest.mark.parametrize("which", ["flash", "mha"])
+def test_padded_operands_give_the_unpadded_result(which, hd):
+    """Zero-padding q, k, v to the head dim the wrapper pads to (the next
+    flash instance; the next multiple of 16 for mha_vmem) and cutting the
+    output back is exact: the zero columns add nothing to q.k and give zero
+    output columns."""
+    plain = {"flash": flash_attention.flash_plain, "mha": attention.mha_plain}[which]
+    q, k, v = map(torch.from_numpy, _qkv(hd, 1, 2, 96, hd))
+    scale = hd**-0.5
+    hp = {"flash": flash_attention.instance_hd, "mha": attention.mha_head_dim}[which](hd)
+    got = plain(*(attention.pad_head_dim(t, hp) for t in (q, k, v)), scale)
+    assert got.shape[-1] == hp and not got[..., hd:].any()
+    assert torch.equal(got[..., :hd], plain(q, k, v, scale))

@@ -87,8 +87,11 @@ def _check_attention(out, ref):
 
 
 @pytest.mark.parametrize("n,hd", [(512, 16), (512, 32), (512, 64), (128, 32), (128, 64),
-                                  (128, 96), (32, 64), (32, 96), (8, 128), (1024, 128)])
+                                  (128, 96), (32, 64), (32, 96), (8, 128), (1024, 128),
+                                  (512, 8), (128, 24), (64, 40), (256, 100)])
 def test_mha_vmem_kernel_matches_plain(cuda_device, n, hd):
+    """At every multiple of 16 the kernel has an instance for, and at head
+    dims the wrapper zero-pads to the next one (8, 24, 40, 100)."""
     q, k, v = _qkv(n + hd, 2, 16, n, hd, cuda_device)
     before = attention.mha_vmem.launches
     out = attention.mha_vmem(q, k, v, hd**-0.5)
@@ -99,19 +102,29 @@ def test_mha_vmem_kernel_matches_plain(cuda_device, n, hd):
 
 
 @pytest.mark.parametrize("B,nh,n,hd", [(2, 16, 2048, 16), (2, 16, 2048, 32),
-                                       (2, 8, 5120, 32), (2, 8, 20480, 128)])
+                                       (2, 8, 5120, 32), (2, 8, 20480, 128),
+                                       (1, 4, 4096 + 37, 64), (2, 4, 1000, 16), (1, 2, 1000, 128),
+                                       (2, 4, 2048, 48), (1, 4, 1000, 96), (1, 2, 600, 8)])
 def test_flash_attention_kernel_matches_plain(cuda_device, B, nh, n, hd):
+    """The Hopper forward at each instance (hd 16, 32, 64, 128), at head
+    dims the wrapper zero-pads (48, 96, 8) and at ragged n; a repeat is
+    bit-identical."""
     q, k, v = _qkv(n + hd, B, nh, n, hd, cuda_device)
     before = flash_attention.flash_attention.launches
     out = flash_attention.flash_attention(q, k, v, hd**-0.5)
+    again = flash_attention.flash_attention(q, k, v, hd**-0.5)
     ref = flash_attention.flash_plain(q, k, v, hd**-0.5)
     torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
     _check_attention(out, ref)
-    assert flash_attention.flash_attention.launches == before + 1
+    assert torch.equal(out, again)
+    assert flash_attention.flash_attention.launches == before + 2
 
 
 def test_attention_kernels_refuse_head_dims_without_an_instance(cuda_device):
-    q = torch.zeros((1, 2, 64, 8), device=cuda_device, dtype=torch.bfloat16)
+    """Head dims up to 128 are zero-padded to an instance; above 128 there
+    is none."""
+    q = torch.zeros((1, 2, 64, 144), device=cuda_device, dtype=torch.bfloat16)
     for fn in (attention.mha_vmem, flash_attention.flash_attention):
         with pytest.raises(NotImplementedError):
             fn(q, q, q, 0.3)
@@ -219,12 +232,15 @@ def test_nerf_render_goes_through_the_kernel(cuda_device):
     assert img.shape == (128, 128, 3) and torch.isfinite(img).all()
 
 
-@pytest.mark.parametrize("B,nh,n,hd", [(5, 16, 1024, 32), (1, 2, 1000, 64)])
+@pytest.mark.parametrize("B,nh,n,hd", [(5, 16, 1024, 32), (1, 2, 1000, 64), (2, 4, 2048, 16),
+                                       (1, 2, 4096 + 37, 128), (1, 2, 1000, 48),
+                                       (1, 2, 1000, 96)])
 def test_flash_backward_kernel_matches_plain(cuda_device, B, nh, n, hd):
     """The backward kernels vs flash_bwd_plain (fp32, from the same bf16
     operands and the kernel forward's LSE): dq, dk, dv each within
     max|err| <= 0.03 * max|ref| and correlation >= 0.999 (bf16 rounding of
-    p and ds before their products, bf16 outputs); a repeat is
+    p and ds before their products, bf16 outputs), at each instance, at
+    zero-padded head dims (48, 96) and at ragged n; a repeat is
     bit-identical (no atomics); one count per call."""
     q, k, v, do = _qkv(n + hd, B, nh, n, hd, cuda_device) + _qkv(7, B, nh, n, hd, cuda_device)[:1]
     s = hd**-0.5
@@ -242,16 +258,20 @@ def test_flash_backward_kernel_matches_plain(cuda_device, B, nh, n, hd):
     assert flash_attention.flash_attention_bwd.launches == before + 2
 
 
-def test_flash_forward_lse_matches_logsumexp(cuda_device):
-    """The LSE entry's row statistics vs torch.logsumexp of the fp32 scaled
-    scores (within 1e-4), and its output equal to the plain entry's."""
-    q, k, v = _qkv(3, 2, 4, 1000, 32, cuda_device)
-    s = 32**-0.5
+@pytest.mark.parametrize("n,hd", [(1000, 32), (1000, 16), (4096 + 37, 64), (1000, 128),
+                                  (1000, 48)])
+def test_flash_forward_lse_matches_logsumexp(cuda_device, n, hd):
+    """The LSE entry's row statistics (natural log) vs torch.logsumexp of
+    the fp32 scaled scores (within 1e-4), a repeat bit-identical, and its
+    output equal to the plain entry's."""
+    q, k, v = _qkv(3, 2, 4, n, hd, cuda_device)
+    s = hd**-0.5
     out, lse = flash_attention.flash_attention_fwd(q, k, v, s, with_lse=True)
+    _, lse_again = flash_attention.flash_attention_fwd(q, k, v, s, with_lse=True)
     plain_out, none = flash_attention.flash_attention_fwd(q, k, v, s, with_lse=False)
     ref = torch.logsumexp((q.float() @ k.float().transpose(-1, -2)) * s, dim=-1)
     torch.cuda.synchronize()
-    assert none is None and torch.equal(out, plain_out)
+    assert none is None and torch.equal(out, plain_out) and torch.equal(lse, lse_again)
     assert (lse - ref).abs().max().item() <= 1e-4
 
 
