@@ -8,17 +8,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
      means exit 3 (there is no CPU fallback);
   2. build: the five CUDA libraries from ddmi_tpu_torch/csrc with nvcc
      (sm_90a), one nvcc each, all at once, with the ptxas register report
-     and, for the flash library's kernel instances, their registers, spills
-     and shared memory;
+     and, for every kernel of the flash, attn_block and nerf_mlp libraries,
+     its registers, spills and dynamic shared memory;
   3. image kernels: attn_block and inr_decode against their plain PyTorch
      versions at celebahq's shapes, timed against them with CUDA events;
+     attn_block through the entry the UNet calls, on bf16 parameters in the
+     module's layout, with a bit-identical repeat, one launch per call, its
+     device time from the profiler, its enqueue time and, as a yardstick
+     that is not one call, the same block as a chain of library calls
+     (GroupNorm, cuBLAS GEMMs, SDPA);
   4. image slice: the image SamplerService on configs/ldm/celebahq.yaml at
      full width (seeded weights, zero-init layers perturbed, bf16, batch 8,
      256^2, NFE 100) answers concurrent requests that coalesce into one
      batch plus a repeat of a seed; the launch counters show the batches
      went through both kernels;
   5. image breakdown and reference: one UNet forward, the decode and the
-     render timed, a profile of the forward; the slice at a small config,
+     render timed, a profile of the forward with the attention blocks' share
+     of its device time; the slice at a small config,
      bf16 with the kernels on the GPU against fp32 plain versions on the CPU;
   6. video slice: the video SamplerService on configs/ldm/skytimelapse.yaml
      with the stage-1 decoder and INR of configs/d2c-vae/skytimelapse.yaml
@@ -39,8 +45,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      against fp32 plain versions on the CPU, that goes through all three
      attention kernels;
  10. nerf kernel: nerf_mlp against its plain version at the render's shape
-     (4096 rays x 256 samples) and at a ragged N, timed against the plain
-     version and against the bf16 INRNeRF module (a chain of cuBLAS GEMMs);
+     (4096 rays x 256 samples) and at a ragged N, with a bit-identical
+     repeat and one launch per call, timed against the plain version and
+     against the bf16 INRNeRF module (a chain of cuBLAS GEMMs);
      attn_block at the two srn_cars UNet shapes;
  11. nerf slice: the NeRF SamplerService on configs/ldm/srn_cars.yaml at
      full width (bf16, batch 2, 8 views at 128^2, 256 samples per ray, NFE
@@ -146,6 +153,8 @@ LSE_MAX_ERR = 1e-4
 # one micro-step at a small config, bf16 + kernels on the GPU against fp32
 # plain versions on the CPU: the loss, and the cosine of all gradients
 TRAIN_REF_LOSS_REL, TRAIN_REF_MIN_COS = 0.02, 0.999
+# the kernels of one attention block call (csrc/attn_block.cu), by profiler name
+ATTN_BLOCK_KERNELS = ("::group_norm_kernel", "::gemm_kernel<", "flash_fwd_kernel")
 KERNELS = {
     "attn_block": ("ddmi_tpu_torch/csrc/attn_block.cu", "ddmi_tpu/ops/pallas/attn_block.py:199"),
     "inr_decode": ("ddmi_tpu_torch/csrc/inr_decode.cu", "ddmi_tpu/ops/pallas/inr_decode.py:307"),
@@ -263,6 +272,15 @@ class Ledger:
         if lms is not None:
             p["library_ms"] = (p["library_ms"] or 0.0) + calls * lms
 
+    def add_extra(self, name, path, calls, **times):
+        """Further per-call times (ms) beside `ms`, summed over the calls
+        like it, into the kernel's row and its path's: attn_block's device
+        time from the profiler and its library chain's."""
+        r = self.rows[name]
+        for key, val in times.items():
+            for d in (r.setdefault("extra", {}), r["by_path"][path]):
+                d[key] = d.get(key, 0.0) + calls * val
+
     def entry(self, name, launches):
         r = self.rows[name]
         src, replaces = KERNELS[name]
@@ -270,7 +288,7 @@ class Ledger:
                 "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "operations" if r["t_op"] >= r["t_mem"] else "bytes",
-                "library_ms": r["library_ms"],
+                "library_ms": r["library_ms"], **r.get("extra", {}),
                 "per": "service batch of each sampling path; the train path's 10 micro-steps",
                 "by_path": r["by_path"]}
 
@@ -309,35 +327,89 @@ def reset_launches():
     return lambda: {k: fn.launches for k, fn in fns.items()}
 
 
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one fn() from the profiler: the sum of the kernels'
+    device time over `reps` calls (after a warm-up), per call.  Unlike CUDA
+    events around a small call it leaves out the host's enqueue."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages())
+    if not total:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1000 / reps
+
+
+def attn_block_chain(torch, x, nw, nb, wq, bq, wp, bp, nh, s, eps=1e-5):
+    """The block as a chain of library calls, a yardstick and not one call:
+    torch's GroupNorm, the qkv product (cuBLAS), SDPA, the proj product with
+    bias and residual (cuBLAS); weights in the module's layout."""
+    import torch.nn.functional as F
+
+    B, H, W, C = x.shape
+    n, hd = H * W, C // nh
+    h = F.group_norm(x.permute(0, 3, 1, 2), 32, nw, nb, eps).permute(0, 2, 3, 1)
+    qkv = F.linear(h.reshape(B * n, C), wq[:, :, 0], bq).view(B, n, nh, 3, hd)
+    qkv = qkv.permute(3, 0, 2, 1, 4)
+    o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], scale=s)
+    o = o.transpose(1, 2).reshape(B * n, C)
+    return torch.addmm(x.reshape(B * n, C) + bp, o, wp[:, :, 0].t()).view(B, H, W, C)
+
+
 def attn_block_case(torch, dev, path, calls, B, H, W, C, nh, seed):
-    """attn_block at one shape against its plain version; adds to LEDGER."""
+    """attn_block at one shape, on bf16 parameters in the UNet module's
+    layout through the entry the UNet calls, against its fp32 plain version
+    (on the same values in the JAX layout); a repeat is bit-identical and
+    each call counts one launch.  Adds to LEDGER the CUDA-events time as
+    `ms` (as every kernel's), and beside it the device time from the
+    profiler and that of the same block as a chain of library calls."""
     from ddmi_tpu_torch.ops import attn_block
 
     g = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev)
-    x = rnd(B, H, W, C).bfloat16()
-    gs, gb = 1 + 0.1 * rnd(C), 0.1 * rnd(C)
-    wq, bq = (rnd(C, 3 * C) / C**0.5).bfloat16(), 0.1 * rnd(3 * C)
-    wp, bp = (rnd(C, C) / C**0.5).bfloat16(), 0.1 * rnd(C)
+    bf = torch.bfloat16
+    x = rnd(B, H, W, C).to(bf)
+    nw, nb = (1 + 0.1 * rnd(C)).to(bf), (0.1 * rnd(C)).to(bf)
+    wq, bq = (rnd(3 * C, C, 1) / C**0.5).to(bf), (0.1 * rnd(3 * C)).to(bf)
+    wp, bp = (rnd(C, C, 1) / C**0.5).to(bf), (0.1 * rnd(C)).to(bf)
     s = (C // nh) ** -0.5
-    kern = lambda: attn_block.fused_attention_block(x, gs, gb, wq, bq, wp, bp, nh, s)
+    jq, jb, jp = attn_block.module_to_jax_layout(wq.float(), bq.float(), wp.float(), nh)
+    kern = lambda: attn_block.attention_block(x, nw, nb, wq, bq, wp, bp, nh, s)
     plain = lambda: attn_block.attention_block_plain(
-        x.float(), gs, gb, wq.float(), bq, wp.float(), bp, nh, s)
-    out, ref = kern().float(), plain()
+        x.float(), nw.float(), nb.float(), jq, jb, jp, bp.float(), nh, s)
+    chain = lambda: attn_block_chain(torch, x, nw, nb, wq, bq, wp, bp, nh, s)
+    before = attn_block.fused_attention_block.launches
+    out, again = kern(), kern()
+    launched = attn_block.fused_attention_block.launches - before
+    ref = plain()
     torch.cuda.synchronize()
+    out = out.float()
     err = (out - ref).abs().max().item()
     corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[0, 1].item()
-    kms, pms = paired_ms(kern, plain)
+    same = torch.equal(out, again.float())
+    kev, pms = paired_ms(kern, plain)
+    kms, cms = device_ms(torch, kern), device_ms(torch, chain)
+    enq = enqueue_us(torch, kern)
     n = H * W
     flops = 8 * B * n * C * C + 4 * B * n * n * C
-    nbytes = 2 * x.numel() * 2 + (4 * C * C) * 2 + (4 * C + 2 * C) * 4
+    nbytes = 2 * x.numel() * 2 + (4 * C * C) * 2 + (4 * C + 2 * C) * 2
     bms, by = bound(flops, nbytes)
-    log(f"[kernel] attn_block {path} B={B} n={n} C={C} heads={nh} (x{calls}/batch): "
-        f"max|err| {err:.6f} corr {corr:.8f}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms, "
-        f"library none (no single PyTorch call), bound {bms:.4f} ms ({by})")
-    if not (err <= ATTN_MAX_ERR and corr >= ATTN_MIN_CORR):
-        raise AssertionError(f"attn_block disagrees at n={n}, C={C}: err {err}, corr {corr}")
-    LEDGER.add("attn_block", path, calls, kms, pms, None, flops, nbytes, err)
+    log(f"[kernel] attn_block {path} B={B} n={n} C={C} heads={nh} hd={C // nh} (x{calls}/batch): "
+        f"max|err| {err:.6f} corr {corr:.8f}, repeat identical {same}, launches {launched}/2; "
+        f"device {kms:.4f} ms ({flops / kms / 1e9:.1f} TFLOP/s), events {kev:.4f} ms, enqueue "
+        f"{enq:.1f} us; plain fp32 {pms:.4f} ms; library chain (GroupNorm + cuBLAS + SDPA + "
+        f"cuBLAS, not one call) device {cms:.4f} ms; library none (no single PyTorch call); "
+        f"bound {bms:.4f} ms ({by})")
+    if not (err <= ATTN_MAX_ERR and corr >= ATTN_MIN_CORR and same and launched == 2):
+        raise AssertionError(f"attn_block fails at n={n}, C={C}, heads={nh}: err {err}, corr "
+                             f"{corr}, repeat identical {same}, launches {launched}")
+    LEDGER.add("attn_block", path, calls, kev, pms, None, flops, nbytes, err)
+    LEDGER.add_extra("attn_block", path, calls, device_ms=kms, library_chain_device_ms=cms)
 
 
 def attention_case(torch, dev, name, calls, B, nh, n, hd, seed, path="video"):
@@ -520,7 +592,7 @@ def image_slice_phase(torch, dev):
     return launches
 
 
-def profile_top(torch, fn, tag, ours, inference=True):
+def profile_top(torch, fn, tag, ours, what="the port's kernels", inference=True):
     """Device time of one fn() by kernel name; the share of names in `ours`."""
     import contextlib
 
@@ -537,7 +609,7 @@ def profile_top(torch, fn, tag, ours, inference=True):
         log(f"[{tag}] profiler saw no device time: kernel shares not measured")
         return
     mine = sum(ms for k, ms in rows if any(o in k for o in ours))
-    log(f"[{tag}] device time {total:.3f} ms; the port's kernels {mine:.3f} ms "
+    log(f"[{tag}] device time {total:.3f} ms; {what} {mine:.3f} ms "
         f"({100 * mine / total:.1f}%); top kernels:")
     for key, ms in rows[:10]:
         log(f"[{tag}]   {ms:8.3f} ms {100 * ms / total:5.1f}%  {key[:90]}")
@@ -564,8 +636,8 @@ def image_breakdown_phase(torch, dev):
         ren_ms = cuda_ms(lambda: pipe._render_grid(hdbf, RESOLUTION, 1.0, 0), 3)
     log(f"[breakdown] batch {BATCH}: UNet forward {unet_ms:.3f} ms (x{NFE} per batch = "
         f"{unet_ms * NFE / 1000:.3f} s), decode {dec_ms:.3f} ms, render {ren_ms:.3f} ms")
-    profile_top(torch, lambda: pipe.unet(x, t), "breakdown",
-                ("gemm_kernel", "attn_fwd_kernel", "flash_fwd_kernel"))
+    profile_top(torch, lambda: pipe.unet(x, t), "breakdown", ATTN_BLOCK_KERNELS,
+                "the attention blocks (attn_block's GroupNorm, GEMM and flash kernels)")
 
 
 def image_reference_phase(torch, dev):
@@ -682,10 +754,10 @@ def video_breakdown_phase(torch, dev, pipe):
         f"per batch = {unet_ms * VIDEO_NFE / 1000:.3f} s), decode {dec_ms:.3f} ms, render "
         f"({pipe.frames} frames) {ren_ms:.3f} ms")
     profile_top(torch, lambda: pipe.unet(x, t), "video-breakdown",
-                ("gemm_kernel", "attn_fwd_kernel", "flash_fwd_kernel"))
+                ATTN_BLOCK_KERNELS + ("attn_fwd_kernel",))
 
     shapes = collections.Counter()
-    wrapped = [(attn_block, "fused_attention_block"), (attention, "mha_vmem"),
+    wrapped = [(attn_block, "attention_block"), (attention, "mha_vmem"),
                (flash_attention, "flash_attention")]
     originals = [getattr(mod, name) for mod, name in wrapped]
 
@@ -810,17 +882,22 @@ def nerf_kernel_phase(torch, dev):
         x = torch.randn((N, 186), generator=g, device=dev).bfloat16()
         kern = lambda: nerf_mlp.nerf_mlp_fused(folded, x)
         plain = lambda: nerf_mlp.nerf_mlp_plain(folded, x)
-        out, ref = kern(), plain()
+        before = nerf_mlp.nerf_mlp_fused.launches
+        out, again = kern(), kern()
+        launched = nerf_mlp.nerf_mlp_fused.launches - before
+        ref = plain()
         torch.cuda.synchronize()
         rgb_err = (out[:, :3] - ref[:, :3]).abs().max().item()
         sig_err = (out[:, 3] - ref[:, 3]).abs().max().item()
         sig_max = ref[:, 3].abs().max().item()
+        same = torch.equal(out, again)
         log(f"[nerf-kernel] nerf_mlp N={N}: rgb max|err| {rgb_err:.6f}, sigma max|err| "
-            f"{sig_err:.6f} (max|sigma| {sig_max:.4f})")
+            f"{sig_err:.6f} (max|sigma| {sig_max:.4f}); repeat identical {same}, launches "
+            f"{launched}/2")
         if not (rgb_err <= NERF_RGB_ERR and sig_err <= NERF_SIGMA_REL_ERR * max(1.0, sig_max)
-                and bool(torch.isfinite(out).all())):
-            raise AssertionError(f"nerf_mlp disagrees at N={N}")
-        del out, ref
+                and bool(torch.isfinite(out).all()) and same and launched == 2):
+            raise AssertionError(f"nerf_mlp fails at N={N}")
+        del out, ref, again
     with torch.inference_mode():
         kms, pms = paired_ms(kern, plain, 5)
         cms = cuda_ms(lambda: chain(x), 5)
@@ -831,7 +908,8 @@ def nerf_kernel_phase(torch, dev):
     log(f"[nerf-kernel] nerf_mlp N={N} (x{calls}/batch): kernel {kms:.4f} ms, plain fp32 "
         f"{pms:.4f} ms, bf16 INRNeRF (cuBLAS GEMM chain, not one call) {cms:.4f} ms, library "
         f"none (no single PyTorch call), bound {bms:.4f} ms ({by}; {flops / 1e12:.4f} TFLOP, "
-        f"{nbytes / 1e9:.4f} GB); {flops / kms / 1e9:.1f} TFLOP/s")
+        f"{nbytes / 1e9:.4f} GB); {flops / kms / 1e9:.1f} TFLOP/s = "
+        f"{100 * flops / (kms / 1e3) / PEAK_FLOPS:.1f}% of the bf16 peak")
     LEDGER.add("nerf_mlp", "nerf", calls, kms, pms, None, flops, nbytes,
                max(rgb_err, sig_err))
     LEDGER.rows["nerf_mlp"]["by_path"]["nerf"]["cublas_chain_ms"] = calls * cms
@@ -959,8 +1037,8 @@ def nerf_breakdown_phase(torch, dev, pipe):
         f"{gather_ms:.3f} ms, MLP kernel {mlp_ms:.3f} ms, compositing {comp_ms:.3f} ms")
     profile_top(torch, lambda: pipe.render_image(planes, pose, NERF_RES, NERF_RES, folded),
                 "nerf-breakdown render", ("nerf_mlp_kernel",))
-    profile_top(torch, lambda: pipe.unet(x, t), "nerf-breakdown forward",
-                ("gemm_kernel", "attn_fwd_kernel", "flash_fwd_kernel"))
+    profile_top(torch, lambda: pipe.unet(x, t), "nerf-breakdown forward", ATTN_BLOCK_KERNELS,
+                "the attention blocks (attn_block's GroupNorm, GEMM and flash kernels)")
 
 
 def nerf_reference_phase(torch, dev):
@@ -1234,30 +1312,45 @@ def train_reference_phase(torch, dev):
         raise AssertionError("the GPU train step disagrees with the CPU reference")
 
 
-def flash_build_report(ptxas) -> None:
-    """Registers, spills and shared memory of each kernel instance of the
-    flash library, from the ptxas report and the library's own sizes, and
-    any ptxas warning (wgmma serialisation, setmaxnreg)."""
+def build_report(name, ptxas) -> None:
+    """Registers, spills and dynamic shared memory of each kernel of a
+    library built in this run, from the ptxas report and the libraries' own
+    sizes, and any ptxas warning (wgmma serialisation, setmaxnreg)."""
     import ctypes
     import re
 
     from ddmi_tpu_torch.ops import build
 
-    smem = build.load("flash").ddmi_flash_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    name, spills = None, ""
+    def entry(lib_name, fn, *args):
+        f = getattr(build.load(lib_name), fn)
+        f.argtypes, f.restype = [ctypes.c_int] * len(args), ctypes.c_int
+        return f(*args)
+
+    def smem(kernel, hd):
+        if kernel.startswith("flash_"):
+            return entry("flash", "ddmi_flash_smem_bytes", int("bwd" in kernel), hd)
+        if kernel == "gemm_kernel":
+            return entry("attn_block", "ddmi_attn_block_gemm_smem")
+        if kernel == "nerf_mlp_kernel":  # at the srn_cars widths: bytes * 8 + ring stages
+            v = entry("nerf_mlp", "ddmi_nerf_mlp_smem", 159, 27)
+            return f"{v // 8} ({v % 8}-stage ring)"
+        return "static only"
+
+    label, spills = None, ""
     for line in ptxas:
-        entry = re.search(r"Compiling entry function '\w*?(flash_\w+?_kernel)ILi(\d+)E", line)
-        if entry:
-            kernel, hd = entry.group(1), int(entry.group(2))
-            name = f"{kernel}<{hd}> (dynamic shared memory {smem(int('bwd' in kernel), hd)} bytes)"
-        elif "spill" in line and name:
+        found = re.search(r"Compiling entry function '\w*?(flash_\w+?_kernel|gemm_kernel|"
+                          r"group_norm_kernel|nerf_mlp_kernel)(?:ILi(\d+)E)?", line)
+        if found:
+            kernel, arg = found.group(1), found.group(2)
+            label = (f"{kernel}{'<' + arg + '>' if arg else ''} (dynamic shared memory "
+                     f"{smem(kernel, int(arg or 0))} bytes)")
+        elif "spill" in line and label:
             spills = line
-        elif "registers" in line and name:
-            log(f"[build]   {name}: {line.split(':', 1)[-1].strip()}; {spills}")
-            name = None
+        elif "registers" in line and label:
+            log(f"[build]   {name}: {label}: {line.split(':', 1)[-1].strip()}; {spills}")
+            label = None
         elif "Compiling entry" not in line and "registers" not in line:
-            log(f"[build]   ptxas: {line}")
+            log(f"[build]   {name} ptxas: {line}")
 
 
 def main() -> int:
@@ -1292,8 +1385,8 @@ def main() -> int:
             log(f"[build] {name}: library already built")
             continue
         log(f"[build] {name}: nvcc sm_90a {info['seconds']:.2f} s")
-        if name == "flash":
-            flash_build_report(info["ptxas"])
+        if name in ("flash", "attn_block", "nerf_mlp"):
+            build_report(name, info["ptxas"])
             continue
         for line in info["ptxas"]:
             if "registers" in line or "spill" in line:

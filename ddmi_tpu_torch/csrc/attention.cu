@@ -28,12 +28,8 @@ int ddmi_mha_vmem(const void* q, const void* k, const void* v, void* out, int B,
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.out = static_cast<__nv_bfloat16*>(out);
-  p.out_sh = (long long)n * hd;
-  p.out_sb = p.out_sh * nh;
-  p.out_si = hd;
   p.B = B; p.nh = nh; p.n = n;
   p.scale = sm_scale;
-  p.prescale_q = 1;
   return ddmi_attn::launch_hd(hd, p, reinterpret_cast<cudaStream_t>(stream));
 }
 

@@ -12,68 +12,31 @@
 //                              (flash_attention.py:1121, :1456): dq, dk, dv in
 //                              two launches (flash_bwd_sm90.cuh).
 //
-// Every entry builds its TMA tensor maps here, on the host, inside the one
-// call: cuTensorMapEncodeTiled comes from the runtime's driver entry point,
-// so the library needs no -lcuda.  Each (hd, n, B * nh) map reads one
-// head's rows, and TMA fills rows past n with zeros.
+// Every entry builds its TMA tensor maps on the host, inside the one call
+// (tensor_map.cuh).  Each (hd, n, B * nh) map reads one head's rows, and
+// TMA fills rows past n with zeros.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// the (hd, n, bh) map of a contiguous (bh, n, hd) bf16 tensor, boxes of
-// `rows` rows by one swizzle panel (min(hd * 2, 128) bytes)
-bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int n, int bh, int rows) {
-  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const int rowb = hd * 2 < 128 ? hd * 2 : 128;
-  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)n * hd * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)rowb / 2, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = rowb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : rowb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using ddmi_tma::tensor_map;
 
 template <int HD>
-int forward(const void* q, const void* k, const void* v, void* out, float* lse, int bh, int n,
-            float sm_scale, cudaStream_t st) {
+int forward(const void* q, const void* k, const void* v, void* out, float* lse, int B, int nh,
+            int n, float sm_scale, cudaStream_t st) {
   using S = ddmi_flash::FwdShape<HD>;
+  const int bh = B * nh;
   ddmi_flash::FwdParams p{};
   if (!tensor_map(&p.q, q, HD, n, bh, S::BM) || !tensor_map(&p.k, k, HD, n, bh, S::BN) ||
       !tensor_map(&p.v, v, HD, n, bh, S::BN))
     return cudaErrorInvalidValue;
-  p.out = static_cast<__nv_bfloat16*>(out);
+  ddmi_flash::head_major_out(p, out, nh, n, HD);
   p.lse = lse;
   p.n = n;
   p.scale_log2 = sm_scale * ddmi_flash::LOG2E;
@@ -85,10 +48,10 @@ int forward(const void* q, const void* k, const void* v, void* out, float* lse, 
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (n < 1) return cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return forward<16>(q, k, v, out, lse, B * nh, n, sm_scale, st);
-    case 32: return forward<32>(q, k, v, out, lse, B * nh, n, sm_scale, st);
-    case 64: return forward<64>(q, k, v, out, lse, B * nh, n, sm_scale, st);
-    case 128: return forward<128>(q, k, v, out, lse, B * nh, n, sm_scale, st);
+    case 16: return forward<16>(q, k, v, out, lse, B, nh, n, sm_scale, st);
+    case 32: return forward<32>(q, k, v, out, lse, B, nh, n, sm_scale, st);
+    case 64: return forward<64>(q, k, v, out, lse, B, nh, n, sm_scale, st);
+    case 128: return forward<128>(q, k, v, out, lse, B, nh, n, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

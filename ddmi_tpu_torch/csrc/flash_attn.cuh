@@ -2,11 +2,10 @@
 // head-major q/k/v, with an online softmax in fp32 and the division by the
 // row sum after P.V.
 //
-// Shared by csrc/attention.cu (the counterpart of the TPU kernel
-// ddmi_tpu/ops/pallas/attention.py::mha_vmem) and csrc/attn_block.cu (the
-// attention step of the fused ADM attention block).  The flash attention
-// forward has its own Hopper kernel (flash_fwd_sm90.cuh), whose wgmma/TMA
-// core these two can adopt.
+// The kernel of csrc/attention.cu (the counterpart of the TPU kernel
+// ddmi_tpu/ops/pallas/attention.py::mha_vmem).  The flash attention forward
+// and the fused attention block run the Hopper kernel of
+// flash_fwd_sm90.cuh, whose wgmma/TMA core this one can adopt.
 //
 // Design.  One block of 4 warps per (64-row q tile, head, batch); each warp
 // owns 16 q rows, kept as WMMA bf16 fragments in registers.  K and V stream
@@ -20,10 +19,8 @@
 // (n % 64 != 0) reads zero rows and writes none; keys past n in the last
 // tile are masked to -inf before the max.
 //
-// Scale.  `prescale_q` = 1 multiplies q by the scale in fp32 and rounds it
-// once to bf16 before q.k (mha_vmem's rounding); 0 multiplies the fp32
-// scores (the fused block passes q already scaled by its qkv GEMM and a
-// scale of 1).
+// Scale.  q is multiplied by the scale in fp32 and rounded once to bf16
+// before q.k (mha_vmem's rounding).
 //
 // What bounds it: 4 * n^2 * hd FLOP per (batch, head) on 4 * n * hd * 2
 // bytes, so at n >= 512 the work is far above the card's bf16 ridge and the
@@ -53,11 +50,9 @@ struct Params {
   const __nv_bfloat16* q;  // (B, nh, n, hd), contiguous
   const __nv_bfloat16* k;  // (B, nh, n, hd), contiguous
   const __nv_bfloat16* v;  // (B, nh, n, hd), contiguous
-  __nv_bfloat16* out;      // element (b, h, i, d) at b*out_sb + h*out_sh + i*out_si + d
-  long long out_sb, out_sh, out_si;
+  __nv_bfloat16* out;      // (B, nh, n, hd), contiguous
   int B, nh, n;
   float scale;
-  int prescale_q;
 };
 
 template <int HD>
@@ -104,11 +99,9 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(Params p) {
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (q0 + r < n) {
       raw = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * HD + c);
-      if (p.prescale_q) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * p.scale);
-      }
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * p.scale);
     }
     *reinterpret_cast<uint4*>(Qs + r * LD + c) = raw;
   }
@@ -119,7 +112,6 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(Params p) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) wmma::load_matrix_sync(qf[kk], Qs + kk * 16, LD);
 
-  const float s_mul = p.prescale_q ? 1.0f : p.scale;
   const int r = lane / 2, hf = lane % 2;  // lane owns row r, half hf of a tile's keys
   float m_run = -INFINITY, l_run = 0.0f;
 
@@ -159,14 +151,14 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(Params p) {
     float cmax = -INFINITY;
 #pragma unroll 8
     for (int j = 0; j < KT / 2; ++j)
-      if (j0 + j < valid) cmax = fmaxf(cmax, srow[j] * s_mul);
+      if (j0 + j < valid) cmax = fmaxf(cmax, srow[j]);
     cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
     const float m_new = fmaxf(m_run, cmax);
     float csum = 0.0f;
     __nv_bfloat16* prow = P + r * P_LD + j0;
 #pragma unroll 8
     for (int j = 0; j < KT / 2; ++j) {
-      const float e = (j0 + j < valid) ? expf(srow[j] * s_mul - m_new) : 0.0f;
+      const float e = (j0 + j < valid) ? expf(srow[j] - m_new) : 0.0f;
       csum += e;
       prow[j] = __float2bfloat16(e);
     }
@@ -203,10 +195,10 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(Params p) {
   // normalise after P.V and write the rows that exist
   if (hf == 0) R[r] = 1.0f / l_run;
   __syncwarp();
-  __nv_bfloat16* out = p.out + (size_t)b * p.out_sb + (size_t)h * p.out_sh;
+  __nv_bfloat16* out = p.out + head;
   for (int i = lane; i < 16 * HD; i += 32) {
     const int rr = i / HD, d = i % HD;
-    if (q0 + rr < n) out[(size_t)(q0 + rr) * p.out_si + d] = __float2bfloat16(O[i] * R[rr]);
+    if (q0 + rr < n) out[(size_t)(q0 + rr) * HD + d] = __float2bfloat16(O[i] * R[rr]);
   }
 }
 

@@ -6,7 +6,10 @@
 // jax.experimental.pallas.ops.tpu.flash_attention (flash_attention.py:758),
 // as the JAX package calls it at ddmi_tpu/nn/attention1d.py:77 and
 // ddmi_tpu/nn/unet.py:185, with its function: fp32 scores multiplied by the
-// scale, an online softmax over K/V blocks, the division after P.V.
+// scale, an online softmax over K/V blocks, the division after P.V.  The
+// fused attention block (attn_block.cu) runs the same kernel with scale 1 on
+// a q its GEMM has already scaled, writing token-major rows (FwdParams'
+// output strides).
 //
 // What bounds it: 4 * n^2 * hd tensor FLOP per (batch, head) on 4 * n * hd
 // * 2 bytes, so at n >= 512 the tensor cores bound it at hd 64 and 128; at
@@ -39,11 +42,28 @@ using namespace ddmi_sm90;
 
 struct FwdParams {
   CUtensorMap q, k, v;   // (hd, n, B * nh) maps: boxes of BM (q) and BN (k, v) rows
-  __nv_bfloat16* out;    // (B * nh, n, hd)
+  // row r of head h of batch b goes to out + b * o_sb + h * o_sh + r * o_sr:
+  // (B, nh, n, hd) for the flash library, token-major (B, n, nh * hd') for
+  // the attention block
+  __nv_bfloat16* out;
   float* lse;            // (B * nh, n) or null
-  int n;
+  long long o_sb, o_sh, o_sr;
+  int n, nh;
+  int o_cols;            // columns written per row: the head dim before zero-padding
+  int o_pairs;           // o_cols and the strides even: columns stored in pairs
   float scale_log2;      // softmax scale * log2(e)
 };
+
+// the output of a contiguous (B, nh, n, HD) tensor
+inline void head_major_out(FwdParams& p, void* out, int nh, int n, int hd) {
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.o_sr = hd;
+  p.o_sh = (long long)n * hd;
+  p.o_sb = (long long)nh * n * hd;
+  p.nh = nh;
+  p.o_cols = hd;
+  p.o_pairs = 1;
+}
 
 template <int HD>
 struct FwdShape {
@@ -212,7 +232,8 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) flash_fwd_kernel(const __grid_
 
     // epilogue: O / l in bf16; the row log-sum-exp in natural log
     const int r0 = m0 + qrow + 16 * warp + lane / 4;
-    __nv_bfloat16* out = p.out + (size_t)bh * n * HD;
+    const int b = bh / p.nh;
+    __nv_bfloat16* out = p.out + b * p.o_sb + (bh - b * p.nh) * p.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float l = l_run[r];
@@ -221,10 +242,18 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) flash_fwd_kernel(const __grid_
       const int row = r0 + 8 * r;
       if (row < n) {
         const float inv = 1.0f / l;
+        __nv_bfloat16* orow = out + row * p.o_sr;
 #pragma unroll
-        for (int jj = 0; jj < HD / 8; ++jj)
-          *reinterpret_cast<uint32_t*>(out + (size_t)row * HD + 8 * jj + col0) =
-              pack_bf16(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+        for (int jj = 0; jj < HD / 8; ++jj) {
+          const int c = 8 * jj + col0;
+          const float v0 = o[4 * jj + 2 * r] * inv, v1 = o[4 * jj + 2 * r + 1] * inv;
+          if (p.o_pairs && c < p.o_cols) {
+            *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(v0, v1);
+          } else {
+            if (c < p.o_cols) orow[c] = __float2bfloat16(v0);
+            if (c + 1 < p.o_cols) orow[c + 1] = __float2bfloat16(v1);
+          }
+        }
         if (p.lse != nullptr && lane % 4 == 0)
           p.lse[(size_t)bh * n + row] = (m_run[r] + log2f(l)) * 0.69314718055994531f;
       }

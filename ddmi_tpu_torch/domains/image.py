@@ -26,7 +26,9 @@ from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.nn.inr import INRImage
 from ddmi_tpu_torch.nn.unet import UNet
 from ddmi_tpu_torch.nn.vae import Autoencoder
+from ddmi_tpu_torch.ops.attention import needs_grad
 from ddmi_tpu_torch.ops.inr_decode import render_tokens_fused
+from ddmi_tpu_torch.ops.resample import pixel_center_lin
 
 
 @dataclasses.dataclass
@@ -115,10 +117,17 @@ class ImagePipeline(nn.Module):
         return shapes
 
     def _render_grid(self, hdbf, res: int, si, seed: int) -> torch.Tensor:
-        """Regular res x res render -> (b, res * res, out_ch), in one call of
-        the fused render (the INR decode kernel on CUDA, its plain version on
-        the CPU): at 8 x 256^2 tokens the three (N, 128) bf16 token sets take
-        384 MB, small beside the card's memory, so the render is not tiled."""
+        """Regular res x res render -> (b, res * res, out_ch).  With no
+        gradient recorded, in one call of the fused render (the INR decode
+        kernel on CUDA, its plain version on the CPU): at 8 x 256^2 tokens
+        the three (N, 128) bf16 token sets take 384 MB, small beside the
+        card's memory, so the render is not tiled.  Under autograd, through
+        the INRImage module (the fused render has no gradient), with its
+        noise drawn from a generator seeded by `seed`."""
+        if needs_grad(*hdbf, *self.mlp.parameters()):
+            lin = pixel_center_lin(res, device=hdbf[0].device)
+            gen = torch.Generator(device=hdbf[0].device).manual_seed(seed)
+            return self.mlp(hdbf, si, grid_1d=(lin, lin), generator=gen)
         return render_tokens_fused(self.mlp, hdbf, res, si, seed)
 
     @torch.inference_mode()

@@ -6,10 +6,11 @@ the NeRF MLP.
 Rays, stratified samples (perturb 0 at sampling, so the render draws no
 random numbers), the triplane lookup (pts / 3.5, align_corners=True,
 border), the frequency embeddings and the alpha compositing stay fp32; the
-MLP input is cast to the parameters' dtype.  Wherever the kernel's
-predicate takes the MLP's width (256) the MLP runs as `nerf_mlp_fused`: on
-the card the hand-written kernel of csrc/nerf_mlp.cu, on the CPU its plain
-version; other widths run the INRNeRF module, as the JAX package does.
+MLP input is cast to the parameters' dtype.  With no gradient recorded and
+wherever the kernel's predicate takes the MLP's width (256) the MLP runs as
+`nerf_mlp_fused`: on the card the hand-written kernel of csrc/nerf_mlp.cu,
+on the CPU its plain version; other widths, and any render under autograd,
+run the INRNeRF module, as the JAX package does.
 
 The point-cloud encoder and training wait for later slices.
 """
@@ -31,6 +32,7 @@ from ddmi_tpu_torch.nn.inr import FreqEmbedding, INRNeRF
 from ddmi_tpu_torch.nn.triplane_vae import TriplaneAutoencoder
 from ddmi_tpu_torch.nn.unet import UNet
 from ddmi_tpu_torch.ops import nerf_mlp
+from ddmi_tpu_torch.ops.attention import needs_grad
 from ddmi_tpu_torch.ops.grid_sample import grid_sample_2d
 
 # srn-cars camera intrinsics (the JAX package's, from the reference trainer)
@@ -183,10 +185,12 @@ class NeRFPipeline(nn.Module):
 
     def fold_mlp(self) -> Optional[nerf_mlp.FoldedNeRF]:
         """The MLP in the kernel's layout, in the parameters' dtype, or None
-        where the kernel's predicate does not take its width."""
-        if not nerf_mlp.supported(self.mlp.width):
+        where the kernel does not take its width (JAX's predicate) or its
+        input widths (the CUDA kernel's shared memory)."""
+        m = self.mlp
+        if not nerf_mlp.kernel_supported(m.width, m.in_channels_xyz, m.in_channels_dir):
             return None
-        return nerf_mlp.fold_nerf_params(self.mlp, dtype=self.mlp.sigma.weight.dtype)
+        return nerf_mlp.fold_nerf_params(m, dtype=m.sigma.weight.dtype)
 
     def mlp_input(self, planes, rays_o, rays_d):
         """-> (x (n, s, in_xyz + in_dir) in the parameters' dtype, z (n, s)):
@@ -203,7 +207,13 @@ class NeRFPipeline(nn.Module):
         return x, z
 
     def run_mlp(self, x, folded=None) -> torch.Tensor:
-        """x (..., in_xyz + in_dir) -> raw (..., 4) fp32."""
+        """x (..., in_xyz + in_dir) -> raw (..., 4) fp32.  Under autograd
+        (a gradient recorded for x or the MLP's parameters) through the
+        INRNeRF module, whose gradients the fused MLP would drop: the fold
+        copies the weights detached, as JAX's `_fused_mlp_gate` takes the
+        kernel only in inference traces."""
+        if needs_grad(x, *self.mlp.parameters()):
+            return self.mlp(x).float()
         if folded is None:
             folded = self.fold_mlp()
         if folded is None:

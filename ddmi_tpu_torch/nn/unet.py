@@ -105,8 +105,6 @@ class AttentionBlock(nn.Module):
         self.proj_out = nn.Conv1d(channels, channels, 1)
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
-        perm = qkv_permutation(num_heads, channels // num_heads)
-        self.register_buffer("perm", torch.from_numpy(perm), persistent=False)
 
     def forward(self, x):
         B, C, H, W = x.shape
@@ -115,13 +113,12 @@ class AttentionBlock(nn.Module):
         n = H * W
         inference = not torch.is_grad_enabled()
         if inference and attn_block.jax_supported(n, C, nh):
-            w_qkv = self.qkv.weight[:, :, 0][self.perm].t()   # (C, 3C) qkv-major
-            b_qkv = self.qkv.bias[self.perm]
-            w_proj = self.proj_out.weight[:, :, 0].t()         # (C, C), rows (head, dim)
-            x_nhwc = x.permute(0, 2, 3, 1).contiguous()
-            out = attn_block.fused_attention_block(
-                x_nhwc, self.norm.weight, self.norm.bias, w_qkv, b_qkv, w_proj,
-                self.proj_out.bias, nh, hd**-0.5, 32, self.norm.eps,
+            # the parameters as stored: the kernel reads the head-major qkv
+            # weight and the proj weight in place (no copy per call)
+            out = attn_block.attention_block(
+                x.permute(0, 2, 3, 1), self.norm.weight, self.norm.bias, self.qkv.weight,
+                self.qkv.bias, self.proj_out.weight, self.proj_out.bias, nh, hd**-0.5, 32,
+                self.norm.eps,
             )
             return out.permute(0, 3, 1, 2)
         # head-major qkv channels (QKVAttentionLegacy): (B, nh, 3, hd, n)

@@ -37,12 +37,6 @@ def supported(n: int, hd: int) -> bool:
     return n % 8 == 0 and n <= MAX_TOKENS and hd <= 128
 
 
-def kernel_takes(hd: int) -> bool:
-    """Head dims the streaming kernel has an instance for (every repo
-    config's); the fused attention block takes only these."""
-    return hd % 16 == 0 and 16 <= hd <= MAX_HEAD_DIM
-
-
 def mha_head_dim(hd: int) -> int:
     """The instance `mha_vmem` runs a head dim of `hd` on: the next
     multiple of 16."""

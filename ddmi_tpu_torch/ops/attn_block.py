@@ -1,24 +1,31 @@
 """Fused UNet attention block: x + proj(MHA(qkv(GroupNorm(x)))).
 
-Counterpart of ddmi_tpu/ops/pallas/attn_block.py::fused_attention_block,
-with the same signature and NHWC layout: x (B, H, W, C); w_qkv (C, 3C) with
-qkv-major output channels [q | k | v], each (head, dim); w_proj (C, C) with
-head-major input rows.
+Two entries, one kernel:
+  * `attention_block` takes the UNet AttentionBlock's own parameters as
+    they are stored: norm weight and bias (C,), the qkv Conv1d weight
+    (3C, C, 1) with head-major output channels (head, {q, k, v}, dim) and
+    bias (3C,), the proj_out Conv1d weight (C, C, 1) and bias (C,).  On the
+    card it hands the pointers of bf16 weights to the kernel: no copy,
+    gather, transpose or cast of a weight per call.
+  * `fused_attention_block` is the counterpart of ddmi_tpu/ops/pallas/
+    attn_block.py::fused_attention_block, with its signature and layouts:
+    x (B, H, W, C) NHWC; w_qkv (C, 3C) with qkv-major output channels
+    [q | k | v], each (head, dim); w_proj (C, C) with head-major input rows.
+    On the card it converts the weights to the module layout once per call
+    and calls `attention_block` (the tests hold it against JAX).
 
 On a CUDA tensor the block runs as the hand-written kernel in
-csrc/attn_block.cu (qkv GEMM with GroupNorm in its prologue, attention with
-K/V streamed through shared memory, proj GEMM with bias + residual in its
-epilogue); GroupNorm statistics and their fold into per-(b, c) scale/shift
-stay tensor code, as they are (B, C)-sized.  Under autograd its backward
-recomputes through the plain version, as the JAX kernel's custom_vjp does;
-the UNet takes the block only when no gradient is recorded.  On a CPU
-tensor it runs `attention_block_plain`, the same function in plain fp32
-PyTorch.
+csrc/attn_block.cu: four launches (GroupNorm; the qkv GEMM with bias, q
+times the scale and the head dim zero-padded to the next flash instance; the
+Hopper flash forward writing token-major rows; the proj GEMM with bias and
+residual), and no PyTorch op but the allocation of the output and one
+scratch buffer.  Under autograd its backward recomputes through the plain
+version, as the JAX kernel's custom_vjp does; the UNet takes the block only
+when no gradient is recorded.  On a CPU tensor it runs
+`attention_block_plain`, the same function in plain fp32 PyTorch.
 
 `supported` is the JAX kernel's predicate (n % 8 == 0, n <= 1024, hd <= 128,
-C % 128 == 0) restricted to head dims that are multiples of 16, the ones the
-CUDA kernel has instances for; every repo config's head dim is one.  A shape
-the JAX predicate takes and the kernel does not raises NotImplementedError.
+C % 128 == 0): every head dim it takes has a flash instance once padded.
 """
 
 from __future__ import annotations
@@ -27,8 +34,8 @@ import ctypes
 
 import torch
 
-from ddmi_tpu_torch.ops import build
-from ddmi_tpu_torch.ops.attention import kernel_takes, needs_grad, recompute_vjp
+from ddmi_tpu_torch.ops import build, flash_attention
+from ddmi_tpu_torch.ops.attention import needs_grad, recompute_vjp
 
 MAX_TOKENS = 1024
 
@@ -40,11 +47,9 @@ def jax_supported(n: int, C: int, num_heads: int) -> bool:
             and C % 128 == 0)
 
 
-def supported(n: int, C: int, num_heads: int) -> bool:
-    """Whether the CUDA kernel takes this shape: the JAX predicate with a
-    head dim that is a multiple of 16 (celebahq: hd 32, n 1024/256/64;
-    skytimelapse: hd 64, n 256...8)."""
-    return jax_supported(n, C, num_heads) and kernel_takes(C // num_heads)
+# Whether the CUDA kernel takes a shape: the JAX predicate, since the qkv GEMM
+# zero-pads any head dim to the next of 16, 32, 64, 128.
+supported = jax_supported
 
 
 def fold_group_norm(x: torch.Tensor, gn_scale, gn_bias, num_groups: int, eps: float):
@@ -60,6 +65,14 @@ def fold_group_norm(x: torch.Tensor, gn_scale, gn_bias, num_groups: int, eps: fl
     return es.contiguous(), eb.contiguous()
 
 
+def group_norm_apply(x: torch.Tensor, gn_scale, gn_bias, num_groups: int, eps: float):
+    """The kernel's GroupNorm step in plain PyTorch: x (B, n, C) -> x * es +
+    eb in fp32 with the statistics of `fold_group_norm`, cast to x.dtype
+    (the kernel's h is bf16, as JAX's kernel materialises it in x's dtype)."""
+    es, eb = fold_group_norm(x, gn_scale, gn_bias, num_groups, eps)
+    return (x.float() * es[:, None, :] + eb[:, None, :]).to(x.dtype)
+
+
 def attention_block_plain(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
                           num_heads: int, sm_scale: float, num_groups: int = 32,
                           eps: float = 1e-5) -> torch.Tensor:
@@ -68,8 +81,7 @@ def attention_block_plain(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
     n = H * W
     hd = C // num_heads
     xf = x.reshape(B, n, C).float()
-    es, eb = fold_group_norm(xf, gn_scale, gn_bias, num_groups, eps)
-    h = xf * es[:, None, :] + eb[:, None, :]
+    h = group_norm_apply(xf, gn_scale, gn_bias, num_groups, eps)
     qkv = h @ w_qkv.float() + b_qkv.float()
     qkv = qkv.reshape(B, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0] * sm_scale, qkv[1], qkv[2]
@@ -79,49 +91,92 @@ def attention_block_plain(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
     return out.to(x.dtype).reshape(B, H, W, C)
 
 
+def module_to_jax_layout(w_qkv, b_qkv, w_proj, num_heads: int):
+    """The module's weights (qkv (3C, C[, 1]) head-major, proj (C, C[, 1]))
+    in the JAX signature's layout: (C, 3C) qkv-major, (3C,), (C, C) with
+    input rows.  Differentiable; contiguous copies."""
+    C = w_proj.shape[0]
+    hd = C // num_heads
+    wq = w_qkv.reshape(num_heads, 3, hd, C).transpose(0, 1).reshape(3 * C, C).t()
+    bq = b_qkv.reshape(num_heads, 3, hd).transpose(0, 1).reshape(3 * C)
+    return wq.contiguous(), bq, w_proj.reshape(C, C).t().contiguous()
+
+
+def jax_to_module_layout(w_qkv, b_qkv, w_proj, num_heads: int):
+    """The inverse of `module_to_jax_layout`: (3C, C) head-major, (3C,),
+    (C, C) as the proj Conv1d stores it (output rows)."""
+    C = w_qkv.shape[0]
+    hd = C // num_heads
+    wq = w_qkv.t().reshape(3, num_heads, hd, C).transpose(0, 1).reshape(3 * C, C)
+    bq = b_qkv.reshape(3, num_heads, hd).transpose(0, 1).reshape(3 * C)
+    return wq, bq, w_proj.t()
+
+
 def _lib():
     lib = build.load("attn_block")
     fn = lib.ddmi_attn_block
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _kernel(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
+def _kernel_dtypes(norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj):
+    """The operands in the kernel's dtypes: contiguous bf16 weights, and
+    norm and biases of one dtype (bf16 where all are, else fp32).  An
+    operand already so is returned as it is: the UNet's bf16 parameters
+    pass through uncopied."""
+    bf, f32 = torch.bfloat16, torch.float32
+    ops = (norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj)
+    vecs = (norm_w, norm_b, b_qkv, b_proj)
+    dt = norm_w.dtype
+    if (w_qkv.dtype == bf and w_proj.dtype == bf and dt in (bf, f32)
+            and all(v.dtype == dt for v in vecs) and all(t.is_contiguous() for t in ops)):
+        return ops  # checked first: the conversions below cost enqueue time even as no-ops
+    w_qkv, w_proj = (w.to(bf).contiguous() for w in (w_qkv, w_proj))
+    dt = bf if all(v.dtype == bf for v in vecs) else f32
+    return (*(v.to(dt).contiguous() for v in vecs[:2]), w_qkv,
+            vecs[2].to(dt).contiguous(), w_proj, vecs[3].to(dt).contiguous())
+
+
+def _launch(x, norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
             sm_scale: float, num_groups: int, eps: float) -> torch.Tensor:
+    """The kernel on the module's layout; x (B, H, W, C) bf16."""
     B, H, W, C = x.shape
     n = H * W
-    if not supported(n, C, num_heads):
+    if not supported(n, C, num_heads) or (C // num_groups) % 4 or C % num_groups:
         raise NotImplementedError(
-            f"attention block kernel does not take n={n}, C={C}, heads={num_heads}"
+            f"attention block kernel does not take n={n}, C={C}, heads={num_heads}, "
+            f"groups={num_groups}"
         )
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("fused_attention_block: x must be contiguous bf16 NHWC")
-    if w_qkv.shape != (C, 3 * C) or w_proj.shape != (C, C):
+    if x.dtype != torch.bfloat16:
+        raise ValueError("attention block: x must be bf16 NHWC")
+    if w_qkv.shape[:2] != (3 * C, C) or w_proj.shape[:2] != (C, C):
         raise ValueError(f"weight shapes {tuple(w_qkv.shape)}, {tuple(w_proj.shape)}")
-    if b_qkv.shape != (3 * C,) or b_proj.shape != (C,) or C % num_groups:
-        raise ValueError("bias shapes or group count do not match C")
-    for t in (gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj):
+    norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj = _kernel_dtypes(
+        norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj)
+    vecs = (norm_w, norm_b, b_qkv, b_proj)
+    if [v.shape for v in vecs] != [(C,), (C,), (3 * C,), (C,)]:
+        raise ValueError("norm or bias shapes do not match C")
+    for t in (w_qkv, w_proj, *vecs):
         if t.device != x.device:
             raise ValueError("all operands must be on x's device")
-
-    es, eb = fold_group_norm(x.reshape(B, n, C), gn_scale, gn_bias, num_groups, eps)
-    wq = w_qkv.to(torch.bfloat16).contiguous()
-    bq = b_qkv.float().contiguous()
-    wp = w_proj.to(torch.bfloat16).contiguous()
-    bp = b_proj.float().contiguous()
-    qkv = torch.empty((3, B, num_heads, n, C // num_heads), dtype=torch.bfloat16,
-                      device=x.device)
-    attn = torch.empty((B * n, C), dtype=torch.bfloat16, device=x.device)
+    x = x.contiguous()
+    hdp = flash_attention.instance_hd(C // num_heads)
+    M = B * n
+    scratch = torch.empty(2 * M * C + 3 * M * num_heads * hdp, dtype=torch.bfloat16,
+                          device=x.device)
     out = torch.empty_like(x)
+    h = scratch.data_ptr()
+    attn = h + 2 * M * C
+    qkv = attn + 2 * M * C
     err = _lib().ddmi_attn_block(
-        x.data_ptr(), es.data_ptr(), eb.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-        wp.data_ptr(), bp.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        B, n, C, num_heads, float(sm_scale),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), norm_w.data_ptr(), norm_b.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
+        w_proj.data_ptr(), b_proj.data_ptr(), h, qkv, attn, out.data_ptr(),
+        B, n, C, num_heads, num_groups, float(eps), float(sm_scale),
+        int(vecs[0].dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"attention block kernel launch failed: cudaError {err}")
@@ -129,39 +184,68 @@ def _kernel(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
     return out
 
 
+def _plain_module(x, norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
+                  sm_scale: float, num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """`attention_block_plain` on the module's layout (its JAX-layout
+    copies); differentiable."""
+    wq, bq, wp = module_to_jax_layout(w_qkv, b_qkv, w_proj, num_heads)
+    return attention_block_plain(x, norm_w, norm_b, wq, bq, wp, b_proj, num_heads, sm_scale,
+                                 num_groups, eps)
+
+
 class _FusedBlock(torch.autograd.Function):
-    """The kernel forward; the backward recomputes through
-    `attention_block_plain` (ddmi_tpu/ops/pallas/attn_block.py's custom_vjp
-    recomputes densely)."""
+    """The kernel forward on the module's layout; the backward recomputes
+    through the plain version (ddmi_tpu/ops/pallas/attn_block.py's
+    custom_vjp recomputes densely)."""
 
     @staticmethod
     def forward(ctx, *args):
         tensors, static = args[:7], args[7:]
         ctx.save_for_backward(*tensors)
         ctx.static = static
-        return _kernel(*args)
+        return _launch(*args)
 
     @staticmethod
     def backward(ctx, dout):
-        grads = recompute_vjp(attention_block_plain, ctx.saved_tensors, ctx.needs_input_grad,
-                              dout, *ctx.static)
+        grads = recompute_vjp(_plain_module, ctx.saved_tensors, ctx.needs_input_grad, dout,
+                              *ctx.static)
         return (*grads, *(None,) * len(ctx.static))
+
+
+def attention_block(x, norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
+                    sm_scale: float, num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """The block on the UNet module's parameters as stored (see the module
+    docstring), NHWC in and out.  On the card the kernel, which reads bf16
+    parameters in place; with a gradient recorded, its gradient comes from
+    the plain version.  On the CPU the plain version."""
+    args = (x, norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, sm_scale,
+            num_groups, eps)
+    if x.device.type == "cpu":
+        return _plain_module(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"attention_block: unsupported device {x.device}")
+    if needs_grad(*args[:7]):
+        return _FusedBlock.apply(*args)
+    return _launch(*args)
 
 
 def fused_attention_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
                           num_heads: int, sm_scale: float, num_groups: int = 32,
                           eps: float = 1e-5) -> torch.Tensor:
-    """Full AttentionBlock forward, NHWC in and out.  On the card with
-    autograd recording, the gradient comes from the plain version."""
-    args = (x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads, sm_scale,
-            num_groups, eps)
+    """Full AttentionBlock forward on the JAX signature's operands, NHWC in
+    and out.  On the card `attention_block` on the weights converted to the
+    module layout (differentiably); on the CPU the plain version."""
     if x.device.type == "cpu":
-        return attention_block_plain(*args)
+        return attention_block_plain(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,
+                                     num_heads, sm_scale, num_groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attention_block: unsupported device {x.device}")
-    if needs_grad(*args[:7]):
-        return _FusedBlock.apply(*args)
-    return _kernel(*args)
+    C = x.shape[-1]
+    if w_qkv.shape != (C, 3 * C) or w_proj.shape != (C, C):
+        raise ValueError(f"weight shapes {tuple(w_qkv.shape)}, {tuple(w_proj.shape)}")
+    wq, bq, wp = jax_to_module_layout(w_qkv, b_qkv, w_proj, num_heads)
+    return attention_block(x, gn_scale, gn_bias, wq, bq, wp, b_proj, num_heads, sm_scale,
+                           num_groups, eps)
 
 
 fused_attention_block.launches = 0

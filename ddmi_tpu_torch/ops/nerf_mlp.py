@@ -14,9 +14,15 @@ arrays as the JAX fold (bf16 by default, biases rounded too):
   w_rgb (128, 128), b_rgb (1, 128)    rgb head, columns 0..2 live
 
 On a CUDA tensor `nerf_mlp_fused` launches csrc/nerf_mlp.cu, which reads x
-(N, in_xyz + in_dir) without the TPU's lane padding; on a CPU tensor it runs
+(N, in_xyz + in_dir) without the TPU's lane padding and streams the folded
+weights through a TMA ring (128-point tiles, wgmma); on a CPU tensor it runs
 `nerf_mlp_plain`, the same arithmetic in PyTorch.  The kernel's predicate is
 the JAX one: width 256, so that the dir head is 128 wide (W // 2 == LANE).
+The CUDA kernel keeps its inputs in shared memory in 64-column panels, so it
+also needs in_xyz and in_dir to fill at most MAX_PANELS of them together
+(in_xyz + in_dir up to about 512; srn_cars: 159 and 27 in 4):
+`kernel_supported` is that predicate, and NeRFPipeline runs the INRNeRF
+module where it is false.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ddmi_tpu_torch.ops.attention import needs_grad
 
 LANE = 128
 SLOPE = 0.01
+MAX_PANELS = 8  # csrc/nerf_mlp.cu: the input panels that leave two ring stages
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -42,6 +49,13 @@ def supported(width: int) -> bool:
     """The JAX kernel's predicate (fold_nerf_params, _fused_mlp_gate):
     W % 128 == 0 and W // 2 == 128, i.e. W == 256."""
     return width % LANE == 0 and width // 2 == LANE
+
+
+def kernel_supported(width: int, in_xyz: int, in_dir: int) -> bool:
+    """`supported`, and inputs that fit the CUDA kernel's shared memory:
+    in_xyz and in_dir in at most MAX_PANELS 64-column panels together."""
+    panels = -(-in_xyz // 64) + -(-in_dir // 64)
+    return supported(width) and in_xyz >= 1 and in_dir >= 1 and panels <= MAX_PANELS
 
 
 @dataclasses.dataclass
@@ -146,7 +160,7 @@ def _lib():
     lib = build.load("nerf_mlp")
     fn = lib.ddmi_nerf_mlp
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
             ctypes.c_uint, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -159,8 +173,13 @@ def _check_cuda_operands(f: FoldedNeRF, x: torch.Tensor) -> None:
     if not 1 <= f.depth <= 32 or any(not 0 < s < f.depth for s in f.skips):
         raise NotImplementedError(f"depth {f.depth} / skips {f.skips}")
     C = f.in_xyz + f.in_dir
-    if x.ndim != 2 or x.shape[1] != C or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"x must be contiguous bf16 (N, {C}), got {x.dtype} {tuple(x.shape)}")
+    if not kernel_supported(f.width, f.in_xyz, f.in_dir):
+        raise NotImplementedError(f"the NeRF MLP kernel takes in_xyz and in_dir in at most "
+                                  f"{MAX_PANELS} 64-column panels, not {f.in_xyz} and {f.in_dir}")
+    if (x.ndim != 2 or x.shape[1] != C or x.dtype != torch.bfloat16 or not x.is_contiguous()
+            or x.data_ptr() % 4):
+        raise ValueError(f"x must be contiguous, 4-byte aligned bf16 (N, {C}), got {x.dtype} "
+                         f"{tuple(x.shape)}")
     D, W, XP, DP = f.depth, f.width, _pad_to(f.in_xyz, LANE), _pad_to(f.in_dir, LANE)
     shapes = [(D, XP, W), (D, W, W), (D, 1, W), (W, LANE), (1, LANE), (W, W), (1, W),
               (W, LANE), (DP, LANE), (1, LANE), (LANE, LANE), (1, LANE)]
@@ -186,10 +205,20 @@ def nerf_mlp_fused(folded: FoldedNeRF, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
     if N == 0:
         return out
+    in_xyz, in_dir = folded.in_xyz, folded.in_dir
+    if (in_xyz + in_dir) % 2:
+        # the kernel reads x in bf16 pairs: give the odd side a zero column,
+        # which meets a zero row of the fold's padding (XP, DP are even) and
+        # stays in the same 64-column panel
+        zero = x.new_zeros((N, 1))
+        if in_xyz % 2:
+            x, in_xyz = torch.cat([x[:, :in_xyz], zero, x[:, in_xyz:]], 1), in_xyz + 1
+        else:
+            x, in_dir = torch.cat([x, zero], 1), in_dir + 1
     skip_mask = sum(1 << s for s in set(folded.skips))
     err = _lib().ddmi_nerf_mlp(
         x.data_ptr(), *(t.data_ptr() for t in folded.tensors()), out.data_ptr(),
-        N, folded.in_xyz, folded.in_dir, folded.wx.shape[1], folded.depth, skip_mask,
+        N, in_xyz, in_dir, folded.wx.shape[1], folded.w_dird.shape[0], folded.depth, skip_mask,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

@@ -124,8 +124,7 @@ def test_gates_match_the_jax_predicates():
             for nh in (1, 2, 4, 8, 16):
                 C = nh * hd
                 assert attn_block.jax_supported(n, C, nh) == jax_block.supported(n, C, nh)
-                assert attn_block.supported(n, C, nh) == (
-                    jax_block.supported(n, C, nh) and hd % 16 == 0)
+                assert attn_block.supported(n, C, nh) == jax_block.supported(n, C, nh)
     # the flash gate of ddmi_tpu/nn/attention1d.py::tiered_attention
     assert flash_attention.supported(2048, 16) and flash_attention.supported(73728, 64)
     assert flash_attention.supported(20480, 128) and flash_attention.supported(512, 32)

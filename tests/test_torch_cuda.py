@@ -47,11 +47,53 @@ def test_attention_block_kernel_matches_plain(cuda_device, H, C, nh):
     ref = attn_block.attention_block_plain(
         x.float(), gs, gb, wq.float(), bq, wp.float(), bp, nh, 32**-0.5
     )
+    again = attn_block.fused_attention_block(x, gs, gb, wq, bq, wp, bp, nh, 32**-0.5)
     torch.cuda.synchronize()
     err = (out.float() - ref).abs().max().item()
     corr = torch.corrcoef(torch.stack([out.float().flatten(), ref.flatten()]))[0, 1].item()
     assert err <= 0.031 and corr >= 0.99999, (err, corr)
-    assert attn_block.fused_attention_block.launches == before + 1
+    assert torch.equal(out, again)
+    assert attn_block.fused_attention_block.launches == before + 2
+
+
+# (B, H, W, C, heads): the celebahq UNet's blocks, srn_cars', skytimelapse's
+# (hd 64), and head dims the qkv GEMM zero-pads to an instance (8, 24, 48)
+MODULE_BLOCK_SHAPES = [
+    (8, 32, 32, 512, 16), (8, 16, 16, 1024, 32), (8, 8, 8, 2048, 64),
+    (2, 8, 8, 512, 16), (2, 4, 4, 1024, 32),
+    (2, 16, 16, 512, 8), (4, 8, 16, 512, 8), (2, 8, 8, 1024, 16), (4, 4, 8, 1024, 16),
+    (2, 4, 4, 1536, 24), (4, 2, 4, 1536, 24),
+    (2, 8, 8, 128, 16), (2, 4, 8, 384, 16), (1, 8, 8, 384, 8),
+]
+
+
+@pytest.mark.parametrize("B,H,W,C,nh", MODULE_BLOCK_SHAPES)
+def test_attention_block_module_entry_matches_plain(cuda_device, B, H, W, C, nh):
+    """The entry the UNet calls, on bf16 parameters in the module's layout
+    (norm, head-major qkv Conv1d, proj Conv1d), against the fp32 plain
+    version on the same values: the bars above, a bit-identical repeat and
+    one launch per call."""
+    rng = np.random.default_rng(B * C + nh + H * W)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device)
+    bf = torch.bfloat16
+    x = f(B, H, W, C).to(bf)
+    nw, nb = (1.0 + 0.1 * f(C)).to(bf), (0.1 * f(C)).to(bf)
+    wq, bq = (f(3 * C, C, 1) / C**0.5).to(bf), (0.1 * f(3 * C)).to(bf)
+    wp, bp = (f(C, C, 1) / C**0.5).to(bf), (0.1 * f(C)).to(bf)
+    s = (C // nh) ** -0.5
+    before = attn_block.fused_attention_block.launches
+    out = attn_block.attention_block(x, nw, nb, wq, bq, wp, bp, nh, s)
+    again = attn_block.attention_block(x, nw, nb, wq, bq, wp, bp, nh, s)
+    jq, jb, jp = attn_block.module_to_jax_layout(wq.float(), bq.float(), wp.float(), nh)
+    ref = attn_block.attention_block_plain(x.float(), nw.float(), nb.float(), jq, jb, jp,
+                                           bp.float(), nh, s)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and out.dtype == bf
+    err = (out.float() - ref).abs().max().item()
+    corr = torch.corrcoef(torch.stack([out.float().flatten(), ref.flatten()]))[0, 1].item()
+    assert err <= 0.031 and corr >= 0.99999, (err, corr)
+    assert torch.equal(out, again)
+    assert attn_block.fused_attention_block.launches == before + 2
 
 
 @pytest.mark.parametrize("H,W,C", [(16, 16, 512), (8, 16, 512), (8, 8, 1024),
@@ -161,11 +203,11 @@ def test_inr_decode_kernel_matches_plain(cuda_device):
     assert torch.isfinite(a.float()).all() and torch.equal(a, b) and not torch.equal(a, c)
 
 
-def _nerf_mlp(dev, width=256):
+def _nerf_mlp(dev, width=256, in_xyz=159, in_dir=27):
     """The srn_cars NeRF MLP (D 6, skips 2 and 4, xyz 159, dir 27) with
     seeded weights and nonzero biases."""
     torch.manual_seed(0)
-    m = INRNeRF(6, width, 159, 27, (2, 4)).to(dev)
+    m = INRNeRF(6, width, in_xyz, in_dir, (2, 4)).to(dev)
     with torch.no_grad():
         for name, p in m.named_parameters():
             if name.endswith("bias"):
@@ -173,17 +215,19 @@ def _nerf_mlp(dev, width=256):
     return m
 
 
-@pytest.mark.parametrize("N", [300, 1_048_576])
+@pytest.mark.parametrize("N", [300, 1_048_576, 1_048_576 - 37, 64])
 def test_nerf_mlp_kernel_matches_plain(cuda_device, N):
     """The kernel vs its plain version on the same bf16 operands (fp32 sums
     in another order, so a bf16 rounding of h may flip): rgb max|err| <=
-    0.005, sigma <= 0.01 * max(1, max|sigma|), at a ragged N and at the
-    render's 4096 rays x 256 samples."""
+    0.005, sigma <= 0.01 * max(1, max|sigma|), at ragged N (a last 128-point
+    tile part full, one warpgroup's rows all past N) and at the render's
+    4096 rays x 256 samples; a repeat is bit-identical, one launch a call."""
     folded = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device))
     g = torch.Generator(device=cuda_device).manual_seed(N)
     x = torch.randn((N, 186), generator=g, device=cuda_device).bfloat16()
     before = nerf_mlp.nerf_mlp_fused.launches
     out = nerf_mlp.nerf_mlp_fused(folded, x)
+    again = nerf_mlp.nerf_mlp_fused(folded, x)
     ref = nerf_mlp.nerf_mlp_plain(folded, x)
     torch.cuda.synchronize()
     assert out.shape == (N, 4) and out.dtype == torch.float32
@@ -191,7 +235,30 @@ def test_nerf_mlp_kernel_matches_plain(cuda_device, N):
     assert (out[:, :3] - ref[:, :3]).abs().max().item() <= 0.005
     sig_tol = 0.01 * max(1.0, ref[:, 3].abs().max().item())
     assert (out[:, 3] - ref[:, 3]).abs().max().item() <= sig_tol
-    assert nerf_mlp.nerf_mlp_fused.launches == before + 1
+    assert torch.equal(out, again)
+    assert nerf_mlp.nerf_mlp_fused.launches == before + 2
+
+
+@pytest.mark.parametrize("in_xyz, in_dir", [(51, 69), (160, 69), (320, 150), (447, 64)])
+def test_nerf_mlp_kernel_takes_other_input_widths(cuda_device, in_xyz, in_dir):
+    """Input widths other than srn_cars': a dir input of two and three
+    panels, an odd in_xyz + in_dir (229, 511: the wrapper pads the odd side
+    with a zero column) and the most panels the kernel takes (8, a 2-stage
+    ring), at a ragged N, within the bars of the srn_cars test."""
+    assert nerf_mlp.kernel_supported(256, in_xyz, in_dir)
+    folded = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device, 256, in_xyz, in_dir))
+    N = 3 * 128 + 41
+    g = torch.Generator(device=cuda_device).manual_seed(in_xyz)
+    x = torch.randn((N, in_xyz + in_dir), generator=g, device=cuda_device).bfloat16()
+    out = nerf_mlp.nerf_mlp_fused(folded, x)
+    again = nerf_mlp.nerf_mlp_fused(folded, x)
+    ref = nerf_mlp.nerf_mlp_plain(folded, x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out[:, :3] - ref[:, :3]).abs().max().item() <= 0.005
+    sig_tol = 0.01 * max(1.0, ref[:, 3].abs().max().item())
+    assert (out[:, 3] - ref[:, 3]).abs().max().item() <= sig_tol
+    assert torch.equal(out, again)
 
 
 def test_nerf_mlp_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -205,6 +272,10 @@ def test_nerf_mlp_kernel_refuses_what_it_does_not_take(cuda_device):
         nerf_mlp.nerf_mlp_fused(folded, x.float())
     with pytest.raises(ValueError):
         nerf_mlp.nerf_mlp_fused(folded, x[:, :100])
+    wide = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device, 256, 512, 27))  # 9 panels
+    with pytest.raises(NotImplementedError):
+        nerf_mlp.nerf_mlp_fused(wide, torch.zeros((64, 539), device=cuda_device,
+                                                  dtype=torch.bfloat16))
 
 
 def test_nerf_render_goes_through_the_kernel(cuda_device):
@@ -384,3 +455,30 @@ def test_unet_attention_gradients_on_the_card_match_the_cpu(cuda_device):
         assert (a - r).norm() <= 0.05 * r.norm() and cos >= 0.998, (name, cos)
         checked += 1
     assert checked >= 12
+
+
+def test_nerf_render_under_autograd_runs_the_module(cuda_device):
+    """With a gradient recorded the NeRF pipeline renders through the INRNeRF
+    module, not the fused MLP (whose fold drops the weights' gradients): no
+    kernel launch, and the gradients reach the MLP."""
+    from ddmi_tpu_torch.domains.nerf import NeRFPipeline, get_rays, spherical_poses
+
+    cfg = config_from_dict({"model": {"embed_dim": 4, "params": {
+        "unetconfig": dict(in_channels=12, model_channels=32, out_channels=12,
+                           attention_resolutions=[2], num_res_blocks=1, channel_mult=[1, 2],
+                           num_head_channels=16),
+        "ddconfig": dict(z_channels=16, resolution=16, out_ch=8, ch=32, ch_mult=[1, 2],
+                         num_res_blocks=1, hdbf_resolutions=[], inter_attn_resolutions=[16]),
+        "mlpconfig": dict(D=6, W=256, skips=[2, 4], N_samples=16),
+        "ddpmconfig": dict(timesteps=20, channels=12, sampling_timesteps=2)}},
+        "data": {"domain": "nerf"}})
+    pipe = NeRFPipeline(cfg, device=cuda_device).cast(torch.bfloat16)
+    with torch.no_grad():
+        planes = pipe.decode_planes(torch.randn((1, 12, 8, 8), device=cuda_device))
+    ro, rd = (a.reshape(-1, 3) for a in get_rays(8, 8, spherical_poses(1, device=cuda_device)[0]))
+    before = nerf_mlp.nerf_mlp_fused.launches
+    rgb = pipe.render_rays(planes, ro, rd)
+    rgb.square().sum().backward()
+    assert nerf_mlp.nerf_mlp_fused.launches == before
+    assert rgb.grad_fn is not None
+    assert all(p.grad is not None for p in pipe.mlp.parameters())

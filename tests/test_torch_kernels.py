@@ -123,3 +123,65 @@ def test_wrappers_refuse_other_devices():
     x = torch.zeros((1, 8, 8, 64), device="meta")
     with pytest.raises(ValueError):
         attn_block.fused_attention_block(x, *([x] * 6), 2, 0.1)
+
+
+def test_attention_block_supported_is_the_jax_predicate():
+    """The kernel zero-pads any head dim to its flash instance, so its
+    predicate is the JAX kernel's over every shape."""
+    from ddmi_tpu.ops.pallas.attn_block import supported as jax_supported
+
+    for n in (8, 16, 36, 64, 256, 1000, 1024, 1032):
+        for C in (128, 256, 384, 512, 640, 1024, 2048):
+            for nh in (1, 2, 3, 4, 5, 8, 16, 32, 64):
+                assert attn_block.supported(n, C, nh) == jax_supported(n, C, nh), (n, C, nh)
+
+
+@pytest.mark.parametrize(
+    "B,H,W,C,nh",
+    [
+        (1, 8, 8, 128, 16),    # hd 8 -> the 16 instance
+        (2, 4, 8, 384, 16),    # hd 24 -> 32
+        (1, 8, 8, 384, 8),     # hd 48 -> 64
+    ],
+)
+def test_attention_block_plain_matches_jax_at_padded_head_dims(B, H, W, C, nh):
+    """Head dims the kernel zero-pads (8, 24, 48): the plain version against
+    the Pallas kernel in interpret mode and the dense reference."""
+    args = _attn_args(C + nh, B, H, W, C)
+    scale = (C // nh) ** -0.5
+    got = attn_block.fused_attention_block(*map(torch.from_numpy, args), nh, scale)
+    jargs = [jnp.asarray(a) for a in args]
+    _close(got, fused_attention_block(*jargs, nh, scale, 32, 1e-5, True), "vs pallas interpret")
+    _close(got, _dense_block_ref(*jargs, nh, scale), "vs dense ref")
+
+
+@pytest.mark.parametrize("B,n,C", [(2, 64, 128), (1, 16, 512), (2, 256, 256)])
+def test_group_norm_apply_matches_jax(B, n, C):
+    """The kernel's GroupNorm step (statistics, fold, multiply-add) against
+    ddmi_tpu/ops/fused.py::group_norm, fp32."""
+    from ddmi_tpu.ops.fused import group_norm
+
+    rng = np.random.default_rng(n + C)
+    x = (2.0 + 3.0 * rng.standard_normal((B, n, C))).astype(np.float32)
+    w, b = (1.0 + 0.1 * rng.standard_normal(C)).astype(np.float32), rng.standard_normal(C).astype(
+        np.float32)
+    got = attn_block.group_norm_apply(torch.from_numpy(x), torch.from_numpy(w),
+                                      torch.from_numpy(b), 32, 1e-5)
+    assert got.dtype == torch.float32
+    _close(got, group_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 32, 1e-5), "gn")
+
+
+def test_attention_block_module_entry_matches_jax_signature():
+    """`attention_block` on the module's layout (head-major qkv Conv1d
+    weight, proj Conv1d weight) equals `fused_attention_block` on the JAX
+    layout, and the two layout maps invert each other exactly."""
+    B, H, W, C, nh = 2, 8, 8, 256, 8
+    x, gs, gb, wq, bq, wp, bp = map(torch.from_numpy, _attn_args(9, B, H, W, C))
+    mq, mb, mp = attn_block.jax_to_module_layout(wq, bq, wp, nh)
+    assert mq.shape == (3 * C, C) and mp.shape == (C, C)
+    back = attn_block.module_to_jax_layout(mq[:, :, None], mb, mp[:, :, None], nh)
+    assert all(torch.equal(a, b) for a, b in zip(back, (wq, bq, wp)))
+    got = attn_block.attention_block(x, gs, gb, mq[:, :, None].contiguous(), mb,
+                                     mp[:, :, None].contiguous(), bp, nh, 32**-0.5)
+    ref = attn_block.fused_attention_block(x, gs, gb, wq, bq, wp, bp, nh, 32**-0.5)
+    assert torch.equal(got, ref)

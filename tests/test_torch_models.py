@@ -152,3 +152,41 @@ def test_ddim_loop_matches_jax():
                          torch.from_numpy(np.transpose(logit, (0, 3, 1, 2))).contiguous(),
                          (2, 3, 4, 4), noise=_nchw(noise))
     _close(_nhwc(got), ref, "ddim")
+
+
+def test_unet_attention_block_hands_its_parameters_to_the_block_entry(monkeypatch):
+    """With no gradient recorded, the UNet's AttentionBlock calls the block
+    entry with its own parameter tensors (the same storage as qkv.weight,
+    proj_out.weight and the norm's), so no weight is copied per call, and its
+    output is the block's on the JAX layout."""
+    from ddmi_tpu_torch.nn.unet import AttentionBlock
+    from ddmi_tpu_torch.ops import attn_block
+
+    torch.manual_seed(0)
+    block = AttentionBlock(128, 4)
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.from_numpy(0.1 * rng.standard_normal(p.shape).astype(np.float32)))
+    seen = []
+    entry = attn_block.attention_block
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return entry(*args, **kw)
+
+    monkeypatch.setattr(attn_block, "attention_block", spy)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 8, 8)).astype(np.float32))
+    with torch.no_grad():
+        out = block(x)
+    (args,) = seen
+    owned = (block.norm.weight, block.norm.bias, block.qkv.weight, block.qkv.bias,
+             block.proj_out.weight, block.proj_out.bias)
+    assert all(a is p and a.data_ptr() == p.data_ptr() for a, p in zip(args[1:7], owned))
+    with torch.no_grad():
+        wq, bq, wp = attn_block.module_to_jax_layout(block.qkv.weight, block.qkv.bias,
+                                                     block.proj_out.weight, 4)
+        ref = attn_block.attention_block_plain(x.permute(0, 2, 3, 1), block.norm.weight,
+                                               block.norm.bias, wq, bq, wp,
+                                               block.proj_out.bias, 4, 32**-0.5)
+    _close(out.permute(0, 2, 3, 1), ref, "AttentionBlock vs the plain block")

@@ -238,6 +238,46 @@ def test_fold_refuses_widths_outside_the_predicate():
         fold_nerf_params(INRNeRF(4, 128, 159, 27, (2,)))
 
 
+def test_kernel_supported_counts_the_cuda_kernels_input_panels():
+    from ddmi_tpu_torch.ops.nerf_mlp import kernel_supported
+
+    assert kernel_supported(256, 159, 27)  # srn_cars: 3 + 1 panels
+    assert kernel_supported(256, 447, 64) and kernel_supported(256, 320, 150)  # 8 panels
+    assert not kernel_supported(256, 512, 27) and not kernel_supported(256, 327, 129)  # 9
+    assert not kernel_supported(128, 159, 27) and not kernel_supported(512, 159, 27)
+    assert not kernel_supported(256, 0, 27) and not kernel_supported(256, 159, 0)
+
+
+@pytest.mark.parametrize("multires, multires_views, kernel",
+                         [(4, 2, True), (4, 11, True), (50, 21, False)])
+def test_fold_mlp_follows_the_cuda_kernels_predicate(multires, multires_views, kernel):
+    """At width 256 `NeRFPipeline.fold_mlp` folds the MLP where the CUDA
+    kernel takes its input widths (in_dir 69 from multires_views 11 among
+    them) and returns None where it does not (in_xyz 327 and in_dir 129:
+    9 panels), and `run_mlp` then runs the INRNeRF module; both agree with
+    the module (fp32) within 1e-4 * max(1, max|ref|)."""
+    import copy
+
+    from ddmi_tpu_torch.domains.nerf import NeRFPipeline
+    from ddmi_tpu_torch.ops.nerf_mlp import kernel_supported
+
+    cfg = copy.deepcopy(CFG)
+    cfg["model"]["params"]["mlpconfig"].update(D=2, W=256, skips=[1], multires=multires,
+                                               multires_views=multires_views)
+    pipe = NeRFPipeline(config_from_dict(cfg), device="cpu")
+    m = pipe.mlp
+    assert kernel_supported(m.width, m.in_channels_xyz, m.in_channels_dir) == kernel
+    folded = pipe.fold_mlp()
+    assert (folded is not None) == kernel
+    rng = np.random.default_rng(multires)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 8, m.in_channels_xyz + m.in_channels_dir)).astype(np.float32))
+    with torch.no_grad():
+        got, ref = pipe.run_mlp(x, folded), m(x)
+    assert got.shape == (2, 8, 4)
+    _close(got, ref, "run_mlp vs INRNeRF")
+
+
 # ------------------------------------------------------ triplane decoder
 
 
@@ -412,3 +452,43 @@ def test_nerf_entry_points_need_the_card_unless_asked_for_the_cpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert NeRFPipeline(cfg, device="cpu").device.type == "cpu"
+
+
+def test_render_rays_under_autograd_matches_jax_gradients():
+    """With a gradient recorded, `NeRFPipeline.render_rays` takes the INRNeRF
+    module even at the fused MLP's width (256): the MLP weights' gradients
+    (fp32) match jax.grad through JAX's render on the same weights, planes
+    and rays, within 1e-4 * max(1, max|ref|) per tensor."""
+    import copy
+
+    from ddmi_tpu.domains.nerf import NeRFPipeline as JaxPipe
+    from ddmi_tpu_torch.domains.nerf import NeRFPipeline, get_rays, spherical_poses
+
+    cfg = copy.deepcopy(CFG)
+    cfg["model"]["params"]["mlpconfig"].update(D=4, W=256, skips=[2])
+    jpipe = JaxPipe(jax_config(cfg))
+    rng = np.random.default_rng(11)
+    in_dim = jpipe.mlp.in_channels_xyz + jpipe.mlp.in_channels_dir
+    p = _perturb_zeros(jpipe.mlp.init(jax.random.PRNGKey(3), jnp.zeros((8, in_dim)))["params"],
+                       rng)
+    planes = {k: rng.standard_normal((1, 16, 16, 8)).astype(np.float32)
+              for k in ("xy", "yz", "xz")}
+    ro, rd = (a.reshape(-1, 3).numpy() for a in get_rays(4, 4, spherical_poses(1)[0]))
+    w = rng.standard_normal((16, 3)).astype(np.float32)
+
+    def loss(params):
+        rgb = jpipe.render_rays(params, {k: jnp.asarray(v) for k, v in planes.items()},
+                                jnp.asarray(ro), jnp.asarray(rd), jax.random.PRNGKey(0),
+                                perturb=0.0)
+        return jnp.sum(rgb * jnp.asarray(w))
+
+    want = mlp_nerf_from_jax(jax.grad(loss)(p), 4)
+    pipe = NeRFPipeline(config_from_dict(cfg), device="cpu")
+    pipe.mlp.load_state_dict(mlp_nerf_from_jax(p, 4), strict=True)
+    rgb = pipe.render_rays({k: _nchw(v) for k, v in planes.items()}, torch.from_numpy(ro),
+                           torch.from_numpy(rd), pipe.fold_mlp())
+    assert rgb.grad_fn is not None
+    (rgb * torch.from_numpy(w)).sum().backward()
+    for name, par in pipe.mlp.named_parameters():
+        assert par.grad is not None, name
+        _close(par.grad, want[name], f"d{name}")

@@ -126,3 +126,34 @@ def test_service_coalesces_concurrent_requests(shared):
     # the initial latent is per request; with no render noise (gains 0) a
     # seed reproduces its sample wherever it sits in a batch
     assert np.array_equal(results[12], solo)
+
+
+def test_render_grid_under_autograd_runs_the_inr_module():
+    """`ImagePipeline._render_grid` with a gradient recorded renders through
+    the INRImage module (the fused render has no gradient): its output has a
+    grad_fn, gradients reach the MLP, and it equals the module's output
+    and, within 1e-4 * max(1, max|ref|), the fused render's plain version."""
+    from ddmi_tpu_torch.core.config import config_from_dict as torch_config
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+    from ddmi_tpu_torch.ops.resample import pixel_center_lin
+
+    pipe = ImagePipeline(torch_config(CFG), device="cpu", seed=3)
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        for name, p in pipe.mlp.named_parameters():
+            if not p.any() and ".noise." not in name:
+                p.copy_(torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32)))
+    hdbf = [torch.from_numpy(rng.standard_normal((2, 8, r, r)).astype(np.float32))
+            for r in (4, 8, 16)]
+    out = pipe._render_grid(hdbf, 12, 0.7, 0)
+    assert out.grad_fn is not None and out.shape == (2, 144, 3)
+    out.square().sum().backward()
+    assert all(p.grad is not None for p in pipe.mlp.parameters() if p.requires_grad)
+    lin = pixel_center_lin(12)
+    with torch.no_grad():
+        ref = pipe.mlp(hdbf, 0.7, grid_1d=(lin, lin))
+        fused = pipe._render_grid(hdbf, 12, 0.7, 0)
+    assert fused.grad_fn is None
+    assert torch.equal(out.detach(), ref)
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    assert (fused - ref).abs().max().item() <= tol

@@ -212,7 +212,7 @@ def test_attention_tiers_follow_grad_mode(monkeypatch):
             return fn(*a, **kw)
         return call
 
-    for mod, name in ((attn_block, "fused_attention_block"), (attention, "mha_vmem"),
+    for mod, name in ((attn_block, "attention_block"), (attention, "mha_vmem"),
                       (flash_attention, "flash_attention"), (mea, "attention")):
         monkeypatch.setattr(mod, name, spy(name, getattr(mod, name)))
 
@@ -224,7 +224,7 @@ def test_attention_tiers_follow_grad_mode(monkeypatch):
 
     torch.manual_seed(0)
     fused = AttentionBlock(128, 4)
-    assert run(fused, torch.randn(1, 128, 8, 8), False) == ["fused_attention_block"]
+    assert run(fused, torch.randn(1, 128, 8, 8), False) == ["attention_block"]
     assert run(fused, torch.randn(1, 128, 8, 8), True) == []  # dense, n = 64
     big = AttentionBlock(32, 1)
     assert run(big, torch.randn(1, 32, 32, 32), False) == ["mha_vmem"]
