@@ -6,17 +6,20 @@
 Phases, each of which ends the run with a non-zero exit on failure:
   1. device: name, count, `nvidia-smi` name and power limit; no CUDA device
      means exit 3 (there is no CPU fallback);
-  2. build: the five CUDA libraries from ddmi_tpu_torch/csrc with nvcc
-     (sm_90a), one nvcc each, all at once, with the ptxas register report
-     and, for every kernel of the flash, attn_block and nerf_mlp libraries,
-     its registers, spills and dynamic shared memory;
+  2. build: the four CUDA libraries from ddmi_tpu_torch/csrc with nvcc
+     (sm_90a), one nvcc each, all at once, and for every kernel (the flash
+     core's instances, which mha_vmem also runs, the attn_block GEMMs and
+     GroupNorm, nerf_mlp, both inr_decode kernels) its registers, spills
+     and dynamic shared memory from the ptxas report;
   3. image kernels: attn_block and inr_decode against their plain PyTorch
      versions at celebahq's shapes, timed against them with CUDA events;
      attn_block through the entry the UNet calls, on bf16 parameters in the
      module's layout, with a bit-identical repeat, one launch per call, its
      device time from the profiler, its enqueue time and, as a yardstick
      that is not one call, the same block as a chain of library calls
-     (GroupNorm, cuBLAS GEMMs, SDPA);
+     (GroupNorm, cuBLAS GEMMs, SDPA); inr_decode also with its device time
+     from the profiler, TFLOP/s and share of the bf16 peak, and with noise
+     against the plain version fed the kernel's own Philox draws;
   4. image slice: the image SamplerService on configs/ldm/celebahq.yaml at
      full width (seeded weights, zero-init layers perturbed, bf16, batch 8,
      256^2, NFE 100) answers concurrent requests that coalesce into one
@@ -38,9 +41,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
   8. video kernels: attn_block, mha_vmem and flash_attention against their
      plain versions at every one of those shapes, each also timed against
      torch's scaled_dot_product_attention where one call computes the same;
-     each flash line also gives the exp-unit floor beside the tensor bound,
-     TFLOP/s, the wrapper's enqueue time and the time of mha_vmem at the
-     same shape (the streaming core that flash replaced, as a yardstick);
+     each mha_vmem line also gives its device time from the profiler and
+     the wrapper's enqueue time; each flash line the exp-unit floor beside
+     the tensor bound, TFLOP/s and the wrapper's enqueue time;
   9. video reference: a small video config, bf16 with the kernels on the GPU
      against fp32 plain versions on the CPU, that goes through all three
      attention kernels;
@@ -64,8 +67,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      plain version at the celebahq training shape (5, 16, 1024, 32), at
      (2, 4, 2048, 16) and at a ragged (1, 2, 1000, 64), timed against the
      plain version and the backward of torch's scaled_dot_product_attention;
-     the forward's row log-sum-exp against torch.logsumexp; the exp floor,
-     TFLOP/s and mha_vmem's time beside each, as in phase 8;
+     the forward's row log-sum-exp against torch.logsumexp; the exp floor
+     and TFLOP/s beside each, as in phase 8;
  15. train slice: Trainer.train_stage2 on configs/ldm/celebahq.yaml at full
      width (fp32 master parameters, bf16 compute, batch 5 of 256^2
      synthetic images, accumulation over 5, 10 micro-steps): the counters
@@ -158,7 +161,7 @@ ATTN_BLOCK_KERNELS = ("::group_norm_kernel", "::gemm_kernel<", "flash_fwd_kernel
 KERNELS = {
     "attn_block": ("ddmi_tpu_torch/csrc/attn_block.cu", "ddmi_tpu/ops/pallas/attn_block.py:199"),
     "inr_decode": ("ddmi_tpu_torch/csrc/inr_decode.cu", "ddmi_tpu/ops/pallas/inr_decode.py:307"),
-    "mha_vmem": ("ddmi_tpu_torch/csrc/attention.cu", "ddmi_tpu/ops/pallas/attention.py:100"),
+    "mha_vmem": ("ddmi_tpu_torch/csrc/flash.cu", "ddmi_tpu/ops/pallas/attention.py:100"),
     "flash_attention": ("ddmi_tpu_torch/csrc/flash.cu", "ddmi_tpu/nn/attention1d.py:77"),
     "nerf_mlp": ("ddmi_tpu_torch/csrc/nerf_mlp.cu", "ddmi_tpu/ops/pallas/nerf_mlp.py:213"),
     "flash_attention_bwd": ("ddmi_tpu_torch/csrc/flash.cu",
@@ -219,19 +222,12 @@ def enqueue_us(torch, fn, calls: int = 50) -> float:
     return 1e6 * t / calls
 
 
-def flash_yardsticks(torch, q, k, v, s, kms, flops, exps, kernel=None) -> str:
+def flash_yardsticks(torch, kms, flops, exps, kernel=None) -> str:
     """The text a flash line adds: the exp-unit floor beside the tensor
-    bound, TFLOP/s, the wrapper's enqueue time (for calls under 1 ms) and
-    the time of mha_vmem at the same shape, which runs the streaming core
-    that the Hopper flash kernels replaced."""
-    from ddmi_tpu_torch.ops import attention
-
-    mms = cuda_ms(lambda: attention.mha_vmem(q, k, v, s))
-    text = (f"; exp floor {1e3 * exps / EXP_RATE:.4f} ms; {flops / kms / 1e9:.1f} TFLOP/s; "
-            f"mha_vmem at this shape (old streaming core, yardstick) {mms:.4f} ms")
+    bound, TFLOP/s and the wrapper's enqueue time (for calls under 1 ms)."""
+    text = f"; exp floor {1e3 * exps / EXP_RATE:.4f} ms; {flops / kms / 1e9:.1f} TFLOP/s"
     if kernel is not None and kms < 1.0:
-        text += (f"; wrapper enqueue {enqueue_us(torch, kernel):.1f} us/call (mha_vmem's "
-                 f"{enqueue_us(torch, lambda: attention.mha_vmem(q, k, v, s)):.1f})")
+        text += f"; wrapper enqueue {enqueue_us(torch, kernel):.1f} us/call"
     return text
 
 
@@ -439,15 +435,25 @@ def attention_case(torch, dev, name, calls, B, nh, n, hd, seed, path="video"):
     flops = 4 * B * nh * n * n * hd
     nbytes = 4 * q.numel() * 2
     bms, by = bound(flops, nbytes)
-    extra = ""
+    extra, same, launched = "", True, 2
     if name == "flash_attention":
-        extra = flash_yardsticks(torch, q, k, v, s, kms, flops, B * nh * n * n, kern)
+        extra = flash_yardsticks(torch, kms, flops, B * nh * n * n, kern)
+    else:
+        before = kernel.launches
+        same = torch.equal(kern(), kern())
+        launched = kernel.launches - before
+        dms, enq = device_ms(torch, kern), enqueue_us(torch, kern)
+        extra = (f"; device {dms:.4f} ms ({flops / dms / 1e9:.1f} TFLOP/s), wrapper enqueue "
+                 f"{enq:.1f} us/call; repeat identical {same}, launches {launched}/2")
     log(f"[kernel] {name} B={B} heads={nh} n={n} hd={hd} (x{calls}/batch): max|err| {err:.6f} "
         f"(/max|ref| {rel:.5f}) corr {corr:.8f}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms, "
         f"library sdpa {lms:.4f} ms, bound {bms:.4f} ms ({by}){extra}")
-    if not (rel <= MHA_REL_ERR and corr >= MHA_MIN_CORR):
-        raise AssertionError(f"{name} disagrees at n={n}, hd={hd}: rel {rel}, corr {corr}")
+    if not (rel <= MHA_REL_ERR and corr >= MHA_MIN_CORR and same and launched == 2):
+        raise AssertionError(f"{name} fails at n={n}, hd={hd}: rel {rel}, corr {corr}, repeat "
+                             f"identical {same}, launches {launched}/2")
     LEDGER.add(name, path, calls, kms, pms, lms, flops, nbytes, err)
+    if name == "mha_vmem":
+        LEDGER.add_extra(name, path, calls, device_ms=dms, enqueue_ms=enq / 1000)
 
 
 def image_kernel_phase(torch, dev):
@@ -469,11 +475,16 @@ def image_kernel_phase(torch, dev):
     toks = inr_decode.render_tokens(planes, RESOLUTION, 1.0, 2)
     kern = lambda: inr_decode.inr_decode_fused(folded, *toks, 0)
     plain = lambda: inr_decode.inr_decode_plain(folded, *toks, 0)
-    out, ref = kern().float(), plain().float()
+    before = inr_decode.inr_decode_fused.launches
+    out, again = kern(), kern()
+    launched = inr_decode.inr_decode_fused.launches - before
+    same = torch.equal(out, again)
+    out, ref = out.float(), plain().float()
     torch.cuda.synchronize()
     err = (out - ref).abs()
     rel = (err.mean() / ref.abs().mean()).item()
     kms, pms = paired_ms(kern, plain, 5)
+    dms = device_ms(torch, kern, 5)
     N = toks[0].shape[0]
     ch, in0 = cfg.ch, cfg.latent_dim + cfg.in_ch
     macs = (2 * in0 * ch + 2 * ch * ch            # net_res1: conv1, skip; conv2, conv3
@@ -481,25 +492,34 @@ def image_kernel_phase(torch, dev):
             + 3 * ch * ch + ch * cfg.out_ch)      # net_res4, torgb
     nbytes = sum(t.numel() * 2 for t in toks) + out.numel() * 2 + (
         folded.wa.numel() + folded.wb.numel()) * 2
-    bms, by = bound(2 * N * macs, nbytes)
+    flops = 2 * N * macs
+    bms, by = bound(flops, nbytes)
     log(f"[kernel] inr_decode N={N} noise 0 (x1/batch): max|err| {err.max().item():.6f} "
-        f"mean|err|/mean|ref| {rel:.6f}; kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+        f"mean|err|/mean|ref| {rel:.6f}, repeat identical {same}, launches {launched}/2; "
+        f"kernel {kms:.4f} ms (events), device {dms:.4f} ms ({flops / dms / 1e9:.1f} TFLOP/s = "
+        f"{100 * flops / (dms / 1e3) / PEAK_FLOPS:.1f}% of the bf16 peak), plain {pms:.4f} ms, "
         f"library none (no single PyTorch call), bound {bms:.4f} ms ({by})")
-    if not rel < INR_REL_MEAN_ERR:
-        raise AssertionError(f"inr_decode disagrees: relative mean error {rel}")
-    LEDGER.add("inr_decode", "image", 1, kms, pms, None, 2 * N * macs, nbytes,
-               err.max().item())
+    if not (rel < INR_REL_MEAN_ERR and same and launched == 2):
+        raise AssertionError(f"inr_decode fails: relative mean error {rel}, repeat identical "
+                             f"{same}, launches {launched}")
+    LEDGER.add("inr_decode", "image", 1, kms, pms, None, flops, nbytes, err.max().item())
+    LEDGER.add_extra("inr_decode", "image", 1, device_ms=dms)
 
     with torch.no_grad():
         folded.noise_w.fill_(0.3)
     folded.has_noise = True
     a, b, c = kern(), kern(), inr_decode.inr_decode_fused(folded, *toks, 1)
+    draws = inr_decode.philox_normal(0, N, device=dev)
+    ref = inr_decode.inr_decode_plain(folded, *toks, 0, noise=draws).float()
     torch.cuda.synchronize()
     finite, same, differs = (bool(torch.isfinite(a.float()).all()), torch.equal(a, b),
                              not torch.equal(a, c))
-    log(f"[kernel] inr_decode with noise: finite {finite}, same seed identical {same}, "
-        f"other seed differs {differs}")
-    if not (finite and same and differs):
+    err = (a.float() - ref).abs()
+    rel = (err.mean() / ref.abs().mean()).item()
+    log(f"[kernel] inr_decode with noise (gains 0.3): against the plain version on the "
+        f"kernel's Philox draws max|err| {err.max().item():.6f} mean|err|/mean|ref| {rel:.6f}; "
+        f"finite {finite}, same seed identical {same}, other seed differs {differs}")
+    if not (finite and same and differs and rel < INR_REL_MEAN_ERR):
         raise AssertionError("inr_decode noise path failed its checks")
 
 
@@ -753,8 +773,7 @@ def video_breakdown_phase(torch, dev, pipe):
     log(f"[video-breakdown] batch {B}: TriplaneUNet forward {unet_ms:.3f} ms (x{VIDEO_NFE} "
         f"per batch = {unet_ms * VIDEO_NFE / 1000:.3f} s), decode {dec_ms:.3f} ms, render "
         f"({pipe.frames} frames) {ren_ms:.3f} ms")
-    profile_top(torch, lambda: pipe.unet(x, t), "video-breakdown",
-                ATTN_BLOCK_KERNELS + ("attn_fwd_kernel",))
+    profile_top(torch, lambda: pipe.unet(x, t), "video-breakdown", ATTN_BLOCK_KERNELS)
 
     shapes = collections.Counter()
     wrapped = [(attn_block, "attention_block"), (attention, "mha_vmem"),
@@ -1127,7 +1146,7 @@ def train_kernel_phase(torch, dev):
                         for c, (e, r, c2) in zip("qkv", stats))
             + f"; LSE max|err| {lse_err:.2e}; kernel {kms:.4f} ms, plain fp32 {pms:.4f} ms, "
             f"library sdpa backward {lms:.4f} ms, bound {bms:.4f} ms ({by})"
-            + flash_yardsticks(torch, q, k, v, s, kms, flops, 2 * B * nh * n * n, kern))
+            + flash_yardsticks(torch, kms, flops, 2 * B * nh * n * n, kern))
         if not all(r <= FLASH_BWD_REL_ERR and c2 >= FLASH_BWD_MIN_CORR for _, r, c2 in stats):
             raise AssertionError(f"flash backward disagrees at {(B, nh, n, hd)}: {stats}")
         if not lse_err <= LSE_MAX_ERR:
@@ -1145,7 +1164,7 @@ def train_kernel_phase(torch, dev):
             log(f"[train-kernel] flash_attention with LSE B={B} heads={nh} n={n} hd={hd}: "
                 f"max|err| {ferr:.6f}; kernel {fms:.4f} ms, plain fp32 {fpms:.4f} ms, library "
                 f"sdpa {flms:.4f} ms, bound {fbms:.4f} ms ({fby})"
-                + flash_yardsticks(torch, q, k, v, s, fms, fflops, B * nh * n * n, fwd))
+                + flash_yardsticks(torch, fms, fflops, B * nh * n * n, fwd))
             LEDGER.add("flash_attention", "train", TRAIN_LAUNCHES["flash_attention"], fms, fpms,
                        flms, fflops, fbytes, ferr)
         del q, k, v, do, out, lse, leaves, o2
@@ -1334,12 +1353,16 @@ def build_report(name, ptxas) -> None:
         if kernel == "nerf_mlp_kernel":  # at the srn_cars widths: bytes * 8 + ring stages
             v = entry("nerf_mlp", "ddmi_nerf_mlp_smem", 159, 27)
             return f"{v // 8} ({v % 8}-stage ring)"
+        if kernel == "inr_decode_kernel":  # at celebahq's out_ch 3: bytes * 8 + ring stages
+            v = entry("inr_decode", "ddmi_inr_decode_smem", 3)
+            return f"{v // 8} ({v % 8}-stage ring at out_ch 3)"
         return "static only"
 
     label, spills = None, ""
     for line in ptxas:
         found = re.search(r"Compiling entry function '\w*?(flash_\w+?_kernel|gemm_kernel|"
-                          r"group_norm_kernel|nerf_mlp_kernel)(?:ILi(\d+)E)?", line)
+                          r"group_norm_kernel|nerf_mlp_kernel|inr_decode_kernel)"
+                          r"(?:IL[ib](\d+)E)?", line)
         if found:
             kernel, arg = found.group(1), found.group(2)
             label = (f"{kernel}{'<' + arg + '>' if arg else ''} (dynamic shared memory "
@@ -1375,7 +1398,7 @@ def main() -> int:
     from ddmi_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    names = ("attn_block", "inr_decode", "attention", "nerf_mlp", "flash")
+    names = build.LIBRARIES
     build.build_all(names)
     log(f"[build] {len(names)} libraries, one nvcc each in parallel: "
         f"{time.perf_counter() - t0:.2f} s wall")
@@ -1385,12 +1408,10 @@ def main() -> int:
             log(f"[build] {name}: library already built")
             continue
         log(f"[build] {name}: nvcc sm_90a {info['seconds']:.2f} s")
-        if name in ("flash", "attn_block", "nerf_mlp"):
-            build_report(name, info["ptxas"])
-            continue
-        for line in info["ptxas"]:
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line}")
+        build_report(name, info["ptxas"])
+        if name == "flash":
+            log("[build]   flash: mha_vmem runs the flash_fwd_kernel instances above, in their "
+                "q pre-scale mode")
 
     image_kernel_phase(torch, dev)
     image = image_slice_phase(torch, dev)

@@ -9,8 +9,9 @@ head-major ADM `qkv`), so `ddmi_tpu/interop/reference_ckpt.py` maps a port
 Plain tensor code is PyTorch; the TPU kernels on the ported paths (the
 fused attention block, the fused image INR render, mha_vmem, the
 flash-attention forward and backward, the fused NeRF MLP) are hand-written
-CUDA C++ for `sm_90a` (`csrc/`), built with `nvcc` on first use
-(`ops/build.py`).  On a CPU tensor each kernel wrapper runs its plain
+CUDA C++ for `sm_90a` (`csrc/`: four libraries, `ops/build.py::LIBRARIES`;
+mha_vmem and the fused block run the flash forward core), built with `nvcc`
+on first use (`ops/build.py`).  On a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.  The entry points run on the card unless given
 `device="cpu"`.
 

@@ -10,11 +10,23 @@
 //   ddmi_flash_attention_bwd   replaces the library's backward kernels
 //                              _flash_attention_bwd_dkv and _flash_attention_bwd_dq
 //                              (flash_attention.py:1121, :1456): dq, dk, dv in
-//                              two launches (flash_bwd_sm90.cuh).
+//                              two launches (flash_bwd_sm90.cuh);
+//   ddmi_mha_vmem              replaces ddmi_tpu/ops/pallas/attention.py::mha_vmem
+//                              (body `_kernel`): the forward core in its q
+//                              pre-scale mode, softmax(bf16(q * s).k^T).v.
 //
 // Every entry builds its TMA tensor maps on the host, inside the one call
 // (tensor_map.cuh).  Each (hd, n, B * nh) map reads one head's rows, and
 // TMA fills rows past n with zeros.
+//
+// mha_vmem.  The TPU kernel holds a whole head's (n, n) scores in VMEM (n <=
+// 1024, hd <= 128); at the video path's shapes (n 32-512, hd 16-96) a call
+// is 1-16 MFLOP per head against a few microseconds of launch, so what
+// bounds it on this card is the launch and its enqueue, not the tensor
+// cores.  The entry is one launch with no scratch: the maps are encoded here
+// over the caller's own tensors at their real head dim, boxes of the next
+// instance's width (16, 32, 64, 128), so TMA's zero fill pads hd (and rows
+// past n) without a copy, and the epilogue writes only the hd real columns.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +66,24 @@ int forward(const void* q, const void* k, const void* v, void* out, float* lse, 
     case 128: return forward<128>(q, k, v, out, lse, B, nh, n, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// softmax(bf16(q * sm_scale).k^T).v on the instance HD >= hd
+template <int HD>
+int mha(const void* q, const void* k, const void* v, void* out, int B, int nh, int n, int hd,
+        float sm_scale, cudaStream_t st) {
+  using S = ddmi_flash::FwdShape<HD>;
+  const int bh = B * nh;
+  ddmi_flash::FwdParams p{};
+  if (!tensor_map(&p.q, q, hd, n, bh, S::BM, HD) || !tensor_map(&p.k, k, hd, n, bh, S::BN, HD) ||
+      !tensor_map(&p.v, v, hd, n, bh, S::BN, HD))
+    return cudaErrorInvalidValue;
+  ddmi_flash::head_major_out(p, out, nh, n, hd);
+  p.n = n;
+  p.q_prescale = 1;
+  p.q_scale = sm_scale;
+  p.scale_log2 = ddmi_flash::LOG2E;  // q carries the scale
+  return ddmi_flash::launch_fwd<HD>(p, bh, st);
 }
 
 // in: q, k, v, dout; stats: lse, di; grads: dq, dk, dv
@@ -115,6 +145,20 @@ int ddmi_flash_attention_bwd(const void* q, const void* k, const void* v, const 
     case 128: return backward<128>(in, stats, grads, B * nh, n, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// q, k, v, out: (B, nh, n, hd) bf16, contiguous, 16-byte aligned; hd a
+// multiple of 8 up to 128 (the wrapper zero-pads others), any n >= 1.  Runs
+// on the instance 16, 32, 64 or 128 that holds hd.  Returns the cudaError_t
+// of its launch.
+int ddmi_mha_vmem(const void* q, const void* k, const void* v, void* out, int B, int nh, int n,
+                  int hd, float sm_scale, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (n < 1 || hd < 8 || hd > 128 || hd % 8) return cudaErrorInvalidValue;
+  if (hd <= 16) return mha<16>(q, k, v, out, B, nh, n, hd, sm_scale, st);
+  if (hd <= 32) return mha<32>(q, k, v, out, B, nh, n, hd, sm_scale, st);
+  if (hd <= 64) return mha<64>(q, k, v, out, B, nh, n, hd, sm_scale, st);
+  return mha<128>(q, k, v, out, B, nh, n, hd, sm_scale, st);
 }
 
 // The dynamic shared memory a launch asks for: the forward (kernel 0) or

@@ -9,7 +9,12 @@
 // scale, an online softmax over K/V blocks, the division after P.V.  The
 // fused attention block (attn_block.cu) runs the same kernel with scale 1 on
 // a q its GEMM has already scaled, writing token-major rows (FwdParams'
-// output strides).
+// output strides).  mha_vmem (flash.cu, the counterpart of
+// ddmi_tpu/ops/pallas/attention.py::mha_vmem) runs it in the q pre-scale
+// mode (FwdParams::q_prescale): each consumer warpgroup multiplies its 64
+// rows of the Q tile by the scale in fp32 and rounds them once to bf16, in
+// place in shared memory, before the first product reads them, as the TPU
+// kernel rounds q * scale to q's dtype; the scores then take scale 1.
 //
 // What bounds it: 4 * n^2 * hd tensor FLOP per (batch, head) on 4 * n * hd
 // * 2 bytes, so at n >= 512 the tensor cores bound it at hd 64 and 128; at
@@ -52,6 +57,8 @@ struct FwdParams {
   int o_cols;            // columns written per row: the head dim before zero-padding
   int o_pairs;           // o_cols and the strides even: columns stored in pairs
   float scale_log2;      // softmax scale * log2(e)
+  int q_prescale;        // 1: q = bf16(q * q_scale) in shared memory first
+  float q_scale;
 };
 
 // the output of a contiguous (B, nh, n, HD) tensor
@@ -198,6 +205,24 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) flash_fwd_kernel(const __grid_
     };
 
     mbar_wait(q_full, 0);
+    if (p.q_prescale) {
+      // this warpgroup's 64 rows of each panel are 64 * ROWB contiguous
+      // bytes; the pass is elementwise, so the swizzle does not matter
+      constexpr int CHUNKS = 64 * T::ROWB / 16;  // 16-byte chunks per panel
+      for (int e = tid; e < T::PANELS * CHUNKS; e += 128) {
+        uint4* c = reinterpret_cast<uint4*>(smem + (e / CHUNKS) * BM * T::ROWB + qrow * T::ROWB +
+                                            (e % CHUNKS) * 16);
+        uint4 w = *c;
+        uint32_t* h = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          h[i] = pack_bf16(__uint_as_float(h[i] << 16) * p.q_scale,
+                           __uint_as_float(h[i] & 0xffff0000u) * p.q_scale);
+        *c = w;
+      }
+      fence_async_smem();  // the products read the rounded tile
+      named_sync(1 + cw, 128);
+    }
     float alpha[2];
     mbar_wait(k_full, 0);
     issue_s(0);
@@ -264,6 +289,9 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) flash_fwd_kernel(const __grid_
 template <int HD>
 cudaError_t launch_fwd(const FwdParams& p, int bh, cudaStream_t st) {
   using S = FwdShape<HD>;
+  // set on every launch: a static flag here would be one object across
+  // every library that includes this header (the linker unifies a template's
+  // static locals process-wide), and the kernel is each library's own
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
   if (err != cudaSuccess) return err;

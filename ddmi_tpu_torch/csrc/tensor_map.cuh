@@ -1,8 +1,8 @@
 // Host-side TMA tensor maps for the Hopper kernels (flash.cu,
-// attn_block.cu, nerf_mlp.cu).  cuTensorMapEncodeTiled comes from the
-// runtime's driver entry point, so no library needs -lcuda.  Every map is
-// of bf16 elements, encoded inside the one ctypes call that launches the
-// kernel; TMA fills elements past a tensor's end with zeros.
+// attn_block.cu, nerf_mlp.cu, inr_decode.cu).  cuTensorMapEncodeTiled comes
+// from the runtime's driver entry point, so no library needs -lcuda.  Every
+// map is of bf16 elements, encoded inside the one ctypes call that launches
+// the kernel; TMA fills elements past a tensor's end with zeros.
 #pragma once
 
 #include <cuda.h>
@@ -39,12 +39,18 @@ inline CUtensorMapSwizzle swizzle_of(int row_bytes) {
 }
 
 // the (hd, n, bh) map of a contiguous (bh, n, hd) bf16 tensor, boxes of
-// `rows` rows by one swizzle panel (min(hd * 2, 128) bytes)
-inline bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int n, int bh, int rows) {
-  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+// `rows` rows by one swizzle panel of the kernel instance for head dim `inst`
+// (min(inst * 2, 128) bytes; inst 0: hd).  With hd < inst the columns past
+// hd read as zeros, so a tensor of any head dim that is a multiple of 8 (a
+// row pitch of 16 bytes) runs on the next instance without a padded copy.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int n, int bh, int rows,
+                       int inst = 0) {
+  if (inst == 0) inst = hd;
+  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || hd % 8 != 0 || hd > inst)
+    return false;
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
-  const int rowb = hd * 2 < 128 ? hd * 2 : 128;
+  const int rowb = inst * 2 < 128 ? inst * 2 : 128;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)n * hd * 2};
   const cuuint32_t box[3] = {(cuuint32_t)rowb / 2, (cuuint32_t)rows, 1};

@@ -7,17 +7,21 @@ scores in fp32 and normalises after the value product; the JAX package sends
 it every sampling attention with n % 8 == 0, n <= 1024 and hd <= 128
 (`supported`).
 
-On a CUDA tensor `mha_vmem` launches the hand-written kernel in
-csrc/attention.cu (K/V streamed through shared memory in 64-key tiles; see
-csrc/flash_attn.cuh), which reproduces that rounding of q.  It has an
-instance for every multiple of 16 up to 128; the wrapper zero-pads any
-other head dim to the next one and cuts the output back, which is exact:
-zero columns add nothing to bf16(q * s).k and give zero output columns.
-Under autograd its backward recomputes through the plain version, as the
-JAX kernel's custom_vjp does.  On a CPU tensor it runs `mha_plain`, the
-same function in dense fp32 PyTorch.  The UNet and the 1D blocks take it
-only when no gradient is recorded, as the JAX package takes it only in
-inference traces.
+On a CUDA tensor `mha_vmem` launches the Hopper flash-attention forward
+core (csrc/flash_fwd_sm90.cuh) through its entry `ddmi_mha_vmem` in
+csrc/flash.cu, in the core's q pre-scale mode: each consumer warpgroup
+multiplies its q rows by the scale in fp32 and rounds them once to bf16 in
+shared memory, which reproduces that rounding of q.  It runs on the flash
+instances (hd 16, 32, 64, 128): the kernel's TMA maps read the caller's
+tensors at their own head dim, and the zero fill past hd pads them to the
+next instance without a copy.  Only a head dim that is not a multiple of 8
+(a row TMA cannot map) is zero-padded here, to its instance, with the
+output cut back; that is exact: zero columns add nothing to bf16(q * s).k
+and give zero output columns.  Under autograd its backward recomputes
+through the plain version, as the JAX kernel's custom_vjp does.  On a CPU
+tensor it runs `mha_plain`, the same function in dense fp32 PyTorch.  The
+UNet and the 1D blocks take it only when no gradient is recorded, as the
+JAX package takes it only in inference traces.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ddmi_tpu_torch.ops import build
 
 MAX_TOKENS = 1024
 MAX_HEAD_DIM = 128  # the largest head dim the attention kernels take
+INSTANCES = (16, 32, 64, 128)  # head dims the flash core is built for
 
 
 def supported(n: int, hd: int) -> bool:
@@ -37,10 +42,19 @@ def supported(n: int, hd: int) -> bool:
     return n % 8 == 0 and n <= MAX_TOKENS and hd <= 128
 
 
+def instance_hd(hd: int) -> int:
+    """The flash core's instance a head dim of `hd` runs on: the smallest of
+    INSTANCES that holds it."""
+    for inst in INSTANCES:
+        if hd <= inst:
+            return inst
+    raise NotImplementedError(f"the attention kernels have no instance for head dim {hd}")
+
+
 def mha_head_dim(hd: int) -> int:
-    """The instance `mha_vmem` runs a head dim of `hd` on: the next
-    multiple of 16."""
-    return max(16, -(-hd // 16) * 16)
+    """The instance `mha_vmem` runs a head dim of `hd` on, and the head dim
+    the wrapper pads to where it pads (hd not a multiple of 8)."""
+    return instance_hd(hd)
 
 
 def pad_head_dim(t: torch.Tensor, hd: int) -> torch.Tensor:
@@ -122,10 +136,11 @@ def recompute_vjp(plain, inputs, needs, grad_out, *static):
 def _mha_kernel(q, k, v, sm_scale: float) -> torch.Tensor:
     check_operands(q, k, v)
     hd = q.shape[-1]
-    hp = mha_head_dim(hd)
-    q, k, v = (pad_head_dim(t, hp) for t in (q, k, v))
+    hp = hd if hd % 8 == 0 else mha_head_dim(hd)
+    if hp != hd:
+        q, k, v = (pad_head_dim(t, hp) for t in (q, k, v))
     out = torch.empty_like(q)
-    launch(load_entries("attention", {"ddmi_mha_vmem": 4}), "ddmi_mha_vmem", (q, k, v, out),
+    launch(load_entries("flash", {"ddmi_mha_vmem": 4}), "ddmi_mha_vmem", (q, k, v, out),
            q.shape, sm_scale)
     mha_vmem.launches += 1
     return out if hp == hd else out[..., :hd].contiguous()

@@ -25,6 +25,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the libraries, one per csrc/<name>.cu; each includes the shared headers it
+# needs (csrc/*.cuh)
+LIBRARIES = ("attn_block", "inr_decode", "nerf_mlp", "flash")
+
 # name -> loaded library; name -> {"seconds", "ptxas"} for libraries built by
 # this process (a library found already built has no entry)
 _LIBS: dict = {}

@@ -28,28 +28,18 @@ from __future__ import annotations
 import torch
 
 from ddmi_tpu_torch.ops.attention import (
-    check_operands, launch, load_entries, needs_grad, pad_head_dim,
+    INSTANCES, check_operands, instance_hd, launch, load_entries, needs_grad, pad_head_dim,
 )
 
 MIN_TOKENS = 512   # ddmi_tpu/nn/unet.py FLASH_MIN_TOKENS
 BLOCK = 1024       # ddmi_tpu/nn/unet.py FLASH_BLOCK
 Q_CHUNK = 1024     # query rows per step of the plain versions
-INSTANCES = (16, 32, 64, 128)  # head dims the kernels are built for: the gate's set
 
 
 def supported(n: int, hd: int) -> bool:
     """The JAX package's gate for the cross-plane attentions
     (ddmi_tpu/nn/attention1d.py::tiered_attention)."""
     return n >= MIN_TOKENS and n % min(n, BLOCK) == 0 and hd in INSTANCES
-
-
-def instance_hd(hd: int) -> int:
-    """The kernel instance a head dim of `hd` runs on: the smallest of
-    INSTANCES that holds it."""
-    for inst in INSTANCES:
-        if hd <= inst:
-            return inst
-    raise NotImplementedError(f"flash attention has no instance for head dim {hd}")
 
 
 def _lib():

@@ -14,6 +14,11 @@ tensor.  The weight slots follow the JAX kernel's tables:
   wb (6, INP0, CHP):  0 b1.conv1  1 b1.skip  2 b2.conv1(xm)  3 b2.skip(xm)
                       4 b3.conv1(xh)  5 b3.skip(xh)
   act_bias / noise_w: conv order b1c1..b1c3, b2c1.., b4c3.
+
+NoiseInjection draws one N(0, 1) per token and conv from Philox4x32-10
+keyed by (seed, token, conv) and Box-Muller (`philox_normal`), in the
+kernel and, by default, in the plain version, so one seed gives the same
+pixels on either device (up to float rounding of the Gaussians).
 """
 
 from __future__ import annotations
@@ -32,10 +37,13 @@ from ddmi_tpu_torch.ops.resample import pixel_center_lin, separable_grid_sample
 SQRT2 = math.sqrt(2.0)
 INV_SQRT2 = 1.0 / SQRT2
 LANE = 128
-TILE = 64        # tokens per CUDA block (csrc/inr_decode.cu T)
+TILE = 128       # tokens per tile of the CUDA kernel (csrc/inr_decode.cu T)
 KERNEL_CHP = 256
 KERNEL_INP = 128
 MAX_OUT_CH = 16
+NCONV = 12
+NOISE_KEY = 0x85EBCA6B  # Philox key word 1 of the noise stream (csrc/inr_decode.cu)
+_MASK32 = 0xFFFFFFFF
 
 
 def _pad128(n: int) -> int:
@@ -120,18 +128,59 @@ def fold_inr_image_params(mlp, si, dtype=torch.bfloat16) -> FoldedINR:
     )
 
 
-def inr_decode_plain(folded: FoldedINR, x0, xm, xh, seed: int) -> torch.Tensor:
+def _mulhilo(a: torch.Tensor, m: int):
+    """(high, low) 32-bit words of a * m, for an int64 tensor `a` of 32-bit
+    words and a 32-bit constant m, from 16-bit halves so that no int64
+    product overflows."""
+    a_hi, a_lo = a >> 16, a & 0xFFFF
+    m_hi, m_lo = m >> 16, m & 0xFFFF
+    ll, lh, hl = a_lo * m_lo, a_lo * m_hi, a_hi * m_lo
+    mid = (ll >> 16) + (lh & 0xFFFF) + (hl & 0xFFFF)
+    lo = ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
+    hi = a_hi * m_hi + (lh >> 16) + (hl >> 16) + (mid >> 16)
+    return hi, lo
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 (Salmon et al., Random123) on int64 tensors of 32-bit
+    words: ctr four words, key two (tensors or ints); -> the four output
+    words, the kernel's philox4x32_10 bit for bit."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, 0xD2511F53)
+        hi1, lo1 = _mulhilo(c2, 0xCD9E8D57)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + 0x9E3779B9) & _MASK32, (k1 + 0xBB67AE85) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_normal(seed: int, n_tokens: int, device=None) -> torch.Tensor:
+    """The kernel's NoiseInjection draws, (n_tokens, 12) fp32: Philox4x32-10
+    on the counter (token, conv, 0, 0) with the key (seed, NOISE_KEY), then
+    Box-Muller on the first two words, u1 = ((w0 >> 8) + 1) / 2^24 in (0, 1]
+    and u2 = (w1 >> 8) / 2^24, N = sqrt(-2 log u1) cos(2 pi u2), in fp32."""
+    tok = torch.arange(n_tokens, dtype=torch.int64, device=device)[:, None].expand(-1, NCONV)
+    conv = torch.arange(NCONV, dtype=torch.int64, device=device)[None, :].expand(n_tokens, -1)
+    zero = torch.zeros_like(tok)
+    w0, w1, _, _ = philox4x32_10((tok, conv, zero, zero), (int(seed) & _MASK32, NOISE_KEY))
+    u1 = ((w0 >> 8) + 1).float() * (1.0 / 16777216.0)
+    u2 = (w1 >> 8).float() * (1.0 / 16777216.0)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(6.28318530717958648 * u2)
+
+
+def inr_decode_plain(folded: FoldedINR, x0, xm, xh, seed: int, noise=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: fp32 products of the
     compute-dtype operands, activations cast to the compute dtype where the
-    kernel casts them.  Noise (when a gain is nonzero) comes from a
-    torch.Generator seeded with `seed`, not from the kernel's Philox stream."""
+    kernel casts them.  Noise (when a gain is nonzero) is `noise`, (N, 12)
+    N(0, 1) draws, or else the kernel's own: philox_normal(seed, N)."""
     cdt = x0.dtype
     wa, wb, ab = folded.wa.float(), folded.wb.float(), folded.act_bias
     gauss = None
     if folded.has_noise:
-        g = torch.Generator(device=x0.device).manual_seed(int(seed))
-        gauss = torch.randn((x0.shape[0], 12), generator=g, device=x0.device)
-        gauss = gauss * folded.noise_w[None, :]
+        if noise is None:
+            noise = philox_normal(seed, x0.shape[0], device=x0.device)
+        gauss = noise.to(x0.device, torch.float32) * folded.noise_w[None, :]
 
     def mm(x, w):
         return x.float() @ w
@@ -177,9 +226,13 @@ def _lib():
 
 def _check_cuda_operands(f: FoldedINR, x0, xm, xh):
     N = x0.shape[0]
+    if N < 1:
+        raise ValueError("inr_decode_fused needs at least one token")
     for x in (x0, xm, xh):
         if x.shape != (N, KERNEL_INP) or x.dtype != torch.bfloat16 or not x.is_contiguous():
             raise ValueError(f"tokens must be contiguous bf16 (N, {KERNEL_INP})")
+        if x.data_ptr() % 16:
+            raise ValueError("tokens must start on a 16-byte boundary (a TMA source)")
     expect = {
         "wa": (f.wa, (14, KERNEL_CHP, KERNEL_CHP), torch.bfloat16),
         "wb": (f.wb, (6, KERNEL_INP, KERNEL_CHP), torch.bfloat16),
@@ -198,7 +251,9 @@ def _check_cuda_operands(f: FoldedINR, x0, xm, xh):
 
 
 def inr_decode_fused(folded: FoldedINR, x0, xm, xh, seed: int) -> torch.Tensor:
-    """x0/xm/xh: (N, INP0) tokens [pe | si, zero-padded].  -> (N, out_ch)."""
+    """x0/xm/xh: (N, INP0) tokens [pe | si, zero-padded].  -> (N, out_ch).
+    The kernel takes any N: its last tile reads zeros past N and stores no
+    row there."""
     if x0.device.type == "cpu":
         return inr_decode_plain(folded, x0, xm, xh, seed)
     if x0.device.type != "cuda":
@@ -209,21 +264,18 @@ def inr_decode_fused(folded: FoldedINR, x0, xm, xh, seed: int) -> torch.Tensor:
                            "call it under torch.no_grad() or torch.inference_mode()")
     _check_cuda_operands(folded, x0, xm, xh)
     N = x0.shape[0]
-    npad = (-N) % TILE
-    if npad:
-        x0, xm, xh = (F.pad(x, (0, 0, 0, npad)) for x in (x0, xm, xh))
-    out = torch.empty((N + npad, folded.out_ch), dtype=torch.bfloat16, device=x0.device)
+    out = torch.empty((N, folded.out_ch), dtype=torch.bfloat16, device=x0.device)
     err = _lib().ddmi_inr_decode(
         x0.data_ptr(), xm.data_ptr(), xh.data_ptr(), folded.wa.data_ptr(),
         folded.wb.data_ptr(), folded.act_bias.data_ptr(), folded.noise_w.data_ptr(),
-        folded.rgb_bias.data_ptr(), out.data_ptr(), N + npad, folded.out_ch,
-        int(folded.has_noise), int(seed) & 0xFFFFFFFF,
+        folded.rgb_bias.data_ptr(), out.data_ptr(), N, folded.out_ch,
+        int(folded.has_noise), int(seed) & _MASK32,
         torch.cuda.current_stream(x0.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"INR decode kernel launch failed: cudaError {err}")
     inr_decode_fused.launches += 1
-    return out[:N]
+    return out
 
 
 inr_decode_fused.launches = 0

@@ -142,11 +142,11 @@ def test_wrappers_refuse_other_devices():
 
 @pytest.mark.parametrize("hd,flash_hd,mha_hd", [
     (1, 16, 16), (8, 16, 16), (16, 16, 16), (17, 32, 32), (24, 32, 32), (32, 32, 32),
-    (48, 64, 48), (64, 64, 64), (80, 128, 80), (96, 128, 96), (112, 128, 112),
+    (48, 64, 64), (64, 64, 64), (80, 128, 128), (96, 128, 128), (112, 128, 128),
     (128, 128, 128)])
 def test_instance_choice(hd, flash_hd, mha_hd):
     """flash runs on the smallest of its instances (16, 32, 64, 128) that
-    holds hd; mha_vmem on the next multiple of 16."""
+    holds hd; mha_vmem runs on the same flash core and instance."""
     assert flash_attention.instance_hd(hd) == flash_hd
     assert attention.mha_head_dim(hd) == mha_hd
 
@@ -168,7 +168,8 @@ def test_pad_head_dim():
 @pytest.mark.parametrize("which", ["flash", "mha"])
 def test_padded_operands_give_the_unpadded_result(which, hd):
     """Zero-padding q, k, v to the head dim the wrapper pads to (the next
-    flash instance; the next multiple of 16 for mha_vmem) and cutting the
+    flash instance, for mha_vmem where hd is not a multiple of 8; the
+    kernel's TMA zero fill pads the others the same way) and cutting the
     output back is exact: the zero columns add nothing to q.k and give zero
     output columns."""
     plain = {"flash": flash_attention.flash_plain, "mha": attention.mha_plain}[which]

@@ -128,19 +128,47 @@ def _check_attention(out, ref):
     assert err <= 0.02 * ref.abs().max().item() and corr >= 0.9999, (err, corr)
 
 
-@pytest.mark.parametrize("n,hd", [(512, 16), (512, 32), (512, 64), (128, 32), (128, 64),
-                                  (128, 96), (32, 64), (32, 96), (8, 128), (1024, 128),
-                                  (512, 8), (128, 24), (64, 40), (256, 100)])
+# the (n, hd) of every mha_vmem call of the skytimelapse video path, as
+# chip_smoke.py's video breakdown records them (batch 2, 16 heads)
+MHA_VIDEO_SHAPES = [(32, 64), (32, 96), (128, 32), (128, 64), (128, 96), (512, 16), (512, 32),
+                    (512, 64)]
+
+
+@pytest.mark.parametrize("n,hd", MHA_VIDEO_SHAPES + [
+    (8, 128), (1024, 128), (1000, 128), (8, 64), (32, 32), (1000, 48), (512, 8), (128, 24),
+    (64, 40), (128, 48), (256, 96), (64, 112), (256, 100)])
 def test_mha_vmem_kernel_matches_plain(cuda_device, n, hd):
-    """At every multiple of 16 the kernel has an instance for, and at head
-    dims the wrapper zero-pads to the next one (8, 24, 40, 100)."""
+    """On the flash core's instances (16, 32, 64, 128) at the video path's
+    shapes, at head dims that TMA's zero fill pads to the next instance (8,
+    24, 40, 48, 96, 112), at n from 8 to 1024, and at a head dim that is
+    not a multiple of 8 (100), which the wrapper pads; a repeat is
+    bit-identical and each call counts one launch."""
     q, k, v = _qkv(n + hd, 2, 16, n, hd, cuda_device)
     before = attention.mha_vmem.launches
     out = attention.mha_vmem(q, k, v, hd**-0.5)
+    again = attention.mha_vmem(q, k, v, hd**-0.5)
     ref = attention.mha_plain(q, k, v, hd**-0.5)
     torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
     _check_attention(out, ref)
-    assert attention.mha_vmem.launches == before + 1
+    assert torch.equal(out, again)
+    assert attention.mha_vmem.launches == before + 2
+
+
+@pytest.mark.parametrize("hd", [96, 40])
+def test_mha_vmem_runs_one_kernel_without_a_pad(cuda_device, hd):
+    """At a head dim that is a multiple of 8 the call is one launch of the
+    flash core and nothing else: no padded copies in, no slice out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _qkv(7, 2, 16, 32, hd, cuda_device)
+    attention.mha_vmem(q, k, v, hd**-0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention.mha_vmem(q, k, v, hd**-0.5)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    assert len(names) == 1 and "flash_fwd_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("B,nh,n,hd", [(2, 16, 2048, 16), (2, 16, 2048, 32),
@@ -178,29 +206,110 @@ def test_attention_block_kernel_refuses_unsupported_shape(cuda_device):
         attn_block.fused_attention_block(x, gs, gb, wq, bq, wp, bp, 16, 32**-0.5)
 
 
-def test_inr_decode_kernel_matches_plain(cuda_device):
-    """bf16 kernel vs the plain version (same bf16 operands, fp32 sums):
-    mean|err| / mean|ref| < 0.02.  With noise: finite, the same seed gives
-    the same output and another seed another."""
+def _inr_folded(dev, out_ch=3):
+    """A celebahq-width INRImage (ch 256, latent 64) with seeded nonzero
+    biases, folded at si 1."""
     torch.manual_seed(0)
-    m = INRImage(MLPConfig(in_ch=2, out_ch=3, ch=256, latent_dim=64)).to(cuda_device)
+    m = INRImage(MLPConfig(in_ch=2, out_ch=out_ch, ch=256, latent_dim=64)).to(dev)
     with torch.no_grad():
         for name, p in m.named_parameters():
             if name.endswith("bias") and "modulation" not in name:
                 p.copy_(0.1 * torch.randn_like(p))
-    planes = [torch.randn(2, 64, r, r, device=cuda_device).bfloat16() for r in (16, 32, 64)]
-    folded = inr_decode.fold_inr_image_params(m, 1.0)
-    toks = inr_decode.render_tokens(planes, 64, 1.0, 2)
-    out = inr_decode.inr_decode_fused(folded, *toks, 0).float()
-    ref = inr_decode.inr_decode_plain(folded, *toks, 0).float()
+    return inr_decode.fold_inr_image_params(m, 1.0)
+
+
+def _inr_tokens(dev, N):
+    """Three (N, 128) bf16 token sets: 64 latent + 2 coordinate columns, the
+    rest zero, as render_tokens gives them."""
+    g = torch.Generator(device=dev).manual_seed(N)
+    toks = [torch.randn((N, 128), generator=g, device=dev).bfloat16() for _ in range(3)]
+    for t in toks:
+        t[:, 66:] = 0
+    return toks
+
+
+def _inr_check(out, ref):
+    """bf16 kernel vs the plain version on the same bf16 operands (fp32
+    sums in another order may flip a bf16 rounding between the 13
+    products): mean|err| / mean|ref| < 0.02, the smoke's bar."""
+    assert out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
+    out, ref = out.float(), ref.float()
     assert ((out - ref).abs().mean() / ref.abs().mean()).item() < 0.02
+
+
+@pytest.mark.parametrize("N", [8 * 256 * 256, 4096 * 128 - 37])
+def test_inr_decode_kernel_matches_plain(cuda_device, N):
+    """At the celebahq render's N (8 x 256^2 tokens, from render_tokens) and
+    at a ragged N, whose last tile the kernel masks: against the plain
+    version, a bit-identical repeat, one count per call."""
+    folded = _inr_folded(cuda_device)
+    if N == 8 * 256 * 256:
+        planes = [torch.randn(8, 64, r, r, device=cuda_device).bfloat16() for r in (64, 128, 256)]
+        toks = inr_decode.render_tokens(planes, 256, 1.0, 2)
+    else:
+        toks = _inr_tokens(cuda_device, N)
+    before = inr_decode.inr_decode_fused.launches
+    out = inr_decode.inr_decode_fused(folded, *toks, 0)
+    again = inr_decode.inr_decode_fused(folded, *toks, 0)
+    ref = inr_decode.inr_decode_plain(folded, *toks, 0)
+    torch.cuda.synchronize()
+    assert out.shape == (N, 3)
+    _inr_check(out, ref)
+    assert torch.equal(out, again)
+    assert inr_decode.inr_decode_fused.launches == before + 2
+
+
+@pytest.mark.parametrize("N", [8 * 256 * 256, 4096 * 128 - 37, 37])
+def test_inr_decode_noise_matches_plain_on_the_kernel_draws(cuda_device, N):
+    """With noise gains: the kernel against the plain version fed the
+    kernel's own Philox draws (philox_normal), a bit-identical repeat of a
+    seed, and another seed that differs."""
+    folded = _inr_folded(cuda_device)
     with torch.no_grad():
-        folded.noise_w.fill_(0.3)
+        folded.noise_w.copy_(torch.linspace(0.1, 0.6, 12, device=cuda_device))
     folded.has_noise = True
+    toks = _inr_tokens(cuda_device, N)
     a = inr_decode.inr_decode_fused(folded, *toks, 5)
     b = inr_decode.inr_decode_fused(folded, *toks, 5)
     c = inr_decode.inr_decode_fused(folded, *toks, 6)
-    assert torch.isfinite(a.float()).all() and torch.equal(a, b) and not torch.equal(a, c)
+    draws = inr_decode.philox_normal(5, N, device=cuda_device)
+    ref = inr_decode.inr_decode_plain(folded, *toks, 5, noise=draws)
+    torch.cuda.synchronize()
+    _inr_check(a, ref)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # the plain version's default noise is the same draws
+    assert torch.equal(ref, inr_decode.inr_decode_plain(folded, *toks, 5))
+
+
+def test_inr_decode_kernel_takes_other_out_ch(cuda_device):
+    """out_ch 16, the most the kernel takes (its ToRGB columns in shared
+    memory leave a 3-stage ring)."""
+    folded = _inr_folded(cuda_device, out_ch=16)
+    toks = _inr_tokens(cuda_device, 1000)
+    out = inr_decode.inr_decode_fused(folded, *toks, 0)
+    ref = inr_decode.inr_decode_plain(folded, *toks, 0)
+    torch.cuda.synchronize()
+    _inr_check(out, ref)
+
+
+def test_inr_decode_kernel_refuses_what_it_does_not_take(cuda_device):
+    folded = _inr_folded(cuda_device)
+    toks = _inr_tokens(cuda_device, 256)
+    with pytest.raises(ValueError):  # token width other than 128
+        inr_decode.inr_decode_fused(folded, *(t[:, :64].contiguous() for t in toks), 0)
+    with pytest.raises(ValueError):  # not contiguous
+        inr_decode.inr_decode_fused(folded, toks[0].t().contiguous().t(), *toks[1:], 0)
+    with pytest.raises(ValueError):  # not bf16
+        inr_decode.inr_decode_fused(folded, toks[0].float(), *toks[1:], 0)
+    with pytest.raises(ValueError):  # not on a 16-byte boundary: no TMA source
+        flat = torch.zeros(256 * 128 + 1, device=cuda_device, dtype=torch.bfloat16)
+        inr_decode.inr_decode_fused(folded, flat[1:].view(256, 128), *toks[1:], 0)
+    with pytest.raises(ValueError):  # no tokens
+        inr_decode.inr_decode_fused(folded, *(t[:0] for t in toks), 0)
+    wide = _inr_folded(cuda_device, out_ch=3)
+    wide.out_ch = 17
+    with pytest.raises(ValueError):  # more output channels than ToRGB's 16
+        inr_decode.inr_decode_fused(wide, *toks, 0)
 
 
 def _nerf_mlp(dev, width=256, in_xyz=159, in_dir=27):

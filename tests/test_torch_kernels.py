@@ -1,7 +1,9 @@
 """The port's two kernels: their plain PyTorch versions (what a wrapper runs
 on a CPU tensor) against the JAX package's Pallas kernels in interpret mode
-and against the JAX reference paths, on the same numpy-made inputs.  The
-CUDA kernels themselves are tested on the card in tests/test_torch_cuda.py.
+and against the JAX reference paths, on the same numpy-made inputs; the INR
+render's Philox noise reference against Random123's known answers; and the
+kernel sources the build names.  The CUDA kernels themselves are tested on
+the card in tests/test_torch_cuda.py.
 
 Tolerance for fp32 parity: max|diff| <= 1e-4 * max(1, max|ref|), because the
 two frameworks sum in different orders.
@@ -185,3 +187,106 @@ def test_attention_block_module_entry_matches_jax_signature():
                                      mp[:, :, None].contiguous(), bp, nh, 32**-0.5)
     ref = attn_block.fused_attention_block(x, gs, gb, wq, bq, wp, bp, nh, 32**-0.5)
     assert torch.equal(got, ref)
+
+
+# Random123's published known-answer vectors for philox4x32-10 (kat_vectors):
+# counter, key -> output
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("ctr,key,want", PHILOX_KAT)
+def test_philox_known_answers(ctr, key, want):
+    words = inr_decode.philox4x32_10(
+        tuple(torch.tensor([c], dtype=torch.int64) for c in ctr), key)
+    assert tuple(int(w) for w in words) == want
+
+
+def _philox_ints(ctr, key):
+    """Philox4x32-10 on Python integers: the textbook round, a second
+    implementation to hold the tensor one against."""
+    m = 0xFFFFFFFF
+    c, k = list(ctr), list(key)
+    for _ in range(10):
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k[0], p1 & m, (p0 >> 32) ^ c[3] ^ k[1], p0 & m]
+        k = [(k[0] + 0x9E3779B9) & m, (k[1] + 0xBB67AE85) & m]
+    return c
+
+
+def test_philox_normal_draws_are_the_kernel_stream():
+    """philox_normal's integer bits are Philox4x32-10 on the counter (token,
+    conv, 0, 0) and the key (seed, NOISE_KEY), exactly; its Gaussians are
+    Box-Muller of the first two words in fp32, to float rounding."""
+    seed, n = 1234567, 40
+    got = inr_decode.philox_normal(seed, n)
+    assert got.shape == (n, inr_decode.NCONV) and got.dtype == torch.float32
+    for tok in (0, 1, 17, n - 1):
+        for conv in (0, 5, 11):
+            w0, w1, _, _ = _philox_ints((tok, conv, 0, 0), (seed, inr_decode.NOISE_KEY))
+            u1 = np.float32(((w0 >> 8) + 1) / 16777216.0)
+            u2 = np.float32((w1 >> 8) / 16777216.0)
+            want = np.sqrt(-2.0 * np.log(np.float64(u1))) * np.cos(2 * np.pi * np.float64(u2))
+            assert abs(float(got[tok, conv]) - want) <= 1e-5 * max(1.0, abs(want)), (tok, conv)
+
+
+def test_philox_normal_seeds():
+    a, b = inr_decode.philox_normal(7, 4096), inr_decode.philox_normal(7, 4096)
+    c = inr_decode.philox_normal(8, 4096)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert bool(torch.isfinite(a).all())
+    assert abs(a.mean().item()) < 0.03 and abs(a.std().item() - 1.0) < 0.03
+    # seeds are taken modulo 2^32, as the kernel takes them
+    assert torch.equal(inr_decode.philox_normal(7 + 2**32, 16), a[:16])
+
+
+def test_inr_decode_plain_noise_from_the_draws():
+    """With a noise gain, the plain version draws the kernel's Philox noise
+    by default, takes given draws instead, and is deterministic in both."""
+    cfg, p, m = _inr_params()
+    with torch.no_grad():
+        for i in (1, 2, 3, 4):
+            for c in ("conv1", "conv2", "conv3"):
+                getattr(getattr(m, f"net_res{i}"), c).noise.weight.fill_(0.2)
+    folded = inr_decode.fold_inr_image_params(m, 0.7)
+    assert folded.has_noise
+    rng = np.random.default_rng(4)
+    planes = [torch.from_numpy(rng.standard_normal((1, LATENT, r, r)).astype(np.float32))
+              for r in (8, 16, 32)]
+    toks = inr_decode.render_tokens(planes, RES, 0.7, cfg.in_ch)
+    N = toks[0].shape[0]
+    draws = inr_decode.philox_normal(3, N)
+    a = inr_decode.inr_decode_plain(folded, *toks, 3, noise=draws)
+    assert torch.equal(a, inr_decode.inr_decode_plain(folded, *toks, 3, noise=draws.clone()))
+    assert torch.equal(a, inr_decode.inr_decode_plain(folded, *toks, 3))
+    assert not torch.equal(a, inr_decode.inr_decode_plain(folded, *toks, 4))
+    other = torch.from_numpy(rng.standard_normal((N, 12)).astype(np.float32))
+    assert not torch.equal(a, inr_decode.inr_decode_plain(folded, *toks, 3, noise=other))
+
+
+def test_kernel_sources_exist():
+    """Every library the build names has its csrc/<name>.cu, every library a
+    wrapper loads is one of them, and every header a source includes exists
+    (a deleted source or header fails here, before the card)."""
+    import re
+    from pathlib import Path
+
+    from ddmi_tpu_torch.ops import build
+
+    csrc = build.CSRC
+    for name in build.LIBRARIES:
+        assert (csrc / f"{name}.cu").is_file(), name
+    ops = Path(build.__file__).parent
+    loaded = set()
+    for f in ops.glob("*.py"):
+        text = f.read_text()
+        loaded |= set(re.findall(r'build\.load\("(\w+)"\)', text))
+        loaded |= set(re.findall(r'load_entries\(\s*"(\w+)"', text))
+    assert loaded and loaded <= set(build.LIBRARIES), loaded
+    for src in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
+        for inc in re.findall(r'#include\s+"([^"]+)"', src.read_text()):
+            assert (csrc / inc).is_file(), (src.name, inc)
