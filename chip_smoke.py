@@ -78,7 +78,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      encode / forward / backward / optimizer+EMA, a profile, peak memory;
  16. train reference: one micro-step at a small config, bf16 with the
      kernels on the GPU against fp32 plain versions on the CPU (loss and
-     gradient cosine).
+     gradient cosine);
+ 17. occupancy slice: attn_block at the shapenet UNet's two shapes at batch
+     8; the occupancy SamplerService on configs/ldm/shapenet.yaml with the
+     stage-1 blocks of configs/d2c-vae/shapenet.yaml at full width (bf16,
+     batch 8, NFE 200, MISE 64 -> 256^3 at threshold 0.2, 100,000 points per
+     mesh per round; the random field's offset set so that 5% of the box is
+     inside): two concurrent requests coalesce into one batch, a repeat of a
+     seed gives bit-identical meshes, the counters read exactly attn_block
+     2200 per batch and 0 for every other kernel, every vertex is finite and
+     inside the box; meshes/s, batch time, vertex and face counts, peak
+     memory;
+ 18. occupancy breakdown: one UNet forward (events, device time, host
+     enqueue), the batch's decode and its peak memory, the lockstep
+     extraction split into MISE rounds, points, INR3D device time, octree
+     host time and marching cubes; a profile of one full evaluation round;
+ 19. occupancy reference and encode path: a small config at NFE 4, bf16 with
+     the kernels on the GPU against fp32 plain versions on the CPU (logits on
+     a 32^3 grid, inside/outside agreement, meshes' Chamfer-L1); a
+     3000-point sphere cloud through the full-width pointnet, triplane
+     encoder and posterior (bf16 latents against fp32 on the CPU), the
+     full-width decode and INR3D on those latents against the CPU (logits,
+     agreement), then extraction.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -141,6 +162,20 @@ VIDEO_LAUNCHES = {"attn_block": 32 * VIDEO_NFE, "mha_vmem": 18 * VIDEO_NFE,
 NERF_ATTN_SHAPES = [((8, 512, 16), 5), ((4, 1024, 32), 6)]
 NERF_LAUNCHES = {"attn_block": 11 * NERF_NFE,
                  "nerf_mlp": NERF_BATCH * NERF_VIEWS * (NERF_RES * NERF_RES // 4096)}
+# shapenet occupancy (configs/ldm/shapenet.yaml, bench_3d.py's protocol):
+# batch 8, NFE 200, MISE 64 -> 256^3, 100,000 points per mesh per round; the
+# UNet has srn_cars' attention shapes at batch 8 (11 blocks per forward)
+OCC_BATCH = 8
+OCC_NFE = 200
+OCC_POINTS = 100_000
+OCC_ATTN_SHAPES = NERF_ATTN_SHAPES
+OCC_LAUNCHES = {"attn_block": 11 * OCC_NFE}
+# the occupancy reference: bf16 + kernels vs fp32 plain at NFE 4 on a 32^3
+# grid: logits mean|err| / mean|ref|, inside/outside agreement, and the
+# meshes' Chamfer-L1 as a share of the box (1.1)
+OCC_REF_REL_ERR, OCC_REF_AGREE, OCC_REF_CHAMFER = 0.02, 0.99, 0.01
+# the share of the box a random-weight field is set to put inside the surface
+OCC_INSIDE = 0.05
 # stage-2 training on configs/ldm/celebahq.yaml: batch 5 of 256^2 images,
 # gradient accumulation over 5 micro-steps, 10 micro-steps (2 optimizer
 # updates); 5 flash attentions per UNet forward (the 32 x 32 blocks: C 512,
@@ -323,22 +358,27 @@ def reset_launches():
     return lambda: {k: fn.launches for k, fn in fns.items()}
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
+def device_ms(torch, fn, reps: int = 20, attempts: int = 3) -> float:
     """Device time of one fn() from the profiler: the sum of the kernels'
     device time over `reps` calls (after a warm-up), per call.  Unlike CUDA
-    events around a small call it leaves out the host's enqueue."""
+    events around a small call it leaves out the host's enqueue.  A profile
+    that records no kernel at all (CUPTI now and then delivers an empty
+    one, seen once in a run of unchanged code) is taken again, up to
+    `attempts` times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages())
-    if not total:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1000 / reps
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages())
+        if total:
+            return total / 1000 / reps
+        log(f"[profiler] profile {attempt + 1} of {attempts} recorded no device time")
+    raise AssertionError("the profiler saw no device time")
 
 
 def attn_block_chain(torch, x, nw, nb, wq, bq, wp, bp, nh, s, eps=1e-5):
@@ -523,11 +563,11 @@ def image_kernel_phase(torch, dev):
         raise AssertionError("inr_decode noise path failed its checks")
 
 
-def serve(torch, dev, svc, requests, tag):
+def serve(torch, dev, svc, requests, tag, equal=None):
     """Concurrent requests [(n, seed)] that coalesce into one batch, then a
-    repeat of the batch's first seed.  -> (results, repeat, first seed,
-    [(seed, finite)] per batch, batch seconds, repeat seconds, launches,
-    peak bytes)."""
+    repeat of the batch's first seed, compared by `equal` (default: equal
+    arrays).  -> (results, batch seconds, repeat seconds, launches, peak
+    bytes)."""
     batches = []
     run = svc._sample
 
@@ -567,7 +607,8 @@ def serve(torch, dev, svc, requests, tag):
     peak = torch.cuda.max_memory_allocated(dev)
     svc._sample = run
     log(f"[{tag}] batches run: {len(batches)} (first seed, finite): {batches}")
-    same = bool((repeat == results[first][:n_first]).all())
+    same = (bool((repeat == results[first][:n_first]).all()) if equal is None
+            else equal(repeat, results[first][:n_first]))
     log(f"[{tag}] repeat of seed {first} identical: {same}")
     if len(batches) != 2 or not all(f for _, f in batches) or not same:
         raise AssertionError(f"{tag} checks failed (coalescing, finiteness or repeat)")
@@ -1331,6 +1372,331 @@ def train_reference_phase(torch, dev):
         raise AssertionError("the GPU train step disagrees with the CPU reference")
 
 
+def occupancy_config():
+    """configs/ldm/shapenet.yaml with its data.conv_config made absolute; its
+    stage-1 blocks are those of configs/d2c-vae/shapenet.yaml (checked)."""
+    from ddmi_tpu_torch.core.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs/ldm/shapenet.yaml"))
+    s1 = load_config(os.path.join(ROOT, "configs/d2c-vae/shapenet.yaml"))
+    if (cfg.model.ddconfig, cfg.model.mlpconfig, cfg.model.embed_dim) != (
+            s1.model.ddconfig, s1.model.mlpconfig, s1.model.embed_dim):
+        raise AssertionError("shapenet's stage-1 blocks differ between the ldm and d2c-vae "
+                             "configs")
+    data = dataclasses.replace(cfg.data, conv_config=os.path.join(ROOT, cfg.data.conv_config))
+    return dataclasses.replace(cfg, data=data)
+
+
+def occupancy_grid(torch, n, dev):
+    """(1, n^3, 3) fp32 points of the corner-aligned grid over the box
+    [-0.55, 0.55]^3."""
+    lin = torch.linspace(-0.55, 0.55, n, device=dev)
+    return torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(1, -1, 3)
+
+
+def recentre_field(torch, pipe, z, n=33) -> float:
+    """Shift INR3D's output bias so that a share OCC_INSIDE of the fields
+    decoded from z, on an n^3 grid, lies above the threshold's logit.  A
+    random initialisation's field is otherwise all inside or all outside
+    (MISE would refine nothing), and with its median at the threshold its
+    surface fills the box; about 5% inside gives MISE a surface region of a
+    few percent of the cells, as a ShapeNet object's.  -> the shift."""
+    t = pipe.generation_kwargs["threshold"]
+    pyr = pipe.decode_pyramids(z)
+    pts = occupancy_grid(torch, n, pipe.device).expand(z.shape[0], -1, -1)
+    with torch.no_grad():
+        q = torch.quantile(pipe.logits_from_pyramids(pts, pyr).float().flatten(),
+                           1 - OCC_INSIDE).item()
+        pipe.mlp.net_out.bias.add_(math.log(t / (1 - t)) - q)
+    return math.log(t / (1 - t)) - q
+
+
+def mesh_checks(meshes, tag) -> list:
+    """Finite vertices inside the box (within the pad ring's interpolation,
+    1e-4), face indices in range; -> [(vertices, faces)] counts."""
+    import numpy as np
+
+    counts = []
+    for i, (v, f) in enumerate(meshes):
+        ok = (np.isfinite(v).all() and (np.abs(v) <= 0.55 + 1e-4).all()
+              and (f.size == 0 or (f.min() >= 0 and f.max() < len(v))))
+        if not ok:
+            raise AssertionError(f"{tag}: mesh {i} has vertices outside the box or bad faces")
+        counts.append((len(v), len(f)))
+    return counts
+
+
+def chamfer_l1(torch, a, b, dev, chunk=2048) -> float:
+    """Symmetric Chamfer-L1 (the mean nearest-neighbour Euclidean distance
+    each way, halved) between vertex sets a and b, in fp32 on `dev`."""
+    a, b = torch.from_numpy(a).float().to(dev), torch.from_numpy(b).float().to(dev)
+
+    def one_way(x, y):
+        return torch.cat([torch.cdist(x[i : i + chunk], y).min(1).values
+                          for i in range(0, len(x), chunk)]).mean()
+
+    return 0.5 * (one_way(a, b) + one_way(b, a)).item()
+
+
+def occupancy_slice_phase(torch, dev):
+    """attn_block at the shapenet UNet's two shapes; then the occupancy
+    service at full width; returns (launches, service) with the service
+    still open for the breakdown and the encode path."""
+    for i, ((H, C, nh), per_forward) in enumerate(OCC_ATTN_SHAPES):
+        attn_block_case(torch, dev, "occ", per_forward * OCC_NFE, OCC_BATCH, H, H, C, nh,
+                        400 + i)
+    from ddmi_tpu_torch.serve.server import SamplerService
+
+    cfg = occupancy_config()
+    if cfg.model.ddpmconfig.sampling_timesteps != OCC_NFE:
+        raise AssertionError("configs/ldm/shapenet.yaml no longer samples at NFE 200")
+    t0 = time.perf_counter()
+    svc = SamplerService(cfg, service_batch=OCC_BATCH, linger_ms=500, device=dev,
+                         allow_init=True)
+    pipe = svc.pipe
+    perturb_zero_init(pipe, 51)
+    mk = svc.mesh_kwargs
+    if (mk["resolution0"], mk["upsampling_steps"], mk["threshold"], svc.res) != (64, 2, 0.2, 256):
+        raise AssertionError(f"shapenet_3plane.yaml's generation settings changed: {mk}")
+    n = {k: sum(p.numel() for p in getattr(pipe, k).parameters())
+         for k in ("unet", "pointnet", "vae", "mlp")}
+    r, c = pipe.latent_res, cfg.model.ddpmconfig.channels
+    log(f"[occ] shapenet at full width: parameters {n} (bf16), latents {r}^2 x {c}, MISE "
+        f"{mk['resolution0']} -> {svc.res}^3, threshold {mk['threshold']}, "
+        f"{OCC_POINTS} points per mesh per round, set up in {time.perf_counter() - t0:.1f} s")
+    x = torch.zeros((OCC_BATCH, c, r, r), device=dev)
+    t = torch.full((OCC_BATCH,), 500, device=dev, dtype=torch.long)
+    shapes, fused, blocks = count_attention_blocks(torch, pipe.unet, x, t)
+    log(f"[occ] UNet attention blocks in the module tree: {blocks}, called as {shapes}; the "
+        f"fused block takes {fused} per forward")
+    if fused * OCC_NFE != OCC_LAUNCHES["attn_block"] or blocks != fused:
+        raise AssertionError(f"expected 11 fused attention blocks per forward, got {fused}")
+    requests = [(4, 401), (4, 402)]
+    try:
+        # the warm-up batch: its latents set the random field's offset
+        g = torch.Generator(device=dev).manual_seed(52)
+        t0 = time.perf_counter()
+        z = pipe.sample_latents(OCC_BATCH, noise=torch.randn((OCC_BATCH, c, r, r), generator=g,
+                                                             device=dev))
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        shift = recentre_field(torch, pipe, z)
+        log(f"[occ] warm-up DDIM batch {t_warm:.3f} s; INR3D output bias shifted by "
+            f"{shift:.4f} to put {OCC_INSIDE:.0%} of the box inside the surface")
+        results, t_batch, t_repeat, launches, peak = serve(
+            torch, dev, svc, requests, "occ", equal=same_meshes)
+    except BaseException:
+        svc.close()
+        raise
+    expect = {k: 2 * OCC_LAUNCHES.get(k, 0) for k in launches}
+    log(f"[occ] launches over 2 batches: {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"the occupancy slice's launch counts are off: {launches}")
+    counts = []
+    for nreq, seed in requests:
+        res = results[seed]
+        if len(res) != nreq:
+            raise AssertionError(f"seed {seed} got {len(res)} meshes for {nreq}")
+        counts += mesh_checks(res, f"occ seed {seed}")
+    log(f"[occ] (vertices, faces) per mesh: {counts}")
+    if not all(f for _, f in counts):
+        raise AssertionError("an occupancy mesh is empty")
+    log(f"[occ] coalesced batch of {OCC_BATCH} meshes at {svc.res}^3, NFE {OCC_NFE}: "
+        f"{t_batch:.3f} s = {OCC_BATCH / t_batch:.4f} meshes/s on {nvidia_smi()}; repeat "
+        f"request (4 meshes) {t_repeat:.3f} s; peak allocated {peak / 2**30:.2f} GiB")
+    return launches, svc
+
+
+def same_meshes(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.array_equal(va, vb) and np.array_equal(fa, fb) for (va, fa), (vb, fb) in zip(a, b))
+
+
+def occupancy_breakdown_phase(torch, dev, svc):
+    """One UNet forward (events, host enqueue and profiler device time), the
+    batch's decode and the lockstep extraction of its 8 meshes split into
+    MISE rounds, points, INR3D device time (CUDA events around each round's
+    call), octree host time and marching cubes; a profile of one full
+    evaluation round."""
+    import numpy as np
+
+    from ddmi_tpu_torch.geometry.generation import generate_meshes_batched
+
+    pipe = svc.pipe
+    g = torch.Generator(device=dev).manual_seed(53)
+    r, c = pipe.latent_res, pipe.cfg.model.ddpmconfig.channels
+    x = torch.randn((OCC_BATCH, c, r, r), generator=g, device=dev)
+    t = torch.full((OCC_BATCH,), 500, device=dev, dtype=torch.long)
+    with torch.inference_mode():
+        unet_ms = cuda_ms(lambda: pipe.unet(x, t), 5)
+        unet_dev = device_ms(torch, lambda: pipe.unet(x, t), 5)
+        unet_host = enqueue_us(torch, lambda: pipe.unet(x, t), 5) / 1000
+    z = pipe.sample_latents(OCC_BATCH, noise=x)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    dec_ms = cuda_ms(lambda: pipe.decode_pyramids(z), 3)
+    pyr = pipe.decode_pyramids(z)
+    dec_peak = torch.cuda.max_memory_allocated(dev) - base
+    ev = []
+
+    def eval_group(pts):
+        p = torch.from_numpy(pts).to(dev)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        with torch.no_grad():
+            out = pipe.logits_from_pyramids(p, pyr)
+        e.record()
+        ev.append((s, e))
+        return out.float().cpu().numpy()
+
+    stats = {}
+    t0 = time.perf_counter()
+    meshes = generate_meshes_batched(eval_group, OCC_BATCH, stats=stats,
+                                     **{k: v for k, v in svc.mesh_kwargs.items()
+                                        if k != "refinement_step"})
+    t_ext = time.perf_counter() - t0
+    inr_ms = sum(s.elapsed_time(e) for s, e in ev)
+    counts = mesh_checks(meshes, "occ-breakdown")
+    log(f"[occ-breakdown] batch {OCC_BATCH}: UNet forward {unet_ms:.3f} ms of events, "
+        f"{unet_dev:.3f} ms of device time, {unet_host:.3f} ms host enqueue (x{OCC_NFE} = "
+        f"{unet_ms * OCC_NFE / 1000:.3f} s of events); decode of the batch {dec_ms:.3f} ms, "
+        f"its peak {dec_peak / 2**30:.2f} GiB above the inputs")
+    log(f"[occ-breakdown] extraction of {OCC_BATCH} meshes: {t_ext:.3f} s wall; "
+        f"{stats['rounds']} MISE rounds, {stats['points']} points evaluated "
+        f"({stats['rounds'] * OCC_BATCH * OCC_POINTS} with padding); INR3D device "
+        f"{inr_ms:.3f} ms ({inr_ms / stats['rounds']:.3f} per round); eval calls "
+        f"{1e3 * stats['eval_s']:.3f} ms wall (copies in and out included); octree host "
+        f"{1e3 * stats['octree_s']:.3f} ms, octrees advanced per round {stats['advanced']}; "
+        f"marching cubes {1e3 * stats['marching_cubes_s']:.3f} ms; (vertices, faces) {counts}")
+    full = np.random.default_rng(54).uniform(-0.55, 0.55, (OCC_BATCH, OCC_POINTS, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        fp = torch.from_numpy(full).to(dev)
+        round_ms = cuda_ms(lambda: pipe.logits_from_pyramids(fp, pyr), 3)
+        log(f"[occ-breakdown] one full round ({OCC_BATCH} x {OCC_POINTS} points): INR3D "
+            f"{round_ms:.3f} ms of events")
+        profile_top(torch, lambda: pipe.logits_from_pyramids(fp, pyr), "occ-breakdown round",
+                    ("gemm", "grid_sampler"), "GEMMs and grid_sample")
+
+
+def occupancy_reference_phase(torch, dev, svc):
+    """A small config at NFE 4, bf16 with the kernels on the GPU against the
+    fp32 plain versions on the CPU: logits on a 32^3 grid, inside/outside
+    agreement and the meshes' Chamfer-L1.  Then a 3000-point sphere cloud
+    through the full-width pointnet, triplane encoder and posterior (the
+    service's bf16 stage 1, and the same weights in fp32 on the CPU), then
+    decode and extraction on the card."""
+    import numpy as np
+
+    from ddmi_tpu_torch.core.config import config_from_dict
+    from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
+    from ddmi_tpu_torch.geometry.generation import generate_meshes_batched
+
+    cfg = config_from_dict({
+        "model": {"embed_dim": 4, "pointnet": {"c_dim": 8, "hidden_dim": 32,
+                                               "plane_resolution": 32, "n_blocks": 2},
+                  "params": {
+            "unetconfig": dict(in_channels=12, model_channels=64, out_channels=12,
+                               num_res_blocks=1, attention_resolutions=[2],
+                               channel_mult=[1, 2], num_head_channels=32),
+            "ddconfig": dict(z_channels=16, resolution=32, in_channels=8, out_ch=32, ch=32,
+                             ch_mult=[1, 2, 2], num_res_blocks=1, hdbf_resolutions=[8, 16],
+                             inter_attn_resolutions=[32, 16, 8]),
+            "mlpconfig": dict(in_ch=3, out_ch=1, ch=256, latent_dim=32),
+            "ddpmconfig": dict(channels=12, sampling_timesteps=4)}},
+        "data": {"domain": "occupancy"}})
+    cpu = OccupancyPipeline(cfg, device="cpu", seed=5)
+    perturb_zero_init(cpu, 6)
+    noise = torch.from_numpy(np.random.default_rng(11).standard_normal((2, 12, 8, 8)).astype(
+        np.float32))
+    z_ref = cpu.sample_latents(2, noise=noise)
+    recentre_field(torch, cpu, z_ref)
+    gpu = OccupancyPipeline(cfg, device=dev, seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cast(torch.bfloat16)
+    _, fused, _ = count_attention_blocks(
+        torch, gpu.unet, torch.zeros((2, 12, 8, 8), device=dev),
+        torch.zeros((2,), device=dev, dtype=torch.long))
+    read = reset_launches()
+    z = gpu.sample_latents(2, noise=noise.to(dev))
+    launches = read()
+    pts = occupancy_grid(torch, 32, "cpu").expand(2, -1, -1)
+    with torch.no_grad():
+        ref = cpu.decode_logits_fn(z_ref)(pts)
+        got = gpu.decode_logits_fn(z)(pts.to(dev)).float().cpu()
+    thr = math.log(0.2 / 0.8)
+    rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
+    agree = ((got > thr) == (ref > thr)).float().mean().item()
+
+    def meshes(pipe, zz, device):
+        pyr = pipe.decode_pyramids(zz)
+
+        def fn(p):
+            with torch.no_grad():
+                return pipe.logits_from_pyramids(torch.from_numpy(p).to(device),
+                                                 pyr).float().cpu().numpy()
+        return generate_meshes_batched(fn, 2, resolution0=16, upsampling_steps=1,
+                                       points_batch_size=20_000, workers=2)
+
+    m_ref, m_got = meshes(cpu, z_ref, "cpu"), meshes(gpu, z, dev)
+    mesh_checks(m_got, "occ-reference")
+    cd = [chamfer_l1(torch, va, vb, dev) for (va, fa), (vb, fb) in zip(m_got, m_ref)
+          if len(fa) and len(fb)]
+    log(f"[occ-reference] small config, NFE 4: bf16 kernels vs fp32 plain on the CPU: logits on "
+        f"32^3 mean|err| / mean|ref| {rel:.5f} (bar {OCC_REF_REL_ERR}), inside/outside "
+        f"agreement {agree:.5f} (bar {OCC_REF_AGREE}); meshes (faces GPU, CPU) "
+        f"{[(len(a[1]), len(b[1])) for a, b in zip(m_got, m_ref)]}, Chamfer-L1 {cd} (bar "
+        f"{OCC_REF_CHAMFER * 1.1:.4f} = {OCC_REF_CHAMFER} of the box); launches {launches}")
+    if not fused or launches["attn_block"] != fused * 4 or any(v for k, v in launches.items()
+                                                   if k != "attn_block"):
+        raise AssertionError(f"the occupancy reference's launches are off: {launches}")
+    if not (rel <= OCC_REF_REL_ERR and agree >= OCC_REF_AGREE and cd
+            and max(cd) <= OCC_REF_CHAMFER * 1.1):
+        raise AssertionError("the GPU occupancy slice disagrees with the CPU reference")
+
+    # the encode path at full width
+    pipe = svc.pipe
+    rng = np.random.default_rng(55)
+    d = rng.standard_normal((3000, 3))
+    cloud = (0.3 * d / np.linalg.norm(d, axis=1, keepdims=True)
+             + 0.005 * rng.standard_normal((3000, 3))).astype(np.float32)[None]
+    eps = [torch.from_numpy(rng.standard_normal((1, pipe.cfg.model.embed_dim, pipe.latent_res,
+                                                 pipe.latent_res)).astype(np.float32))
+           for _ in range(3)]
+    cloud_d, eps_d = torch.from_numpy(cloud).to(dev), [e.to(dev) for e in eps]
+    enc_ms = cuda_ms(lambda: pipe.encode_latents(cloud_d, eps_d), 3)
+    z1 = pipe.encode_latents(cloud_d, eps_d)
+    ref_pipe = OccupancyPipeline(pipe.cfg, device="cpu")
+    ref_pipe.load_state_dicts(**{k: {n: v.float().cpu() for n, v in
+                                     getattr(pipe, k).state_dict().items()}
+                                 for k in ("pointnet", "vae", "mlp")})
+    z1_ref = ref_pipe.encode_latents(torch.from_numpy(cloud), eps)
+    zrel = ((z1.cpu() - z1_ref).abs().mean() / z1_ref.abs().mean()).item()
+    # the full-width decode and INR3D on the same latents: bf16 against fp32
+    pts = occupancy_grid(torch, 32, "cpu")
+    with torch.no_grad():
+        lref = ref_pipe.decode_logits_fn(z1_ref)(pts)
+        lgot = pipe.decode_logits_fn(z1_ref.to(dev))(pts.to(dev)).float().cpu()
+    lrel = ((lgot - lref).abs().mean() / lref.abs().mean()).item()
+    lagree = ((lgot > thr) == (lref > thr)).float().mean().item()
+    t0 = time.perf_counter()
+    zpad = torch.cat([z1, torch.zeros((OCC_BATCH - 1,) + z1.shape[1:], device=dev)])
+    meshes1 = svc._extract_meshes(zpad, 1)
+    t_ext = time.perf_counter() - t0
+    counts = mesh_checks(meshes1, "occ-encode")
+    log(f"[occ-encode] 3000-point sphere cloud through the full-width pointnet, triplane "
+        f"encoder and posterior: {enc_ms:.3f} ms; bf16 latents vs fp32 on the CPU mean|err| / "
+        f"mean|ref| {zrel:.5f} (bar {OCC_REF_REL_ERR}); full-width decode + INR3D on those "
+        f"latents, logits on 32^3 mean|err| / mean|ref| {lrel:.5f}, inside/outside agreement "
+        f"{lagree:.5f}; decode + extraction {t_ext:.3f} s, (vertices, faces) {counts}; latents "
+        f"finite {bool(torch.isfinite(z1).all())}")
+    if not (bool(torch.isfinite(z1).all()) and zrel <= OCC_REF_REL_ERR
+            and lrel <= OCC_REF_REL_ERR and lagree >= OCC_REF_AGREE):
+        raise AssertionError("the occupancy encode path is not finite or disagrees with the CPU")
+
+
 def build_report(name, ptxas) -> None:
     """Registers, spills and dynamic shared memory of each kernel of a
     library built in this run, from the ptxas report and the libraries' own
@@ -1441,9 +1807,18 @@ def main() -> int:
     train = train_slice_phase(torch, dev)
     torch.cuda.empty_cache()
     train_reference_phase(torch, dev)
+    torch.cuda.empty_cache()
+    occ, svc = occupancy_slice_phase(torch, dev)
+    try:
+        occupancy_breakdown_phase(torch, dev, svc)
+        occupancy_reference_phase(torch, dev, svc)
+    finally:
+        svc.close()
+    del svc
+    torch.cuda.empty_cache()
 
-    kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name])
-               for name in KERNELS]
+    kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]
+                            + occ[name]) for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -12,7 +12,9 @@ flash-attention forward and backward, the fused NeRF MLP) are hand-written
 CUDA C++ for `sm_90a` (`csrc/`: four libraries, `ops/build.py::LIBRARIES`;
 mha_vmem and the fused block run the flash forward core), built with `nvcc`
 on first use (`ops/build.py`).  On a CPU tensor each kernel wrapper runs its plain
-PyTorch version instead.  The entry points run on the card unless given
+PyTorch version instead.  The occupancy path's mesh extraction runs on the
+host in `geometry/`, a copy of the JAX package's C++ core built with `g++`
+on first use.  The entry points run on the card unless given
 `device="cpu"`.
 
 This package never imports JAX.

@@ -1,9 +1,12 @@
-"""Nested convocc-style YAML for the NeRF slice (the port's own copy of
-ddmi_tpu/core/convocc_config.py's `load_convocc_config` and `nerf_kwargs`).
+"""Nested convocc-style YAML for the 3D slices (the port's own copy of
+ddmi_tpu/core/convocc_config.py's `load_convocc_config`, `encoder_name`,
+`pointnet_kwargs`, `generation_kwargs` and `nerf_kwargs`).
 
-`data.conv_config` (configs/ldm/srn_cars.yaml) names a convocc YAML whose
-`inherit_from` chain is merged recursively; its `model.TN` block carries the
-NeRF render settings.  A relative path is read from the working directory,
+`data.conv_config` (configs/ldm/shapenet.yaml, configs/ldm/srn_cars.yaml)
+names a convocc YAML whose `inherit_from` chain is merged recursively; its
+`model.encoder_kwargs` block carries the point-cloud encoder's settings,
+`generation` and `test.threshold` the mesh extraction's, and `model.TN` the
+NeRF render's.  A relative path is read from the working directory,
 as the JAX package reads it; a relative `inherit_from` is resolved beside
 the file first, then from the working directory.
 """
@@ -50,4 +53,43 @@ def nerf_kwargs(conv_cfg: Dict[str, Any]) -> Dict[str, Any]:
         "white_bkgd": tn.get("white_bkgd", True),
         "multires": tn.get("multires", 10),
         "multires_views": tn.get("multires_views", 4),
+    }
+
+
+def encoder_name(conv_cfg: Dict[str, Any]) -> str:
+    """convocc model.encoder: 'pointnet_local_pool' (default) or
+    'voxel_simple_local'."""
+    return (conv_cfg.get("model") or {}).get("encoder", "pointnet_local_pool")
+
+
+def pointnet_kwargs(conv_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """LocalPoolPointnet kwargs (convocc encoder_kwargs schema), with the
+    optional plane-feature UNet refinement's."""
+    enc = (conv_cfg.get("model") or {}).get("encoder_kwargs", {})
+    kw = {
+        "c_dim": (conv_cfg.get("model") or {}).get("c_dim", 32),
+        "hidden_dim": enc.get("hidden_dim", 256),
+        "plane_resolution": enc.get("plane_resolution", 64),
+        "n_blocks": enc.get("n_blocks", 7),
+    }
+    if enc.get("unet"):
+        uk = enc.get("unet_kwargs") or {}
+        kw.update(unet=True, unet_depth=uk.get("depth", 4),
+                  unet_start_filts=uk.get("start_filts", 32))
+    return kw
+
+
+def generation_kwargs(conv_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Mesh extraction kwargs (convocc generation schema): the occupancy
+    probability threshold, MISE's start resolution and upsampling steps,
+    the face target of the quadric simplification and the steps of the
+    gradient refinement."""
+    g = conv_cfg.get("generation") or {}
+    t = conv_cfg.get("test") or {}
+    return {
+        "threshold": t.get("threshold", 0.2),
+        "resolution0": g.get("resolution_0", 64),
+        "upsampling_steps": g.get("upsampling_steps", 2),
+        "simplify_nfaces": g.get("simplify_nfaces"),
+        "refinement_step": g.get("refinement_step", 0),
     }

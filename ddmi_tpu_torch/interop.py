@@ -5,7 +5,8 @@ ddmi_tpu/interop/reference_ckpt.py that the ported slices need: for images
 `convert_unet`, `convert_vae` and `convert_mlp_image`; for video
 `convert_unet_triplane`, the decoder half of `convert_video_vae` and
 `convert_mlp_video`; for NeRF the decoder half of `convert_triplane_vae` and
-`convert_mlp_nerf` (the UNet is the image one).  The port's modules use the reference
+`convert_mlp_nerf` (the UNet is the image one); for occupancy
+`convert_triplane_vae` whole, `convert_mlp_3d` and `convert_pointnet`.  The port's modules use the reference
 PyTorch layouts, so every map here is a transpose, reshape or channel
 permutation and the round trip is bit-exact:
 
@@ -54,6 +55,14 @@ def _dense(sd: SD, key: str, p) -> None:
 def _gn(sd: SD, key: str, p) -> None:
     sd[key + ".weight"] = _t(p["scale"])
     sd[key + ".bias"] = _t(p["bias"])
+
+
+def _resnet_fc(sd: SD, key: str, p) -> None:
+    """ResnetBlockFC {fc_0, fc_1, shortcut (bias-free)?}."""
+    _dense(sd, key + ".fc_0", p["fc_0"])
+    _dense(sd, key + ".fc_1", p["fc_1"])
+    if "shortcut" in p:
+        sd[key + ".shortcut.weight"] = _t(np.transpose(p["shortcut"]["kernel"]))
 
 
 # ------------------------------------------------------------------- UNet
@@ -320,11 +329,7 @@ def mlp_video_from_jax(tree) -> SD:
     reference MLPVideo's keys); inverts reference_ckpt.convert_mlp_video."""
     sd: SD = {}
     for i in (1, 2, 3, 4):
-        blk = tree[f"net_res{i}"]
-        _dense(sd, f"net_res{i}.fc_0", blk["fc_0"])
-        _dense(sd, f"net_res{i}.fc_1", blk["fc_1"])
-        if "shortcut" in blk:
-            sd[f"net_res{i}.shortcut.weight"] = _t(np.transpose(blk["shortcut"]["kernel"]))
+        _resnet_fc(sd, f"net_res{i}", tree[f"net_res{i}"])
     _dense(sd, "net_out", tree["net_out"])
     return sd
 
@@ -381,6 +386,65 @@ def triplane_decoder_from_jax(tree, cfg) -> SD:
         p = tree[f"post_{plane}"]
         sd[f"post_quant_conv_{plane}.weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
         sd[f"post_quant_conv_{plane}.bias"] = _t(p["bias"])
+    return sd
+
+
+def triplane_vae_from_jax(tree, cfg) -> SD:
+    """JAX TriplaneAutoencoder params -> state_dict of the port's whole
+    TriplaneAutoencoder (`with_encoder=True`): the decoder half of
+    `triplane_decoder_from_jax`, the encoder (`encoder.*`) and the quant
+    convs `quant_conv_{xy,yz,xz}`.  Inverts reference_ckpt.convert_triplane_vae."""
+    sd = triplane_decoder_from_jax(tree, cfg)
+    enc = tree["encoder"]
+    _conv(sd, "encoder.conv_in", enc["conv_in"])
+    ab = 0
+    n = len(cfg.ch_mult)
+    curr = cfg.resolution
+    for i in range(n):
+        for j in range(cfg.num_res_blocks):
+            _vae_resnet(sd, f"encoder.down.{i}.block.{j}", enc[f"down_{i}_{j}"])
+            if curr in cfg.attn_resolutions:
+                _vae_attn(sd, f"encoder.down.{i}.attn.{j}", enc[f"AttnBlock_{ab}"])
+                ab += 1
+        if curr in cfg.inter_attn_resolutions:
+            key = f"encoder.down.{i}.inter_attn"
+            _inter_plane(sd, key + ".0", key + ".1", key + ".2", enc[f"inter_{i}"])
+        if i != n - 1:
+            _conv(sd, f"encoder.down.{i}.downsample.conv", enc[f"downsample_{i}"]["Conv_0"])
+            curr //= 2
+    _vae_resnet(sd, "encoder.mid.block_1", enc["mid_block1"])
+    if cfg.attn_type != "none":
+        _vae_attn(sd, "encoder.mid.attn_1", enc[f"AttnBlock_{ab}"])
+    _vae_resnet(sd, "encoder.mid.block_2", enc["mid_block2"])
+    _inter_plane(sd, "encoder.mid.block_3", "encoder.mid_attn", "encoder.mid.block_4",
+                 enc["mid_inter"])
+    _gn(sd, "encoder.norm_out", enc["norm_out"]["GroupNorm_0"])
+    _conv(sd, "encoder.conv_out", enc["conv_out"])
+    for plane in ("xy", "yz", "xz"):
+        p = tree[f"quant_{plane}"]
+        sd[f"quant_conv_{plane}.weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
+        sd[f"quant_conv_{plane}.bias"] = _t(p["bias"])
+    return sd
+
+
+def mlp3d_from_jax(tree) -> SD:
+    """JAX INR3D params (nn/inr.py) -> port INR3D state_dict (the reference
+    MLP3D's keys); inverts reference_ckpt.convert_mlp_3d."""
+    sd: SD = {}
+    _dense(sd, "net_p", tree["net_p"])
+    sd.update(mlp_video_from_jax(tree))
+    return sd
+
+
+def pointnet_from_jax(tree, n_blocks: int) -> SD:
+    """JAX LocalPoolPointnet params (nn/pointnet.py) -> port
+    LocalPoolPointnet state_dict (`fc_pos`, `blocks.{i}`, `fc_c`); inverts
+    reference_ckpt.convert_pointnet."""
+    sd: SD = {}
+    _dense(sd, "fc_pos", tree["fc_pos"])
+    for i in range(n_blocks):
+        _resnet_fc(sd, f"blocks.{i}", tree[f"block{i}"])
+    _dense(sd, "fc_c", tree["fc_c"])
     return sd
 
 

@@ -1,13 +1,16 @@
 """INR heads of the sampling paths (counterpart of ddmi_tpu/nn/inr.py):
 the scale-aware image head `INRImage` and the video head `INRVideo`, both on
-regular grids only (the separable sampling of ops/resample.py), and the NeRF
-MLP `INRNeRF` with its `FreqEmbedding`.
+regular grids only (the separable sampling of ops/resample.py), the
+occupancy head `INR3D` at arbitrary query points with its triplane lookup
+(`normalize_coordinate`, `sample_plane_coords`, `triplane_pe_add`), and the
+NeRF MLP `INRNeRF` with its `FreqEmbedding`.
 
 The state keys are the reference MLPs' (models/d2c_vae/mlp.py): for
 INRImage `time_mlp.{1,3}` for the style MLP, `net_res{1..4}` and `torgb`;
-for INRVideo (MLPVideo) `net_res{1..4}` and `net_out`; for INRNeRF
-(MLPNeRF) `xyz_encoding_{i}.0`, `xyz_encoding_final`, `dir_encoding.0`,
-`sigma` and `rgb.0`.
+for INRVideo (MLPVideo) `net_res{1..4}` and `net_out`; for INR3D (MLP3D)
+`net_p`, `net_res{1..4}` and `net_out`; for INRNeRF (MLPNeRF)
+`xyz_encoding_{i}.0`, `xyz_encoding_final`, `dir_encoding.0`, `sigma` and
+`rgb.0`.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ddmi_tpu_torch.nn.stylegan import (
     ToRGB,
     gelu_tanh,
 )
+from ddmi_tpu_torch.ops.grid_sample import grid_sample_2d
 from ddmi_tpu_torch.ops.resample import separable_grid_sample
 
 
@@ -142,6 +146,84 @@ class INRVideo(nn.Module):
         x = self.net_res3(torch.cat([x, x_h], -1))
         x = self.net_res4(x)
         return self.net_out(F.leaky_relu(x, 0.2))
+
+
+_PLANE_AXES = {"xz": [0, 2], "xy": [0, 1], "yz": [1, 2]}
+
+
+def normalize_coordinate(p: torch.Tensor, padding: float = 0.1,
+                         plane: str = "xz") -> torch.Tensor:
+    """3D points (..., 3) projected onto `plane` and mapped to [0, 1):
+    divided by 1 + padding + 10e-6, shifted by 0.5, clipped to
+    [0, 1 - 10e-6] (the reference's constants, 10e-6 being 1e-5), in fp32."""
+    xy = p.float()[..., _PLANE_AXES[plane]]
+    xy = xy / (1 + padding + 10e-6) + 0.5
+    return xy.clamp(0.0, 1 - 10e-6)
+
+
+def sample_plane_coords(p: torch.Tensor, plane: str) -> torch.Tensor:
+    """3D points -> [-1, 1] grid coordinates on one plane."""
+    return 2.0 * normalize_coordinate(p, plane=plane) - 1.0
+
+
+def triplane_pe_add(planes: Sequence[torch.Tensor],
+                    coords: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The 3D path's positional encoding: the sum of three bilinear plane
+    samples (align_corners=True, border).  planes: three NCHW planes (b, c,
+    H, W); coords: three (b, n, 2) grid coordinates -> (b, n, c) in the
+    planes' dtype, summed in it as the JAX package sums."""
+    out = None
+    for plane, c in zip(planes, coords):
+        f = grid_sample_2d(plane.permute(0, 2, 3, 1), c)
+        out = f if out is None else out + f
+    return out
+
+
+def promoted_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`layer` applied in the promotion of x's and its weight's dtypes, as
+    flax's Dense promotes: bf16 weights on fp32 inputs compute in fp32."""
+    dt = torch.promote_types(x.dtype, layer.weight.dtype)
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
+
+
+def promoted_resnet_fc(block: ResnetBlockFC, x: torch.Tensor) -> torch.Tensor:
+    """ResnetBlockFC with flax's dtype promotion (see `promoted_linear`)."""
+    dx = promoted_linear(block.fc_1, F.relu(promoted_linear(block.fc_0, F.relu(x))))
+    return (x if block.shortcut is None else promoted_linear(block.shortcut, x)) + dx
+
+
+class INR3D(nn.Module):
+    """The occupancy head: forward(coords (b, n, 3) fp32, hdbf = (xy, yz,
+    xz) pyramids of 3 NCHW planes each, coarse to fine) -> logits (b, n).
+
+    The dtypes follow the JAX module's promotion.  The plane samples and
+    `net_res1` run in the planes' dtype; `net_p` runs on the fp32
+    coordinates, so under bf16 parameters its output, `p + net_res1(x)`
+    and every layer after it are fp32 with bf16-valued weights."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        ch, lat = cfg.ch, cfg.latent_dim
+        self.net_p = nn.Linear(3, ch)
+        self.net_res1 = ResnetBlockFC(lat, ch)
+        self.net_res2 = ResnetBlockFC(ch + lat, ch)
+        self.net_res3 = ResnetBlockFC(ch + lat, ch)
+        self.net_res4 = ResnetBlockFC(ch)
+        self.net_out = nn.Linear(ch, cfg.out_ch)
+
+    def forward(self, coords: torch.Tensor, hdbf) -> torch.Tensor:
+        xy, yz, xz = hdbf
+        assert len(xy) == 3, "expects 3-level HDBF pyramids"
+        coords = coords.float()
+        cs = [sample_plane_coords(coords, k) for k in ("xy", "yz", "xz")]
+        x, x_m, x_h = (triplane_pe_add((xy[i], yz[i], xz[i]), cs) for i in range(3))
+        x = promoted_linear(self.net_p, coords) + promoted_resnet_fc(self.net_res1, x)
+        x = promoted_resnet_fc(self.net_res2, torch.cat([x, x_m.to(x.dtype)], -1))
+        x = promoted_resnet_fc(self.net_res3, torch.cat([x, x_h.to(x.dtype)], -1))
+        x = promoted_resnet_fc(self.net_res4, x)
+        return promoted_linear(self.net_out, x).squeeze(-1)
 
 
 class FreqEmbedding(nn.Module):

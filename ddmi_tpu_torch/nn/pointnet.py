@@ -1,0 +1,98 @@
+"""PointNet encoder with local pooling onto triplanes (counterpart of
+ddmi_tpu/nn/pointnet.py: `coordinate2index`, `LocalPoolPointnet`).
+
+Per-point FC-ResNet blocks exchange features through the three projected
+planes: each block's input is its predecessor's output concatenated with the
+pooled features of the cells the point falls in, summed over the planes.
+The pooling is `Tensor.scatter_reduce` over the flat cell index, with the
+JAX package's semantics: the max starts from -inf and zeroes the cells no
+point reached (so a cell whose features are all negative keeps them), the
+mean divides by max(count, 1).  The planes come out as the mean of `fc_c`'s
+features per cell, NCHW (b, c_dim, res, res), rows indexed by the plane's
+second coordinate.  The layers promote as flax's Dense does: on the fp32
+points, bf16 parameters compute in fp32, so the coordinates and the cell
+indices stay exact.  The max is deterministic; the mean's scatter-add on
+CUDA sums in no fixed order.
+
+State keys follow the reference LocalPoolPointnet: `fc_pos`,
+`blocks.{i}.{fc_0,fc_1,shortcut}`, `fc_c`.  The plane-feature UNet
+(`unet=True`) and the voxel encoder are not ported; no config of the repo
+uses them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ddmi_tpu_torch.nn.inr import normalize_coordinate, promoted_linear, promoted_resnet_fc
+from ddmi_tpu_torch.nn.stylegan import ResnetBlockFC
+
+PLANES = ("xz", "xy", "yz")
+
+
+def coordinate2index(xy01: torch.Tensor, reso: int) -> torch.Tensor:
+    """(..., 2) in [0, 1) -> flat plane index ix + reso * iy (int64), the
+    cell coordinates truncated toward zero."""
+    x = (xy01 * reso).to(torch.int32).long()
+    return x[..., 0] + reso * x[..., 1]
+
+
+def segment_pool(values: torch.Tensor, index: torch.Tensor, num_segments: int,
+                 reduce: str) -> torch.Tensor:
+    """Per-batch scatter pooling: values (b, n, c), index (b, n) ->
+    (b, num_segments, c).  'max': -inf start, empty cells zeroed; 'mean':
+    the sum over max(count, 1)."""
+    b, n, c = values.shape
+    idx = index[..., None].expand(b, n, c)
+    if reduce == "max":
+        out = values.new_full((b, num_segments, c), float("-inf"))
+        out = out.scatter_reduce(1, idx, values, "amax", include_self=True)
+        return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    s = values.new_zeros((b, num_segments, c)).scatter_add(1, idx, values)
+    cnt = values.new_zeros((b, num_segments)).scatter_add(
+        1, index, torch.ones_like(index, dtype=values.dtype))
+    return s / cnt.clamp(min=1.0)[..., None]
+
+
+class LocalPoolPointnet(nn.Module):
+    """forward(p (b, n, 3)) -> {"xz", "xy", "yz"} NCHW feature planes."""
+
+    def __init__(self, c_dim: int = 32, hidden_dim: int = 256, plane_resolution: int = 64,
+                 n_blocks: int = 7, scatter_type: str = "max", padding: float = 0.1,
+                 unet: bool = False, **unet_kwargs):
+        super().__init__()
+        if unet:
+            raise NotImplementedError("the pointnet's plane-feature UNet is not ported")
+        if scatter_type not in ("max", "mean"):
+            raise ValueError(f"unknown scatter_type {scatter_type!r}")
+        self.c_dim, self.reso = c_dim, plane_resolution
+        self.scatter_type, self.padding = scatter_type, padding
+        self.fc_pos = nn.Linear(3, 2 * hidden_dim)
+        self.blocks = nn.ModuleList(
+            [ResnetBlockFC(2 * hidden_dim, hidden_dim) for _ in range(n_blocks)])
+        self.fc_c = nn.Linear(hidden_dim, c_dim)
+
+    def forward(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        b = p.shape[0]
+        reso, nseg = self.reso, self.reso * self.reso
+        p = p.float()
+        index = {k: coordinate2index(normalize_coordinate(p, self.padding, k), reso)
+                 for k in PLANES}
+
+        def pool_local(feats):
+            out = 0.0
+            for k in PLANES:
+                seg = segment_pool(feats, index[k], nseg, self.scatter_type)
+                out = out + torch.gather(
+                    seg, 1, index[k][..., None].expand(-1, -1, feats.shape[-1]))
+            return out
+
+        net = promoted_resnet_fc(self.blocks[0], promoted_linear(self.fc_pos, p))
+        for block in self.blocks[1:]:
+            net = promoted_resnet_fc(block, torch.cat([net, pool_local(net)], dim=-1))
+        c = promoted_linear(self.fc_c, net)
+        return {k: segment_pool(c, index[k], nseg, "mean").transpose(1, 2).reshape(
+                    b, self.c_dim, reso, reso) for k in PLANES}

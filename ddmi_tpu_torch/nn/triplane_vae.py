@@ -1,6 +1,6 @@
-"""Triplane VAE for NeRF, decode half (counterpart of
-ddmi_tpu/nn/triplane_vae.py: `InterPlaneBlock`, `TriplaneDecoder`,
-`TriplaneAutoencoder.decode`).
+"""Triplane VAE for occupancy and NeRF (counterpart of
+ddmi_tpu/nn/triplane_vae.py: `InterPlaneBlock`, `TriplaneEncoder`,
+`TriplaneDecoder`, `TriplaneAutoencoder.encode` and `.decode`).
 
 The three planes (xy, yz, xz) share every weight, so they run stacked on the
 batch axis, (3b, C, H, W), plane-major.  At `inter_attn_resolutions` and at
@@ -9,14 +9,17 @@ spatial attention over 3c channels, ResnetBlock(3c), split back.  The
 attention is the dense `AttnBlock` of nn/vae.py, as in the JAX package, which
 runs it as an einsum and not as a kernel (at 64^2 it is n = 4096, hd 192).
 
-State keys follow the reference Decoder_triplane and Autoencoder3D:
-`decoder.conv_in`, `decoder.mid.{block_1,attn_1,block_2,block_3,block_4}`,
-`decoder.mid_attn` (the bottleneck mix's attention sits at the decoder's
-top level, between mid.block_3 and mid.block_4), `decoder.up.{i}.{block,
-attn,inter_attn.{0,1,2},hdbf.0,upsample.conv}`, `decoder.norm_out`,
-`decoder.conv_out`, and the 1x1 convs `post_quant_conv_{xy,yz,xz}` (Dense
-layers in the JAX package).  The encoder and the posterior wait for the
-training slice.
+State keys follow the reference Encoder_triplane, Decoder_triplane and
+Autoencoder3D: `encoder.conv_in`, `encoder.down.{i}.{block,attn,
+inter_attn.{0,1,2},downsample.conv}`, `encoder.mid.{block_1,attn_1,block_2,
+block_3,block_4}`, `encoder.mid_attn`, `encoder.norm_out`,
+`encoder.conv_out`; `decoder.conv_in`,
+`decoder.mid.{block_1,attn_1,block_2,block_3,block_4}`, `decoder.mid_attn`
+(the bottleneck mix's attention sits at the top level, between mid.block_3
+and mid.block_4), `decoder.up.{i}.{block,attn,inter_attn.{0,1,2},hdbf.0,
+upsample.conv}`, `decoder.norm_out`, `decoder.conv_out`; and the 1x1 convs
+`quant_conv_{xy,yz,xz}` and `post_quant_conv_{xy,yz,xz}` (Dense layers in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ddmi_tpu_torch.nn.vae import Norm, ResnetBlock, Upsample, _make_attn
+from ddmi_tpu_torch.nn.distributions import DiagonalGaussian
+from ddmi_tpu_torch.nn.vae import Downsample, Norm, ResnetBlock, Upsample, _make_attn
 
 
 def inter_plane(h: torch.Tensor, block_a, attn, block_b) -> torch.Tensor:
@@ -39,6 +43,87 @@ def inter_plane(h: torch.Tensor, block_a, attn, block_b) -> torch.Tensor:
     return torch.cat(x.chunk(3, dim=1), dim=0)
 
 
+def _inter_triple(c: int, attn_type: str) -> nn.ModuleList:
+    """[ResnetBlock(3c), attention(3c) or Identity, ResnetBlock(3c)]."""
+    c3 = 3 * c
+    return nn.ModuleList([ResnetBlock(c3, c3), _make_attn(c3, attn_type) or nn.Identity(),
+                          ResnetBlock(c3, c3)])
+
+
+def _mid(cfg, block_in: int) -> nn.Module:
+    """The bottleneck: block_1, attn_1, block_2 per plane, then block_3 and
+    block_4 of the channel-concat mix (its attention is the owner's
+    `mid_attn`)."""
+    mid = nn.Module()
+    mid.block_1 = ResnetBlock(block_in, block_in)
+    mid.attn_1 = _make_attn(block_in, cfg.attn_type)
+    mid.block_2 = ResnetBlock(block_in, block_in)
+    mid.block_3 = ResnetBlock(3 * block_in, 3 * block_in)
+    mid.block_4 = ResnetBlock(3 * block_in, 3 * block_in)
+    return mid
+
+
+def _run_mid(owner, h: torch.Tensor) -> torch.Tensor:
+    h = owner.mid.block_1(h)
+    if owner.mid.attn_1 is not None:
+        h = owner.mid.attn_1(h)
+    h = owner.mid.block_2(h)
+    return inter_plane(h, owner.mid.block_3, owner.mid_attn, owner.mid.block_4)
+
+
+class TriplaneEncoder(nn.Module):
+    """(xy, yz, xz) NCHW feature planes -> three NCHW moment planes (2 *
+    z_channels each), the planes stacked on the batch axis through shared
+    weights and mixed at `inter_attn_resolutions` and at the bottleneck."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if not cfg.double_z:
+            raise NotImplementedError("the triplane encoder needs double_z")
+        self.cfg = cfg
+        curr = cfg.resolution
+        n = len(cfg.ch_mult)
+        self.conv_in = nn.Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
+        block_in = cfg.ch
+        self.down = nn.ModuleList()
+        for i, mult in enumerate(cfg.ch_mult):
+            lvl = nn.Module()
+            block_out = cfg.ch * mult
+            lvl.block = nn.ModuleList()
+            lvl.attn = nn.ModuleList()
+            for _ in range(cfg.num_res_blocks):
+                lvl.block.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if curr in cfg.attn_resolutions:
+                    lvl.attn.append(_make_attn(block_in, cfg.attn_type))
+            lvl.inter_attn = (_inter_triple(block_in, cfg.attn_type)
+                              if curr in cfg.inter_attn_resolutions else None)
+            lvl.downsample = Downsample(block_in) if i != n - 1 else None
+            if i != n - 1:
+                curr //= 2
+            self.down.append(lvl)
+        self.mid = _mid(cfg, block_in)
+        self.mid_attn = _make_attn(3 * block_in, cfg.attn_type)
+        self.norm_out = Norm(block_in)
+        self.conv_out = nn.Conv2d(block_in, 2 * cfg.z_channels, 3, padding=1)
+
+    def forward(self, planes):
+        b = planes[0].shape[0]
+        h = self.conv_in(torch.cat(list(planes), dim=0))
+        for lvl in self.down:
+            for j, blk in enumerate(lvl.block):
+                h = blk(h)
+                if len(lvl.attn):
+                    h = lvl.attn[j](h)
+            if lvl.inter_attn is not None:
+                h = inter_plane(h, *lvl.inter_attn)
+            if lvl.downsample is not None:
+                h = lvl.downsample(h)
+        h = _run_mid(self, h)
+        h = self.conv_out(F.silu(self.norm_out(h)))
+        return tuple(h[k * b : (k + 1) * b] for k in range(3))
+
+
 class TriplaneDecoder(nn.Module):
     """(xy, yz, xz) NCHW latent planes -> three HDBF pyramids (xy, yz, xz),
     each coarse to fine (one level when hdbf_resolutions is empty)."""
@@ -50,12 +135,7 @@ class TriplaneDecoder(nn.Module):
         curr = cfg.resolution // 2 ** (n - 1)
         block_in = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
-        self.mid = nn.Module()
-        self.mid.block_1 = ResnetBlock(block_in, block_in)
-        self.mid.attn_1 = _make_attn(block_in, cfg.attn_type)
-        self.mid.block_2 = ResnetBlock(block_in, block_in)
-        self.mid.block_3 = ResnetBlock(3 * block_in, 3 * block_in)
-        self.mid.block_4 = ResnetBlock(3 * block_in, 3 * block_in)
+        self.mid = _mid(cfg, block_in)
         self.mid_attn = _make_attn(3 * block_in, cfg.attn_type)
         levels = {}
         for i in reversed(range(n)):
@@ -68,12 +148,8 @@ class TriplaneDecoder(nn.Module):
                 block_in = block_out
                 if curr in cfg.attn_resolutions:
                     lvl.attn.append(_make_attn(block_in, cfg.attn_type))
-            lvl.inter_attn = None
-            if curr in cfg.inter_attn_resolutions:
-                c3 = 3 * block_in
-                lvl.inter_attn = nn.ModuleList([
-                    ResnetBlock(c3, c3), _make_attn(c3, cfg.attn_type) or nn.Identity(),
-                    ResnetBlock(c3, c3)])
+            lvl.inter_attn = (_inter_triple(block_in, cfg.attn_type)
+                              if curr in cfg.inter_attn_resolutions else None)
             lvl.hdbf = (
                 nn.Sequential(nn.Conv2d(block_in, cfg.out_ch, 1))
                 if curr in cfg.hdbf_resolutions else None
@@ -88,12 +164,7 @@ class TriplaneDecoder(nn.Module):
 
     def forward(self, planes):
         b = planes[0].shape[0]
-        h = self.conv_in(torch.cat(list(planes), dim=0))
-        h = self.mid.block_1(h)
-        if self.mid.attn_1 is not None:
-            h = self.mid.attn_1(h)
-        h = self.mid.block_2(h)
-        h = inter_plane(h, self.mid.block_3, self.mid_attn, self.mid.block_4)
+        h = _run_mid(self, self.conv_in(torch.cat(list(planes), dim=0)))
         taps = []
         for i in reversed(range(len(self.up))):
             lvl = self.up[i]
@@ -112,14 +183,29 @@ class TriplaneDecoder(nn.Module):
 
 
 class TriplaneAutoencoder(nn.Module):
-    """The decode half of the reference Autoencoder3D."""
+    """The reference Autoencoder3D: the decode half, and with `with_encoder`
+    the encoder and the quant convs too (the NeRF sampling path loads no
+    encoder weights)."""
 
-    def __init__(self, cfg, embed_dim: int = 64):
+    def __init__(self, cfg, embed_dim: int = 64, with_encoder: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
+        if with_encoder:
+            self.encoder = TriplaneEncoder(cfg)
+            for plane in ("xy", "yz", "xz"):
+                setattr(self, f"quant_conv_{plane}",
+                        nn.Conv2d(2 * cfg.z_channels, 2 * embed_dim, 1))
         self.decoder = TriplaneDecoder(cfg)
         for plane in ("xy", "yz", "xz"):
             setattr(self, f"post_quant_conv_{plane}", nn.Conv2d(embed_dim, cfg.z_channels, 1))
+
+    def encode(self, planes):
+        """(xy, yz, xz) NCHW feature planes -> their three DiagonalGaussian
+        posteriors, in that order."""
+        hs = self.encoder(planes)
+        return tuple(
+            DiagonalGaussian.from_moments(getattr(self, f"quant_conv_{plane}")(h))
+            for plane, h in zip(("xy", "yz", "xz"), hs))
 
     def decode(self, z: torch.Tensor):
         """z (b, 3 * embed_dim, r, r), channels [xy | xz | yz] -> (pyr_xy,

@@ -1,6 +1,6 @@
 """In-process batching sampling service (counterpart of
-ddmi_tpu/serve/server.py::SamplerService, image, video and NeRF domains, no
-HTTP front end).
+ddmi_tpu/serve/server.py::SamplerService, all four domains: image, video,
+NeRF and occupancy; no HTTP front end).
 
 Concurrent `generate` calls are coalesced into one device batch of
 `service_batch` samples (a linger window collects them): a DDIM run costs
@@ -8,7 +8,11 @@ the same for 1 or `service_batch` samples.  Each request's initial latent is
 drawn on the host from its own seed (numpy, the same draw as the JAX
 service), so a seed reproduces its sample however requests were batched.
 The image INR's NoiseInjection draws are keyed by the first seed in the
-batch; the video and NeRF renders draw none.
+batch; the video and NeRF renders draw none.  An occupancy batch samples its
+latents on the card, decodes their pyramids once and extracts every mesh
+of the batch in lockstep (geometry/generation.py::generate_meshes_batched):
+one INR3D evaluation on the card per round for all meshes, the octrees and
+marching cubes on the host.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import torch
 
 from ddmi_tpu_torch.domains.image import ImagePipeline
 from ddmi_tpu_torch.domains.nerf import NeRFPipeline
+from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
 from ddmi_tpu_torch.domains.video import VideoPipeline
+from ddmi_tpu_torch.geometry.generation import generate_meshes_batched, refine_mesh
 
 
 class _Request:
@@ -43,23 +49,29 @@ class SamplerService:
     """Serves uint8 samples of an image config, (n, res, res, 3), of a
     video config, (n, frames, res, res, 3) at the VAE's resolution, or of a
     NeRF config, (n, n_views, res, res, 3): a spherical camera path of
-    `n_views` views at `resolution` (default 128) per scene.
+    `n_views` views at `resolution` (default 128) per scene; or meshes of an
+    occupancy config, a list of n (verts, faces), extracted with the
+    config's generation settings (data.conv_config) updated by
+    `mesh_kwargs` (threshold, resolution0, upsampling_steps,
+    points_batch_size, simplify_nfaces, refinement_step, workers); `res`
+    is then the final MISE grid, resolution0 * 2^upsampling_steps.
 
     `state_dicts` holds the port state_dicts for the pipeline's
-    `load_state_dicts` (unet / vae / mlp / mixing_logit).  Without them the
-    service refuses to start unless `allow_init`, in which case it serves the
-    seeded, untrained initialisation (for latency measurement and smoke
-    runs; it warns, and `initialized` is True).  It runs on the card unless
+    `load_state_dicts` (unet / vae / mlp / mixing_logit, and pointnet for
+    occupancy).  Without them the service refuses to start unless
+    `allow_init`, in which case it serves the seeded, untrained
+    initialisation (for latency measurement and smoke runs; it warns, and
+    `initialized` is True).  It runs on the card unless
     `device="cpu"`.  Parameters are bf16 on a CUDA device (the DDIM carry
     and the mixing logit stay fp32) and fp32 on the CPU."""
 
     def __init__(self, cfg, service_batch: int = 8, resolution: Optional[int] = None,
                  linger_ms: float = 20.0, device="cuda",
                  state_dicts: Optional[dict] = None, allow_init: bool = False,
-                 n_views: int = 8):
+                 n_views: int = 8, mesh_kwargs: Optional[dict] = None):
         self.domain = cfg.data.domain
-        if self.domain not in ("image", "video", "nerf"):
-            raise NotImplementedError(f"domain {self.domain!r} is not ported")
+        if self.domain not in ("image", "video", "nerf", "occupancy"):
+            raise ValueError(f"unknown domain {self.domain!r}")
         self.cfg = cfg
         self.batch = int(service_batch)
         self._linger = max(0.0, linger_ms) / 1000.0
@@ -72,6 +84,13 @@ class SamplerService:
             pipe = NeRFPipeline(cfg, device=device)
             self.res = int(resolution or 128)
             self.n_views = int(n_views)
+            r = pipe.latent_res
+            self._noise_shape = (r, r, u.channels)  # NHWC, as JAX draws it
+        elif self.domain == "occupancy":
+            pipe = OccupancyPipeline(cfg, device=device)
+            self.mesh_kwargs = {**pipe.generation_kwargs, **(mesh_kwargs or {})}
+            self.res = int(self.mesh_kwargs["resolution0"]
+                           * 2 ** self.mesh_kwargs["upsampling_steps"])
             r = pipe.latent_res
             self._noise_shape = (r, r, u.channels)  # NHWC, as JAX draws it
         else:
@@ -109,7 +128,11 @@ class SamplerService:
             torch.cuda.synchronize(self.pipe.device)
 
     def _sample(self, noise: torch.Tensor, seed: int) -> torch.Tensor:
-        """One service batch from its initial latent, in [0, 1]."""
+        """One service batch from its initial latent: pixels in [0, 1], or
+        for occupancy the latents (batch, C, r, r)."""
+        if self.domain == "occupancy":
+            return self.pipe.sample_latents(self.batch,
+                                            noise=noise.permute(0, 3, 1, 2).contiguous())
         if self.domain == "video":
             return self.pipe.sample_videos(self.batch, noise=noise)
         if self.domain == "nerf":
@@ -121,10 +144,11 @@ class SamplerService:
         )
 
     def generate(self, n: int = 1, seed: Optional[int] = None,
-                 timeout: Optional[float] = None) -> np.ndarray:
+                 timeout: Optional[float] = None):
         """Blocking; thread-safe.  Returns (n, res, res, 3) uint8 images,
-        (n, frames, res, res, 3) uint8 videos or (n, n_views, res, res, 3)
-        uint8 NeRF views."""
+        (n, frames, res, res, 3) uint8 videos, (n, n_views, res, res, 3)
+        uint8 NeRF views, or a list of n occupancy meshes (verts (v, 3),
+        faces (t, 3)) in world coordinates."""
         if not (1 <= n <= self.batch):
             raise ValueError(f"n must be in [1, {self.batch}], got {n}")
         req = _Request(n, int(seed) if seed is not None else time.time_ns() % (1 << 31))
@@ -203,10 +227,44 @@ class SamplerService:
         noise = torch.from_numpy(np.concatenate(rows, axis=0)).to(self.pipe.device)
         out = self._sample(noise, take[0].seed)
         if not bool(torch.isfinite(out).all()):
-            raise FloatingPointError("the sampler produced non-finite pixels")
-        out = (out.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+            raise FloatingPointError("the sampler produced non-finite values")
+        if self.domain == "occupancy":
+            out = self._extract_meshes(out, count)
+        else:
+            out = (out.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
         ofs = 0
         for r in take:
             r.result = out[ofs : ofs + r.n]
             ofs += r.n
             r.event.set()
+
+    def _extract_meshes(self, z: torch.Tensor, count: int) -> list:
+        """Latents (batch, C, r, r) -> [(verts, faces)] for the first `count`
+        slots: the pyramids decoded once, then every mesh extracted in
+        lockstep, one INR3D call per round on the card for the whole batch;
+        the padding slots are inactive (no octree).  With refinement_step > 0
+        each mesh is refined on its own pyramids, its Dirichlet draws from a
+        generator seeded 0, as the JAX service keys every mesh's refinement
+        with PRNGKey(0)."""
+        mk = dict(self.mesh_kwargs)
+        steps = int(mk.pop("refinement_step", 0) or 0)
+        pipe = self.pipe
+        pyr = pipe.decode_pyramids(z)
+
+        def eval_group(pts: np.ndarray) -> np.ndarray:
+            with torch.no_grad():
+                logits = pipe.logits_from_pyramids(torch.from_numpy(pts).to(pipe.device), pyr)
+            return logits.float().cpu().numpy()
+
+        meshes = generate_meshes_batched(eval_group, self.batch,
+                                         active=[i < count for i in range(self.batch)], **mk)
+        for i, (verts, tris) in enumerate(meshes[:count]):
+            if steps > 0 and len(tris):
+                pyr_i = tuple([p[i : i + 1] for p in levels] for levels in pyr)
+                gen = torch.Generator(device=pipe.device).manual_seed(0)
+                verts = refine_mesh(
+                    verts, tris, lambda p, pyr_i=pyr_i: pipe.logits_from_pyramids(p, pyr_i),
+                    threshold=mk.get("threshold", 0.2), steps=steps, generator=gen,
+                    device=pipe.device)
+                meshes[i] = (verts, tris)
+        return meshes[:count]

@@ -591,3 +591,131 @@ def test_nerf_render_under_autograd_runs_the_module(cuda_device):
     assert nerf_mlp.nerf_mlp_fused.launches == before
     assert rgb.grad_fn is not None
     assert all(p.grad is not None for p in pipe.mlp.parameters())
+
+
+# ------------------------------------------------------------- occupancy
+
+
+OCC_CFG = {"model": {"embed_dim": 4,
+                     "pointnet": {"c_dim": 8, "hidden_dim": 32, "plane_resolution": 32,
+                                  "n_blocks": 3},
+                     "params": {
+    "unetconfig": dict(in_channels=12, model_channels=64, out_channels=12,
+                       attention_resolutions=[2], num_res_blocks=1, channel_mult=[1, 2],
+                       num_head_channels=32),
+    "ddconfig": dict(z_channels=16, resolution=32, in_channels=8, out_ch=16, ch=32,
+                     ch_mult=[1, 2, 2], num_res_blocks=1, hdbf_resolutions=[8, 16],
+                     inter_attn_resolutions=[32, 16, 8]),
+    "mlpconfig": dict(in_ch=3, out_ch=1, ch=64, latent_dim=16),
+    "ddpmconfig": dict(timesteps=20, channels=12, sampling_timesteps=3)}},
+    "data": {"domain": "occupancy"}}
+
+
+def _occ_pair(dev):
+    """An fp32 occupancy pipeline on the CPU and the same weights on `dev`,
+    with INR3D's output bias set so that the decoded field of a random
+    latent crosses the threshold."""
+    from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
+
+    cpu = OccupancyPipeline(config_from_dict(OCC_CFG), device="cpu", seed=3)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if not p.any() and name != "mixing_logit":
+                p.copy_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(7)))
+    gpu = OccupancyPipeline(config_from_dict(OCC_CFG), device=dev, seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def test_geometry_library_builds_under_build_geometry(cuda_device):
+    """The port's own C++ geometry library builds with g++ from
+    ddmi_tpu_torch/geometry/src into build/geometry/ and extracts a sphere."""
+    from ddmi_tpu_torch import geometry
+
+    path = geometry.build()
+    assert path.parent.name == "geometry" and path.parent.parent.name == "build"
+    assert path.exists() and geometry.SRC.parent.name == "src"
+    lin = np.linspace(-1, 1, 24)
+    x, y, z = np.meshgrid(lin, lin, lin, indexing="ij")
+    v, f = geometry.marching_cubes(0.7 - np.sqrt(x**2 + y**2 + z**2), 0.0)
+    r = np.linalg.norm(v / 23 * 2 - 1, axis=1)
+    assert len(f) > 500 and abs(r.mean() - 0.7) < 0.01
+
+
+def test_inr3d_and_pointnet_on_the_card_match_the_cpu(cuda_device):
+    """fp32 on the card against the CPU within 1e-4 * max(1, max|ref|) (TF32
+    off); INR3D under bf16 parameters returns fp32 logits."""
+    cpu, gpu = _occ_pair(cuda_device)
+    rng = np.random.default_rng(1)
+    cloud = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 3000, 3)).astype(np.float32))
+    with torch.no_grad():
+        ref, got = cpu.pointnet(cloud), gpu.pointnet(cloud.to(cuda_device))
+        for k in ("xz", "xy", "yz"):
+            tol = 1e-4 * max(1.0, ref[k].abs().max().item())
+            assert (got[k].cpu() - ref[k]).abs().max().item() <= tol, k
+        z = torch.from_numpy(rng.standard_normal((2, 12, 8, 8)).astype(np.float32))
+        pyr_c, pyr_g = cpu.decode_pyramids(z), gpu.decode_pyramids(z)
+        pts = torch.from_numpy(rng.uniform(-0.55, 0.55, (2, 5000, 3)).astype(np.float32))
+        ref = cpu.logits_from_pyramids(pts, pyr_c)
+        got = gpu.logits_from_pyramids(pts.to(cuda_device), pyr_g).cpu()
+        assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+        gpu.cast(torch.bfloat16)
+        bf = gpu.logits_from_pyramids(pts.to(cuda_device), gpu.decode_pyramids(z))
+    assert bf.dtype == torch.float32
+    assert ((bf.cpu() - ref).abs().mean() / ref.abs().mean()).item() < 0.02
+
+
+def test_refinement_double_backward_on_the_card_matches_the_cpu(cuda_device):
+    """The refinement loss's vertex gradient, whose normal term
+    differentiates INR3D's gradient (F.grid_sample's double backward), on
+    the card against the CPU on the same Dirichlet draws: within 1e-3 *
+    max(1, max|ref|) (the backward's atomic sums run in another order)."""
+    from ddmi_tpu_torch.geometry.generation import MeshGenerator, refinement_loss
+
+    cpu, gpu = _occ_pair(cuda_device)
+    z = torch.from_numpy(np.random.default_rng(2).standard_normal((1, 12, 8, 8)).astype(
+        np.float32))
+    pyr_c, pyr_g = cpu.decode_pyramids(z), gpu.decode_pyramids(z)
+    sphere = lambda p: 20.0 * (0.35 - torch.linalg.norm(p, dim=-1))
+    verts, tris = MeshGenerator(sphere, threshold=0.5, resolution0=16,
+                                upsampling_steps=0).generate()
+    eps = torch._sample_dirichlet(torch.full((len(tris), 3), 0.5),
+                                  generator=torch.Generator().manual_seed(0))
+    grads = []
+    for pipe, pyr, dev in ((cpu, pyr_c, "cpu"), (gpu, pyr_g, cuda_device)):
+        v = torch.tensor(verts, dtype=torch.float32, device=dev, requires_grad=True)
+        loss = refinement_loss(v, torch.from_numpy(tris).to(dev), eps.to(dev),
+                               lambda p: pipe.logits_from_pyramids(p, pyr), 0.2, 0.01)
+        grads.append(torch.autograd.grad(loss, v)[0].cpu())
+    ref, got = grads
+    assert ref.abs().max() > 0
+    assert (got - ref).abs().max().item() <= 1e-3 * max(1.0, ref.abs().max().item())
+
+
+def test_occupancy_service_counts_attn_block_exactly(cuda_device):
+    """A small occupancy service on the card (bf16, NFE 3): one batch of 2
+    goes through the fused attention block exactly (blocks per forward) x
+    NFE times, no other kernel launches, and the meshes are finite, inside
+    the box and bit-identical on a repeat of the seed."""
+    from ddmi_tpu_torch.nn.unet import AttentionBlock
+    from ddmi_tpu_torch.serve.server import SamplerService
+
+    svc = SamplerService(config_from_dict(OCC_CFG), service_batch=2, linger_ms=0,
+                         device=cuda_device, allow_init=True,
+                         mesh_kwargs=dict(resolution0=16, upsampling_steps=1,
+                                          points_batch_size=4096, workers=2))
+    blocks = sum(isinstance(m, AttentionBlock) for m in svc.pipe.unet.modules())
+    kernels = (attention.mha_vmem, flash_attention.flash_attention, inr_decode.inr_decode_fused,
+               nerf_mlp.nerf_mlp_fused, flash_attention.flash_attention_bwd)
+    before = [k.launches for k in kernels]
+    b0 = attn_block.fused_attention_block.launches
+    try:
+        first = svc.generate(2, seed=5)
+        again = svc.generate(2, seed=5)
+    finally:
+        svc.close()
+    assert blocks == 4 and attn_block.fused_attention_block.launches - b0 == 2 * blocks * 3
+    assert [k.launches for k in kernels] == before
+    for (v, f), (v2, f2) in zip(first, again):
+        assert np.isfinite(v).all() and (np.abs(v) <= 0.55 + 1e-4).all()
+        assert np.array_equal(v, v2) and np.array_equal(f, f2)
