@@ -99,7 +99,34 @@ Phases, each of which ends the run with a non-zero exit on failure:
      3000-point sphere cloud through the full-width pointnet, triplane
      encoder and posterior (bf16 latents against fp32 on the CPU), the
      full-width decode and INR3D on those latents against the CPU (logits,
-     agreement), then extraction.
+     agreement), then extraction;
+ 20. stage-1 slice: Trainer.train_stage1 on configs/d2c-vae/celebahq.yaml at
+     full width (batch 10 of 512^2 synthetic images, 256^2 multiscale
+     targets, fp32 masters with bf16 compute, accumulation over 5, LPIPS on
+     a random VGG16, the SN regulariser; 10 micro-steps): every loss term
+     finite, the VAE's and INR's parameters bit-unchanged through
+     micro-step 9 and all changed at 10 (the first update's rate is 0), the
+     SN state changed at every micro-step, no launch of the six kernels;
+     the eval hook after the epoch's checkpoint logs PSNR, saves its images
+     and launches inr_decode once; micro-steps/s, samples/s, peak memory,
+     a micro-step split (multiscale, encode, decode, INR, LPIPS, SN,
+     backward, optimizer), host against device time and a profile;
+ 21. stage-1 checkpoint: the state saved as the trainer saves it restores
+     bit for bit into a scrambled state, and a resumed trainer goes on 2
+     micro-steps with finite losses;
+ 22. reconstruction: ImagePipeline.reconstruct of 4 of the 512^2 images at
+     256^2 and at 512^2, one inr_decode launch per call, pixels finite in
+     [0, 1], PSNR logged; inr_decode against its plain version at both
+     token counts;
+ 23. adversarial stage 1 (configs/d2c-vae/celebahq_gan.yaml, 5
+     micro-steps): the discriminator changes at every micro-step, the VAE
+     and INR at none, finite losses, the extra time per micro-step;
+ 24. the stage-1 -> stage-2 hand-off: configs/ldm/celebahq.yaml's
+     train_stage2 takes the VAE and INR from the stage-1 checkpoint, runs 2
+     micro-steps and saves, and a new trainer resumes for 1 more;
+ 25. stage-1 reference: one loss and its gradients at a small config, bf16
+     on the GPU against fp32 on the CPU (loss within 2%, each term within
+     5%, gradient cosine >= 0.999).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -113,6 +140,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -191,6 +219,13 @@ LSE_MAX_ERR = 1e-4
 # one micro-step at a small config, bf16 + kernels on the GPU against fp32
 # plain versions on the CPU: the loss, and the cosine of all gradients
 TRAIN_REF_LOSS_REL, TRAIN_REF_MIN_COS = 0.02, 0.999
+# stage-1 training on configs/d2c-vae/celebahq.yaml: batch 10 of 512^2
+# synthetic images (the multiscale targets need twice the 256^2 anchor),
+# accumulation over 5, 10 micro-steps; the adversarial config 5
+S1_BATCH, S1_RES, S1_STEPS, S1_GAN_STEPS = 10, 512, 10, 5
+# one stage-1 micro-step at a small config, bf16 on the GPU against fp32 on
+# the CPU: the loss, each term (recon, KL, LPIPS, SN), the gradient cosine
+S1_REF_LOSS_REL, S1_REF_TERM_REL, S1_REF_MIN_COS = 0.02, 0.05, 0.999
 # the kernels of one attention block call (csrc/attn_block.cu), by profiler name
 ATTN_BLOCK_KERNELS = ("::group_norm_kernel", "::gemm_kernel<", "flash_fwd_kernel")
 KERNELS = {
@@ -320,7 +355,8 @@ class Ledger:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "operations" if r["t_op"] >= r["t_mem"] else "bytes",
                 "library_ms": r["library_ms"], **r.get("extra", {}),
-                "per": "service batch of each sampling path; the train path's 10 micro-steps",
+                "per": "service batch of each sampling path; the train path's 10 micro-steps; "
+                       "one call of each reconstruction",
                 "by_path": r["by_path"]}
 
 
@@ -1259,7 +1295,7 @@ def train_slice_phase(torch, dev):
     torch.cuda.reset_peak_memory_stats(dev)
     read = reset_launches()
     t0 = time.perf_counter()
-    state = trainer.train_stage2(epochs=1)
+    state = trainer.train_stage2(epochs=1, save=False)  # 18 GB of state at 1.01B parameters
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = read()
@@ -1697,6 +1733,556 @@ def occupancy_reference_phase(torch, dev, svc):
         raise AssertionError("the occupancy encode path is not finite or disagrees with the CPU")
 
 
+# ------------------------------------------------------------- stage 1
+
+
+def stage1_config(name, **extra):
+    """A configs/d2c-vae config checked to train as celebahq does (amp,
+    accumulation over 5, batch 10, multiscale, the SN regulariser), with
+    `extra` merged into data.extra."""
+    from ddmi_tpu_torch.core.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs/d2c-vae", name))
+    m = cfg.model
+    lc = m.lossconfig
+    if not (m.amp and lc.gradient_accumulate_every == 5 and cfg.data.batch_size == S1_BATCH
+            and lc.multiscale and lc.sn_reg and m.ddconfig.resolution == 256):
+        raise AssertionError(f"configs/d2c-vae/{name} no longer trains at amp, accumulation 5, "
+                             f"batch {S1_BATCH}, multiscale 256^2 with the SN regulariser")
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, extra={**cfg.data.extra, **extra}))
+
+
+class Batches:
+    """`count` batches of SyntheticImages, made up front (at 512^2 the
+    generator takes about a second a batch on the host, which would
+    otherwise be what the run measures), without a length: the trainer then
+    takes data.extra.steps_per_epoch as the epoch's length (a streaming
+    dataset), so a short resumed run keeps the full run's schedules."""
+
+    def __init__(self, batch, res, count, seed):
+        from ddmi_tpu_torch.data.synthetic import SyntheticImages
+
+        self.items = list(SyntheticImages(batch, res, length=count, seed=seed))
+
+    def __iter__(self):
+        return iter(self.items)
+
+
+class StepTimer:
+    """Wraps a pipeline's train step to synchronise the card after the
+    first and the `last` micro-step, and to do nothing else: finish() ->
+    the steady seconds per micro-step over micro-steps 2..last of a
+    trainer's run."""
+
+    def __init__(self, torch, pipe, method, last):
+        self.torch, self.pipe, self.method, self.last = torch, pipe, method, last
+        self.fn = getattr(pipe, method)
+        self.n, self.times = 0, []
+        setattr(pipe, method, self)
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.n += 1
+        if self.n in (1, self.last):
+            self.torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+        return out
+
+    def finish(self):
+        delattr(self.pipe, self.method)
+        if self.n != self.last:
+            raise AssertionError(f"the timed run took {self.n} micro-steps, not {self.last}")
+        return (self.times[-1] - self.times[0]) / max(self.last - 1, 1)
+
+
+class StepRecorder:
+    """Wraps a pipeline's train step to record, without reading the card,
+    which watched tensors changed at each micro-step (foreach copies and
+    norms of the differences, read once at the end), the SN state's
+    change, the metrics and the launch counters.  Its copies are device
+    work of their own, so a run that it records is not timed (StepTimer
+    times a run of its own)."""
+
+    def __init__(self, torch, pipe, method, watch, read):
+        self.torch, self.pipe, self.method = torch, pipe, method
+        self.fn = getattr(pipe, method)
+        self.watch, self.read = list(watch.values()), read
+        with torch.no_grad():
+            self.prev = torch._foreach_mul(self.watch, 1.0)
+        self.rows = []
+        setattr(pipe, method, self)
+
+    def __call__(self, state, x, **kw):
+        torch = self.torch
+        sn = [u for u, _ in state.sn.values()]
+        with torch.no_grad():
+            disc = torch._foreach_mul(list(state.disc.values()), 1.0) if state.disc else []
+        before = self.read()
+        out = self.fn(state, x, **kw)
+        after = self.read()
+        norms = lambda a, b: torch.stack(torch._foreach_norm(torch._foreach_sub(a, b)))
+        with torch.no_grad():
+            row = {"params": norms(self.watch, self.prev), "metrics": out[1],
+                   "launches": {k: after[k] - before[k] for k in after},
+                   "sn": norms([u for u, _ in state.sn.values()], sn)}
+            if disc:
+                row["disc"] = norms(list(state.disc.values()), disc)
+            self.prev = torch._foreach_mul(self.watch, 1.0)
+        self.rows.append(row)
+        return out
+
+    def finish(self):
+        delattr(self.pipe, self.method)
+        return [{"params": (r["params"] > 0).tolist(),
+                 "metrics": {k: float(v) for k, v in r["metrics"].items()},
+                 "launches": r["launches"],
+                 "sn": bool((r["sn"] > 0).any()),
+                 "disc": (r["disc"] > 0).tolist() if "disc" in r else None}
+                for r in self.rows]
+
+
+def check_stage1_rows(rows, tag, n_params):
+    """Finite loss terms; the watched parameters bit-unchanged until the
+    10th micro-step and every one changed there (the first update's rate
+    is 0); the SN state changed at every micro-step; no kernel of the six
+    launched."""
+    for i, r in enumerate(rows, 1):
+        bad = [k for k, v in r["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{tag}: micro-step {i} has non-finite {bad}")
+        changed = sum(r["params"])
+        if (i < 10 and changed) or (i == 10 and changed != n_params):
+            raise AssertionError(f"{tag}: micro-step {i} changed {changed} of {n_params} "
+                                 f"parameter tensors: they must change at micro-step 10 only")
+        if not r["sn"]:
+            raise AssertionError(f"{tag}: the SN state did not change at micro-step {i}")
+        if any(r["launches"].values()):
+            raise AssertionError(f"{tag}: micro-step {i} launched {r['launches']}: stage-1 "
+                                 f"training runs no kernel of the six")
+
+
+def range_split(torch, fn, prefix, calls=1, attempts=3):
+    """fn() under the profiler, host and card: for each profiler range whose
+    name starts with `prefix`, per call, the host ms inside it (the
+    profiler's own cost included) and the device ms of the kernels
+    launched inside it from any thread (the backward's ops run on
+    autograd's); -> ({range: (host ms, device ms)}, device ms of all the
+    kernels per call).  A profile with no kernel in it is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        ranges = [e for e in events if e.name.startswith(prefix)]
+        launches = [(e.time_range.start, sum(k.duration for k in e.kernels))
+                    for e in events if e.kernels and not e.name.startswith(prefix)]
+        total = sum(us for _, us in launches)
+        if not total:
+            log(f"[profiler] profile {attempt + 1} of {attempts} recorded no device time")
+            continue
+        split = {}
+        for e in ranges:
+            lo, hi = e.time_range.start, e.time_range.end
+            dev = sum(us for t, us in launches if lo <= t <= hi)
+            host, d = split.get(e.name, (0.0, 0.0))
+            split[e.name] = (host + (hi - lo) / 1e3 / calls, d + dev / 1e3 / calls)
+        return split, total / 1e3 / calls
+    raise AssertionError("the profiler saw no device time")
+
+
+def stage1_slice_phase(torch, dev, tmp):
+    """Trainer.train_stage1 on configs/d2c-vae/celebahq.yaml at full width
+    (seeded weights, zero-init layers perturbed, LPIPS on a random VGG):
+    10 micro-steps of batch 10 (512^2 synthetic images, 256^2 targets)
+    timed with their peak memory, then 10 more from a fresh state with
+    the checks of check_stage1_rows and the eval hook after the epoch's
+    checkpoint; then a micro-step split by the loss's profiler ranges,
+    host against device time and a profile.  -> (pipe, trainer, state,
+    ms per micro-step)."""
+    from ddmi_tpu_torch.core.trainer import Trainer, default_stage1_eval_hook
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+    from ddmi_tpu_torch.evals.lpips import build_perceptual
+
+    cfg = stage1_config("celebahq.yaml", nan_check_every=5, prefetch=2,
+                        steps_per_epoch=S1_STEPS)
+    t0 = time.perf_counter()
+    pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed, perceptual=build_perceptual(cfg, dev))
+    for i, module in enumerate((pipe.vae, pipe.mlp)):
+        perturb_zero_init(module, 50 + i)
+    n_vae = sum(p.numel() for p in pipe.vae.parameters())
+    n_mlp = sum(p.numel() for p in pipe.mlp.parameters())
+    log(f"[stage1] celebahq stage 1 at full width: VAE {n_vae} + INR {n_mlp} parameters "
+        f"(fp32 masters, bf16 compute), LPIPS VGG16 {sum(p.numel() for p in pipe.perceptual.parameters())} "
+        f"(random weights, frozen, bf16), set up in {time.perf_counter() - t0:.1f} s; cuts: "
+        f"{S1_STEPS} micro-steps instead of 200 epochs, synthetic 512^2 images, random-init "
+        f"VAE, INR and VGG (no weight files in the repository)")
+    data = Batches(S1_BATCH, S1_RES, S1_STEPS, 0)
+    timed_dir = os.path.join(tmp, "timed")
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = StepTimer(torch, pipe, "stage1_train_step", S1_STEPS)
+    t0 = time.perf_counter()
+    Trainer(cfg, pipe, data, save_dir=timed_dir).train_stage1(epochs=1,
+                                                             eval_hook=lambda *a: None)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    steady = timer.finish()
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(timed_dir)
+    log(f"[stage1] {S1_STEPS} micro-steps and a checkpoint in {t_run:.3f} s; steady over "
+        f"micro-steps 2-{S1_STEPS} {1 / steady:.4f} micro-steps/s = {S1_BATCH / steady:.3f} "
+        f"training samples/s ({1e3 * steady:.1f} ms per micro-step) on {nvidia_smi()}; peak "
+        f"allocated {peak / 2**30:.2f} GiB")
+
+    trainer = Trainer(cfg, pipe, data, save_dir=tmp)
+    read = reset_launches()
+    hook_launches = {}
+
+    def hook(tr, st, epoch):
+        before = read()
+        default_stage1_eval_hook(tr, st, epoch)
+        hook_launches.update({k: v - before[k] for k, v in read().items()})
+
+    watch = {f"vae.{k}": p for k, p in pipe.vae.named_parameters()}
+    watch.update({f"mlp.{k}": p for k, p in pipe.mlp.named_parameters()})
+    rec = StepRecorder(torch, pipe, "stage1_train_step", watch, read)
+    state = trainer.train_stage1(epochs=1, eval_hook=hook)
+    rows = rec.finish()
+    check_stage1_rows(rows, "stage1", len(watch))
+    m = rows[-1]["metrics"]
+    log(f"[stage1] {len(rows)} micro-steps, losses "
+        f"{[round(r['metrics']['loss'], 3) for r in rows]}; last: " + ", ".join(
+            f"{k} {v:.5g}" for k, v in m.items())
+        + f"; parameters changed at {[i for i, r in enumerate(rows, 1) if any(r['params'])]} "
+        f"({len(watch)} tensors at 10), SN state changed at every micro-step, launches 0")
+    recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
+    psnr = [r["eval/psnr"] for r in recs if "eval/psnr" in r]
+    files = sorted(os.listdir(os.path.join(tmp, "recon")))
+    failures = [r for r in recs if "s1/eval_hook_failures" in r]
+    log(f"[stage1] eval hook: PSNR {psnr} dB over 4 images, files {files[:6]}, inr_decode "
+        f"launches {hook_launches.get('inr_decode')}, failures {len(failures)}")
+    if not (len(psnr) == 1 and math.isfinite(psnr[0]) and files and not failures
+            and hook_launches.get("inr_decode") == 1):
+        raise AssertionError("the stage-1 eval hook did not log PSNR and save its images")
+
+    gen = torch.Generator(device=dev).manual_seed(60)
+    host = torch.Generator().manual_seed(60)
+    x = torch.from_numpy(next(iter(Batches(S1_BATCH, S1_RES, 1, 1)))).to(dev)
+    step = lambda: pipe.stage1_train_step(state, x, generator=gen, host_generator=host)
+    split, dev_total = range_split(torch, lambda: [step() for _ in range(5)], "stage1/", 5)
+    stages = ("multiscale", "encode", "decode", "inr", "lpips", "sn", "backward", "optimizer")
+    missing = [k for k in stages if "stage1/" + k not in split]
+    log("[stage1-breakdown] per micro-step, 5 in a row (one of them an optimizer update), by "
+        "the profiler's stage1/* ranges: " + "; ".join(
+            f"{k} {split['stage1/' + k][1]:.2f} ms device / {split['stage1/' + k][0]:.2f} ms host"
+            for k in stages if k not in missing)
+        + f"; outside the ranges {dev_total - sum(d for _, d in split.values()):.2f} ms device; "
+        f"all kernels {dev_total:.2f} ms (host times under the profiler)")
+    if missing:
+        raise AssertionError(f"the micro-step's profile has no range for {missing}")
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    dms = device_ms(torch, step, reps=2)
+    log(f"[stage1-breakdown] one micro-step: wall {1e3 * t_wall:.1f} ms, host enqueue "
+        f"{1e3 * t_enq:.1f} ms, device {dms:.1f} ms (profiler: kernels' time; the device is idle "
+        f"{100 * max(0.0, 1 - dms / (1e3 * t_wall)):.1f}% of the wall time)")
+    profile_top(torch, step, "stage1-profile", ("inr_decode", "flash_", "gemm_kernel",
+                                                 "nerf_mlp", "group_norm_kernel"),
+                inference=False)
+    return pipe, trainer, state, 1e3 * steady
+
+
+def stage1_checkpoint_phase(torch, dev, pipe, trainer, state, tmp):
+    """Save the state after the run (and the breakdown's micro-steps) as
+    the trainer saves it, scramble it, restore it and check it bit for bit;
+    then a resumed trainer goes on 2 micro-steps from it with finite
+    losses."""
+    from ddmi_tpu_torch.core.checkpoint import CheckpointManager
+    from ddmi_tpu_torch.core.trainer import Trainer
+
+    ckpt = CheckpointManager(tmp, prefix="stage1")
+    gens = (torch.Generator(device=dev).manual_seed(61), torch.Generator().manual_seed(61))
+    step = state.step
+    t0 = time.perf_counter()
+    ckpt.save(step, {"state": state.state_dict(), "generators": [g.get_state() for g in gens]})
+    t_save = time.perf_counter() - t0
+    saved = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in flat_state(state.state_dict()).items()}
+    size = os.path.getsize(os.path.join(ckpt.root, f"{step}.pt"))
+    with torch.no_grad():
+        for t in list(state.params.values()) + state.opt.inner.mu + state.opt.acc:
+            t.add_(1.0)
+    state.step, state.opt.inner.count = -1, -1
+
+    class Wrap:
+        def load_state_dict(self, sd):
+            state.load_state_dict(sd["state"])
+
+    t0 = time.perf_counter()
+    ckpt.restore(Wrap())
+    t_restore = time.perf_counter() - t0
+    now = flat_state(state.state_dict())
+    diff = [k for k in saved if not (torch.equal(saved[k], now[k]) if torch.is_tensor(saved[k])
+                                      else saved[k] == now[k])]
+    log(f"[stage1-ckpt] step {step}: {size / 2**30:.2f} GiB on disk, saved in {t_save:.2f} s, "
+        f"restored in {t_restore:.2f} s into a scrambled state: {len(saved)} entries, "
+        f"{len(diff)} differ {diff[:3]}")
+    if diff or ckpt.latest_step() != step:
+        raise AssertionError("the stage-1 checkpoint does not restore bit for bit")
+    resumed = Trainer(trainer.cfg, pipe, Batches(S1_BATCH, S1_RES, 2, 2), save_dir=tmp)
+    read = reset_launches()
+    rec = StepRecorder(torch, pipe, "stage1_train_step", {"none": state.params["mlp.torgb.bias"]},
+                       read)
+    st = resumed.train_stage1(epochs=1, resume=True, eval_hook=lambda *a: None)
+    rows = rec.finish()
+    losses = [r["metrics"]["loss"] for r in rows]
+    log(f"[stage1-ckpt] resumed at {step}, {len(rows)} more micro-steps to step {st.step}: "
+        f"losses {[round(v, 3) for v in losses]}, launches "
+        f"{sum(sum(r['launches'].values()) for r in rows)}, checkpoints {ckpt.all_steps()}")
+    if not (st.step == step + 2 and len(rows) == 2 and all(map(math.isfinite, losses))
+            and not any(any(r["launches"].values()) for r in rows)):
+        raise AssertionError("the resumed stage-1 run failed")
+
+
+def flat_state(sd, prefix=""):
+    """A nested state dict as {"/a/b/0": leaf}."""
+    out = {}
+    items = sd.items() if isinstance(sd, dict) else enumerate(sd)
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            out.update(flat_state(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
+def reconstruct_phase(torch, dev, pipe):
+    """reconstruct on 4 of the 512^2 images at 256^2 and at 512^2: one
+    inr_decode launch per call, pixels finite in [0, 1], PSNR at 256^2;
+    then the kernel against its plain version at both token counts."""
+    from ddmi_tpu_torch.core.amp import method_call
+    from ddmi_tpu_torch.core.coords import get_scale_injection, resize_antialias, symmetrize
+    from ddmi_tpu_torch.ops import inr_decode
+
+    x = torch.from_numpy(next(iter(Batches(S1_BATCH, S1_RES, 1, 3)))[:4]).to(dev)
+    launches = {}
+    for res in (256, 512):
+        g = torch.Generator(device=dev).manual_seed(0)
+        read = reset_launches()
+        out = pipe.reconstruct(x, res, generator=g, render_seed=1)
+        torch.cuda.synchronize()
+        n = read()
+        ms = cuda_ms(lambda: pipe.reconstruct(x, res, generator=g, render_seed=1), 3)
+        ref = resize_antialias(x, res) if res != S1_RES else x
+        psnr = -10 * math.log10(max(((out - ref) ** 2).mean().item(), 1e-12))
+        ok = bool(torch.isfinite(out).all()) and 0 <= out.min().item() and out.max().item() <= 1
+        log(f"[reconstruct] 4 x {S1_RES}^2 -> {res}^2 (scale injection "
+            f"{get_scale_injection(res, pipe.anchor)}): launches {n}, pixels in "
+            f"[{out.min().item():.4f}, {out.max().item():.4f}], PSNR {psnr:.2f} dB against the "
+            f"input at {res}^2 (random weights after 10 micro-steps), {ms:.2f} ms per call")
+        if not (ok and n["inr_decode"] == 1 and sum(n.values()) == 1):
+            raise AssertionError(f"reconstruct at {res}: launches {n}, pixels ok {ok}")
+        launches[res] = n["inr_decode"]
+
+        with torch.no_grad():
+            y = resize_antialias(symmetrize(x.float()), pipe.anchor).clamp(-1, 1)
+            y = y.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
+            p = {k: v.bfloat16() for k, v in pipe.vae.named_parameters()}
+            post = method_call(pipe.vae, p, "encode", y)
+            hdbf = method_call(pipe.vae, p, "decode", post.mean)
+            si = get_scale_injection(res, pipe.anchor)
+            folded = inr_decode.fold_inr_image_params(pipe.mlp, si)
+            toks = inr_decode.render_tokens(hdbf, res, si, pipe.mlp.cfg.in_ch)
+        kern = lambda: inr_decode.inr_decode_fused(folded, *toks, 1)
+        plain = lambda: inr_decode.inr_decode_plain(folded, *toks, 1)
+        got, want = kern().float(), plain().float()
+        err = (got - want).abs()
+        rel = (err.mean() / want.abs().mean()).item()
+        kms, pms = paired_ms(kern, plain, 3)
+        cfg = pipe.mlp.cfg
+        N, ch, in0 = toks[0].shape[0], cfg.ch, cfg.latent_dim + cfg.in_ch
+        macs = (2 * in0 * ch + 2 * ch * ch + 2 * (2 * (ch + in0) * ch + 2 * ch * ch)
+                + 3 * ch * ch + ch * cfg.out_ch)
+        nbytes = sum(t.numel() * 2 for t in toks) + got.numel() * 2 + (
+            folded.wa.numel() + folded.wb.numel()) * 2
+        bms, by = bound(2 * N * macs, nbytes)
+        log(f"[reconstruct] inr_decode N={N} (4 x {res}^2, noise on): max|err| "
+            f"{err.max().item():.5f} mean|err|/mean|ref| {rel:.5f}; kernel {kms:.4f} ms, plain "
+            f"{pms:.4f} ms, library none, bound {bms:.4f} ms ({by})")
+        if not rel < INR_REL_MEAN_ERR:
+            raise AssertionError(f"inr_decode at the reconstruction shape disagrees: {rel}")
+        LEDGER.add("inr_decode", "reconstruct", 1, kms, pms, None, 2 * N * macs, nbytes,
+                   err.max().item())
+        del toks, folded, hdbf, got, want
+    return {k: (launches[256] + launches[512] if k == "inr_decode" else 0) for k in KERNELS}
+
+
+def stage1_gan_phase(torch, dev, tmp, plain_ms):
+    """configs/d2c-vae/celebahq_gan.yaml: 5 micro-steps through the
+    trainer, timed, then 5 more from a fresh state that are checked: the
+    discriminator changes at every one, the VAE and INR at none (the first
+    window's update has rate 0); finite losses; the extra time per
+    micro-step over the plain run's."""
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+    from ddmi_tpu_torch.evals.lpips import build_perceptual
+
+    cfg = stage1_config("celebahq_gan.yaml", nan_check_every=5, prefetch=2,
+                        steps_per_epoch=S1_STEPS)
+    if not cfg.model.lossconfig.adversarial:
+        raise AssertionError("celebahq_gan.yaml is not adversarial")
+    pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed, perceptual=build_perceptual(cfg, dev))
+    for i, module in enumerate((pipe.vae, pipe.mlp, pipe.gan)):
+        perturb_zero_init(module, 70 + i)
+    data = Batches(S1_BATCH, S1_RES, S1_GAN_STEPS, 4)
+    timed_dir = os.path.join(tmp, "timed")
+    timer = StepTimer(torch, pipe, "stage1_train_step", S1_GAN_STEPS)
+    Trainer(cfg, pipe, data, save_dir=timed_dir).train_stage1(epochs=1,
+                                                             eval_hook=lambda *a: None)
+    steady = timer.finish()
+    shutil.rmtree(timed_dir)
+    trainer = Trainer(cfg, pipe, data, save_dir=tmp)
+    watch = {f"vae.{k}": p for k, p in pipe.vae.named_parameters()}
+    watch.update({f"mlp.{k}": p for k, p in pipe.mlp.named_parameters()})
+    read = reset_launches()
+    rec = StepRecorder(torch, pipe, "stage1_train_step", watch, read)
+    state = trainer.train_stage1(epochs=1, eval_hook=lambda *a: None)
+    rows = rec.finish()
+    check_stage1_rows(rows, "stage1-gan", len(watch))
+    n_disc = len(state.disc)
+    disc_ok = all(all(r["disc"]) for r in rows)
+    log(f"[stage1-gan] {len(rows)} micro-steps: d_loss "
+        f"{[round(r['metrics']['d_loss'], 4) for r in rows]}, g_gan "
+        f"{[round(r['metrics']['g_gan'], 4) for r in rows]}; the discriminator's {n_disc} "
+        f"tensors changed at every micro-step {disc_ok}; VAE and INR unchanged, launches 0; "
+        f"steady {1e3 * steady:.1f} ms per micro-step, {1e3 * steady - plain_ms:.1f} ms more "
+        f"than the plain run's ({plain_ms:.1f} ms) on {nvidia_smi()}")
+    if not disc_ok:
+        raise AssertionError("the discriminator did not change at every micro-step")
+
+
+def stage2_handoff_phase(torch, dev, tmp):
+    """configs/ldm/celebahq.yaml's train_stage2 on the save directory of
+    the stage-1 run: the VAE and INR come from the newest stage-1
+    checkpoint; 2 micro-steps, a checkpoint, then a new trainer resumes
+    for 1 more; finite losses.  The UNet is cut to 2 levels of 64 channels
+    (its 32^2 level keeps flash attention): the full 1.01B-parameter
+    UNet's state is 18 GB a checkpoint, and phase 15 trains it at full
+    width already."""
+    from ddmi_tpu_torch.core.checkpoint import CheckpointManager
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+
+    cfg = load_config(os.path.join(ROOT, "configs/ldm/celebahq.yaml"))
+    extra = {**cfg.data.extra, "nan_check_every": 1, "prefetch": 0, "steps_per_epoch": 2}
+    unet = dataclasses.replace(cfg.model.unetconfig, model_channels=64, channel_mult=(1, 2),
+                               num_res_blocks=1, attention_resolutions=(2,))
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, extra=extra),
+        model=dataclasses.replace(cfg.model, unetconfig=unet))
+    s1 = CheckpointManager(tmp, prefix="stage1")
+    params = s1.restore()["state"]["params"]
+    steps = []
+    for count, resume in ((2, False), (1, True)):
+        pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
+        trainer = Trainer(cfg, pipe, Batches(cfg.data.batch_size, 256, count, 5 + count),
+                          save_dir=tmp)
+        st = trainer.train_stage2(epochs=1, resume=resume)
+        torch.cuda.synchronize()
+        same = all(torch.equal(v, params["vae." + k].to(dev, v.dtype))
+                   for k, v in pipe.vae.state_dict().items()) and all(
+            torch.equal(v, params["mlp." + k].to(dev)) for k, v in pipe.mlp.state_dict().items())
+        steps.append((st.step, same))
+        del pipe, trainer, st
+        torch.cuda.empty_cache()
+    recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
+    losses = [r["s2/loss"] for r in recs if "s2/loss" in r]
+    log(f"[stage2-handoff] stage-1 checkpoint step {s1.latest_step()} -> train_stage2: steps "
+        f"{[s for s, _ in steps]}, VAE and INR equal to the checkpoint's (bf16 VAE) "
+        f"{[ok for _, ok in steps]}, losses {[round(v, 5) for v in losses]}, stage-2 "
+        f"checkpoints {CheckpointManager(tmp, prefix='stage2').all_steps()}")
+    if not ([s for s, _ in steps] == [2, 3] and all(ok for _, ok in steps)
+            and len(losses) == 3 and all(map(math.isfinite, losses))):
+        raise AssertionError("the stage-1 -> stage-2 hand-off or the stage-2 resume failed")
+
+
+def stage1_reference_phase(torch, dev):
+    """One stage-1 loss and its gradients at a small config (anchor 64, ch
+    64, INR width 64, LPIPS on a random VGG): bf16 on the card against fp32
+    plain versions on the CPU, on the same weights, SN vectors and draws.
+    Not ch 32: there every GroupNorm group holds one channel, which
+    magnifies bf16 roundoff (gradient cosine 0.99897 between bf16 and fp32
+    on the CPU, against 0.99999 at ch 64)."""
+    import numpy as np
+
+    from ddmi_tpu_torch.core.config import config_from_dict
+    from ddmi_tpu_torch.domains.image import ImagePipeline, Stage1Draws
+    from ddmi_tpu_torch.evals.lpips import LPIPS
+
+    def cfg(amp):
+        return config_from_dict({"model": {"amp": amp, "lr": 1e-3, "embed_dim": 4, "params": {
+            "lossconfig": dict(gradient_accumulate_every=5, epochs=2, warmup_epochs=1),
+            "ddconfig": dict(z_channels=8, resolution=64, out_ch=16, ch=64, ch_mult=[1, 1, 2],
+                             num_res_blocks=1, hdbf_resolutions=[16, 32]),
+            "mlpconfig": dict(ch=64, latent_dim=16),
+            "unetconfig": dict(image_size=16, in_channels=4, model_channels=32,
+                               out_channels=4, attention_resolutions=[], num_res_blocks=1,
+                               channel_mult=[1])}}, "data": {"domain": "image"}})
+
+    torch.manual_seed(0)
+    vgg = LPIPS().state_dict()
+    out = {}
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((2, 128, 128, 3)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((2, 4, 16, 16)).astype(np.float32))
+    noise = [torch.from_numpy(rng.standard_normal((2, 64 * 64, 1)).astype(np.float32))
+             for _ in range(12)]
+    sn = None
+    read = reset_launches()
+    for tag, where, amp in (("cpu", "cpu", False), ("card", dev, True)):
+        lp = LPIPS(torch.bfloat16 if amp else torch.float32)
+        lp.load_state_dict(vgg)
+        pipe = ImagePipeline(cfg(amp), device=where, seed=3, perceptual=lp.to(where))
+        perturb_zero_init(pipe.mlp, 80)
+        st = pipe.init_stage1(10)
+        if sn is None:
+            sn, weights = st.sn, (pipe.vae.state_dict(), pipe.mlp.state_dict())
+        else:
+            pipe.load_state_dicts(vae=weights[0], mlp=weights[1])
+            st.sn = {k: (u.to(where), v.to(where)) for k, (u, v) in sn.items()}
+        draws = Stage1Draws((0.7, 5, 20, 0, 0), eps.to(where), iter(noise))
+        loss, m, _, _ = pipe.stage1_loss(x.to(where), 3, draws, st.sn)
+        loss.backward()
+        g = torch.cat([p.grad.float().cpu().flatten() for p in st.params.values()])
+        out[tag] = (loss.item(), {k: float(v) for k, v in m.items()}, g)
+    torch.cuda.synchronize()
+    launches = read()
+    (lc, mc, gc), (lg, mg, gg) = out["cpu"], out["card"]
+    cos = torch.nn.functional.cosine_similarity(gg, gc, dim=0).item()
+    rel = abs(lg - lc) / abs(lc)
+    terms = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("recon", "kl", "lpips", "sn")}
+    log(f"[stage1-reference] small config, one micro-step: bf16 on the card loss {lg:.5f} vs fp32 "
+        f"on the CPU {lc:.5f} (relative {rel:.5f}); terms relative " + ", ".join(
+            f"{k} {v:.5f} ({mg[k]:.5g} vs {mc[k]:.5g})" for k, v in terms.items())
+        + f"; gradient cosine {cos:.6f}; launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the stage-1 reference launched kernels: {launches}")
+    if not (rel <= S1_REF_LOSS_REL and cos >= S1_REF_MIN_COS
+            and all(v <= S1_REF_TERM_REL for v in terms.values())):
+        raise AssertionError("the GPU stage-1 step disagrees with the CPU reference")
+
+
 def build_report(name, ptxas) -> None:
     """Registers, spills and dynamic shared memory of each kernel of a
     library built in this run, from the ptxas report and the libraries' own
@@ -1816,9 +2402,25 @@ def main() -> int:
         svc.close()
     del svc
     torch.cuda.empty_cache()
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="stage1_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        pipe, trainer, state, plain_ms = stage1_slice_phase(torch, dev, tmp)
+        stage1_checkpoint_phase(torch, dev, pipe, trainer, state, tmp)
+        recon = reconstruct_phase(torch, dev, pipe)
+        del pipe, trainer, state
+        torch.cuda.empty_cache()
+        stage1_gan_phase(torch, dev, os.path.join(tmp, "gan"), plain_ms)
+        torch.cuda.empty_cache()
+        stage2_handoff_phase(torch, dev, tmp)
+        torch.cuda.empty_cache()
+        stage1_reference_phase(torch, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]
-                            + occ[name]) for name in KERNELS]
+                            + occ[name] + recon[name]) for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -43,13 +43,29 @@ def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
 
 @dataclass(frozen=True)
 class LossConfig:
-    """The stage-2 training fields of the JAX LossConfig."""
+    """The training fields of the JAX LossConfig: stage 1 (d2c-vae) and
+    stage 2 (ldm)."""
 
     epochs: int = 200
+    warmup_epochs: int = 5
+    multiscale: bool = True
+    adversarial: bool = False
+    kl_anneal: bool = True
+    kl_max_coeff: float = 0.5
+    kl_const_coeff: float = 1e-4
+    kl_const_portion: float = 1e-4
+    kl_anneal_portion: float = 0.9
+    disc_weight: float = 0.5
+    sn_reg: bool = True
+    sn_reg_weight_decay: float = 0.1
+    sn_reg_weight_decay_anneal: bool = True
+    sn_reg_weight_decay_init: float = 5.0
+    lr_scheduler: bool = True
     save_and_sample_every: int = 25
     gradient_accumulate_every: int = 1
     ema_decay: float = 0.9999
     ema_update_every: int = 10
+    perceptual_weight: float = 1.0
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -146,6 +162,7 @@ class DataConfig:
     test_resolution: int = 256
     frames: int = 16
     conv_config: Optional[str] = None  # nested convocc YAML (NeRF render kwargs)
+    save_pth: str = "./save"  # checkpoints, logs and eval images
     extra: Dict[str, Any] = field(default_factory=dict)
 
 

@@ -27,6 +27,11 @@ class MetricsLogger:
         """Queue a step's metrics without reading device values."""
         self._pending.append((step, time.perf_counter(), prefix, metrics))
 
+    def log(self, step: int, metrics: Dict[str, Any], prefix: str = "") -> Optional[Dict[str, Any]]:
+        """Write a record now (with any deferred ones before it)."""
+        self.defer(step, metrics, prefix)
+        return self.flush()
+
     def flush(self) -> Optional[Dict[str, Any]]:
         """Read every deferred value in one device-to-host copy, write the
         records, and return the last one (host floats)."""

@@ -1,34 +1,103 @@
 """Image domain (counterpart of ddmi_tpu/domains/image.py::ImagePipeline):
-sampling (DDIM over the UNet, HDBF decode, INR render) and stage-2 training
-(the frozen VAE encoder, the diffusion loss through the UNet, AdamW with
-gradient accumulation, EMA).
+sampling (DDIM over the UNet, HDBF decode, INR render), stage-1 D2C-VAE
+training (the multiscale reconstruction through the VAE and the INR at the
+crop's coordinates, the annealed KL, LPIPS, the spectral-norm regulariser
+and, for the adversarial configs, the PatchGAN), reconstruction at any
+resolution, and stage-2 training (the frozen VAE encoder, the diffusion
+loss through the UNet, AdamW with gradient accumulation, EMA).
 
-Stage-1 training, reconstruction and the MDTv2 denoiser wait for later
-slices.
+Every random draw of a stage-1 micro-step is explicit (`Stage1Draws`): the
+multiscale branch and crop (drawn on the host), the posterior eps, the
+INR's NoiseInjection draws and the DiffAugment draws, so that a test can
+feed the JAX package's own.  Each stage of a stage-1 micro-step runs in a
+profiler range named `stage1/<stage>` (multiscale, encode, decode, inr,
+lpips, sn, backward, gan, optimizer), which a torch.profiler trace reads;
+outside a profile a range costs some microseconds of host time.  The
+MDTv2 denoiser waits for a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
-from ddmi_tpu_torch.core.amp import amp_denoiser
+from ddmi_tpu_torch.core.amp import amp_denoiser, compute_cast, method_call
 from ddmi_tpu_torch.core.coords import (
-    get_scale_injection, resize_antialias, symmetrize, unsymmetrize,
+    draw_multiscale, get_scale_injection, linear_kl_coeff, multiscale_image_transform,
+    resize_antialias, symmetrize, unsymmetrize,
 )
 from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.core.ema import ema_update
-from ddmi_tpu_torch.core.optim import stage2_adamw
+from ddmi_tpu_torch.core.optim import disc_adamw, stage1_adamw, stage2_adamw
+from ddmi_tpu_torch.core.sn_reg import init_sn_state, norm_scale_loss, spectral_norm_loss
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet, diffusion_loss
+from ddmi_tpu_torch.losses.diffaugment import diff_augment, draw_diffaugment
+from ddmi_tpu_torch.losses.gan import GANLoss2D
 from ddmi_tpu_torch.nn.inr import INRImage
 from ddmi_tpu_torch.nn.unet import UNet
 from ddmi_tpu_torch.nn.vae import Autoencoder
 from ddmi_tpu_torch.ops.attention import needs_grad
 from ddmi_tpu_torch.ops.inr_decode import render_tokens_fused
 from ddmi_tpu_torch.ops.resample import pixel_center_lin
+
+
+def _copy_into(dst: Dict[str, torch.Tensor], src) -> None:
+    with torch.no_grad():
+        for k, t in dst.items():
+            t.copy_(src[k])
+
+
+@dataclasses.dataclass
+class Stage1Draws:
+    """The random draws of one stage-1 micro-step: `multiscale` = (p, i, j,
+    i2, j2) (core/coords.py::draw_multiscale), `eps` the posterior's
+    standard-normal noise (b, embed_dim, h, w) fp32, `noise` an iterator of
+    the INR's twelve NoiseInjection draws (None: drawn from the step's
+    generator as the INR runs), `aug` the DiffAugment draws (adversarial
+    configs with a policy)."""
+
+    multiscale: Tuple[float, int, int, int, int]
+    eps: torch.Tensor
+    noise: Optional[Iterator[torch.Tensor]] = None
+    aug: Optional[list] = None
+
+
+@dataclasses.dataclass
+class Stage1State:
+    """Stage-1 training state (JAX Stage1State): `step` counts micro-steps;
+    `params` are the trainable parameters themselves (`vae.<name>`,
+    `mlp.<name>`: fp32 masters updated in place), `opt` their optimizer
+    (core/optim.py), `sn` the spectral-norm vectors (core/sn_reg.py);
+    for the adversarial configs `disc` the discriminator's parameters and
+    `disc_opt` its optimizer."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    opt: object
+    sn: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+    disc: Optional[Dict[str, torch.Tensor]] = None
+    disc_opt: Optional[object] = None
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "params": self.params, "opt": self.opt.state_dict(),
+                "sn": {k: list(uv) for k, uv in self.sn.items()}, "disc": self.disc,
+                "disc_opt": None if self.disc_opt is None else self.disc_opt.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy a saved state into this one's tensors, in place."""
+        self.step = int(sd["step"])
+        _copy_into(self.params, sd["params"])
+        self.opt.load_state_dict(sd["opt"])
+        self.sn = {k: (u.to(self.sn[k][0].device), v.to(self.sn[k][1].device))
+                   for k, (u, v) in sd["sn"].items()}
+        if self.disc is not None:
+            _copy_into(self.disc, sd["disc"])
+            self.disc_opt.load_state_dict(sd["disc_opt"])
 
 
 @dataclasses.dataclass
@@ -43,18 +112,32 @@ class Stage2State:
     ema: Dict[str, torch.Tensor]
     opt: object
 
+    def state_dict(self) -> dict:
+        return {"step": self.step, "params": self.params, "ema": self.ema,
+                "opt": self.opt.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy a saved state into this one's tensors, in place."""
+        self.step = int(sd["step"])
+        _copy_into(self.params, sd["params"])
+        _copy_into(self.ema, sd["ema"])
+        self.opt.load_state_dict(sd["opt"])
+
 
 class ImagePipeline(nn.Module):
     """The models of one image config: `unet` + `mixing_logit` (stage 2),
-    `vae` + `mlp` (stage 1).
+    `vae` + `mlp` (stage 1), and `gan` (the PatchGAN loss) for the
+    adversarial stage-1 configs.
 
     Parameters are initialised on `device` (the card unless the caller asks
     for the CPU) from `seed`; `load_state_dicts`
     replaces them with trained ones (reference state_dict layouts, see
     interop.py).  `cast(dtype)` casts every model parameter but
-    `mixing_logit`, which stays fp32 as in the JAX package."""
+    `mixing_logit`, which stays fp32 as in the JAX package.  `perceptual`
+    is the LPIPS of stage-1 training (evals/lpips.py::build_perceptual), or
+    None to train without it, as the JAX pipeline's perceptual_fn."""
 
-    def __init__(self, cfg, device="cuda", seed: int = 0):
+    def __init__(self, cfg, device="cuda", seed: int = 0, perceptual: Optional[nn.Module] = None):
         super().__init__()
         m = cfg.model
         if m.DiT:
@@ -70,6 +153,10 @@ class ImagePipeline(nn.Module):
                 self.unet = UNet(m.unetconfig)
                 self.vae = Autoencoder(m.ddconfig, embed_dim=m.embed_dim)
                 self.mlp = INRImage(m.mlpconfig)
+                self.gan = (GANLoss2D(m.ddconfig.in_channels, disc_weight=m.lossconfig.disc_weight)
+                            if m.lossconfig.adversarial else None)
+        self.diffaug_policy = tuple(m.lossconfig.extra.get("diffaugment") or ())
+        self.perceptual = perceptual
         d = m.ddpmconfig
         self.mixing_logit = nn.Parameter(
             torch.full((1, d.channels, 1, 1), float(d.mixed_init), device=device)
@@ -152,6 +239,206 @@ class ImagePipeline(nn.Module):
         si = get_scale_injection(res, self.anchor)
         out = self._render_grid(hdbf, res, si, render_seed)
         img = out.float().reshape(batch, res, res, -1)
+        return unsymmetrize(img.clamp(-1.0, 1.0))
+
+    # ------------------------------------------------------------ stage 1
+
+    def stage1_params(self) -> Dict[str, torch.Tensor]:
+        """The trainable parameters: the VAE's and the INR's."""
+        params = {f"vae.{k}": p for k, p in self.vae.named_parameters()}
+        params.update({f"mlp.{k}": p for k, p in self.mlp.named_parameters()})
+        return params
+
+    def init_stage1(self, steps_per_epoch: int = 1000) -> Stage1State:
+        """Ready the pipeline for stage-1 training from its current weights:
+        the VAE and the INR train in fp32 (the VAE laid out channels-last on
+        the card), and the state starts with a fresh optimizer, spectral-norm
+        vectors drawn from a generator seeded 7 (the JAX package's key) and,
+        for the adversarial configs, the discriminator's optimizer.  The KL
+        anneals over steps_per_epoch x lossconfig.epochs micro-steps."""
+        for module in (self.vae, self.mlp):
+            module.float().requires_grad_(True)
+        if self.device.type == "cuda":
+            self.vae.to(memory_format=torch.channels_last)
+        self._stage1_total_iters = steps_per_epoch * self.lc.epochs
+        params = self.stage1_params()
+        gen = torch.Generator(device=self.device).manual_seed(7)
+        sn = init_sn_state(self.vae, gen)
+        disc = disc_opt = None
+        if self.gan is not None:
+            self.gan.float().requires_grad_(True)
+            disc = dict(self.gan.named_parameters())
+            disc_opt = disc_adamw(self.cfg, list(disc.values()))
+        opt = stage1_adamw(self.cfg, list(params.values()), steps_per_epoch)
+        return Stage1State(0, params, opt, sn, disc, disc_opt)
+
+    def latent_shape(self, b: int) -> Tuple[int, int, int, int]:
+        c = self.cfg.model.ddconfig
+        r = c.resolution // 2 ** (len(c.ch_mult) - 1)
+        return (b, self.cfg.model.embed_dim, r, r)
+
+    def draw_stage1(self, b: int, generator: Optional[torch.Generator] = None,
+                    host_generator: Optional[torch.Generator] = None) -> Stage1Draws:
+        """One micro-step's draws for a batch of b: the multiscale draws from
+        `host_generator` (a CPU generator, so that the crop needs no read
+        from the card), then from `generator` the posterior eps and the
+        DiffAugment draws; the INR's noise is left to `generator`."""
+        ms = draw_multiscale(self.anchor, host_generator)
+        eps = torch.randn(self.latent_shape(b), generator=generator, device=self.device)
+        aug = None
+        if self.gan is not None and self.diffaug_policy:
+            aug = draw_diffaugment((b, self.anchor, self.anchor, self.cfg.model.mlpconfig.out_ch),
+                                   self.diffaug_policy, generator, self.device)
+        return Stage1Draws(ms, eps, aug=aug)
+
+    def _kl_coeff(self, step: int) -> float:
+        lc = self.lc
+        if not lc.kl_anneal:
+            return float(np.float32(lc.kl_max_coeff))
+        total = max(getattr(self, "_stage1_total_iters", 100_000), 1)
+        f32 = np.float32
+        return linear_kl_coeff(step, f32(lc.kl_anneal_portion) * f32(total),
+                               f32(lc.kl_const_portion) * f32(total),
+                               lc.kl_const_coeff, lc.kl_max_coeff)
+
+    def _sn_weight(self, kl_coeff: float) -> float:
+        lc = self.lc
+        if not lc.sn_reg_weight_decay_anneal:
+            return lc.sn_reg_weight_decay
+        f32, k = np.float32, np.float32(kl_coeff)
+        return float(np.exp((f32(1.0) - k) * np.log(f32(lc.sn_reg_weight_decay_init))
+                            + k * np.log(f32(lc.sn_reg_weight_decay))))
+
+    def stage1_loss(self, x: torch.Tensor, step: int, draws: Stage1Draws, sn_state,
+                    generator: Optional[torch.Generator] = None):
+        """The stage-1 loss of a batch x (b, H, W, C) in [0, 1]: the
+        multiscale target and coordinates, encode -> posterior sample ->
+        decode -> INR at the crop's coordinates, then sum over (H, W, C) of
+        |output - target| averaged over the batch, plus the annealed KL
+        (its coefficient reads the micro-step `step`), LPIPS and the
+        spectral-norm regulariser on the fp32 masters.  Under model.amp the
+        VAE and the INR compute on bf16 casts of their parameters with a
+        bf16 input; the coordinates stay fp32 and the output returns to
+        fp32 before the loss.  -> (loss, metrics, new sn state, (target,
+        output, scale))."""
+        lc = self.lc
+        with record_function("stage1/multiscale"):
+            x = symmetrize(x.float())
+            target, coords, scale, y = multiscale_image_transform(x, self.anchor, lc.multiscale,
+                                                                  draws.multiscale)
+        b, res = target.shape[0], target.shape[1]
+        with record_function("stage1/encode"):
+            p_vae = compute_cast(dict(self.vae.named_parameters()), self.amp)
+            p_mlp = compute_cast(dict(self.mlp.named_parameters()), self.amp)
+            y = y.permute(0, 3, 1, 2).to(torch.bfloat16 if self.amp else torch.float32)
+            if y.is_cuda:
+                y = y.contiguous(memory_format=torch.channels_last)
+            posterior = method_call(self.vae, p_vae, "encode", y)
+            z = posterior.sample(draws.eps)
+        with record_function("stage1/decode"):
+            hdbf = method_call(self.vae, p_vae, "decode", z)
+        with record_function("stage1/inr"):
+            out = method_call(self.mlp, p_mlp, "forward", hdbf, scale,
+                              coords=coords.reshape(1, res * res, 2),
+                              generator=draws.noise if draws.noise is not None else generator)
+            output = out.float().reshape(b, res, res, -1)
+
+        kld = posterior.kl().float().mean()
+        kl_coeff = self._kl_coeff(step)
+        recon = (output - target).abs().sum(dim=(1, 2, 3)).mean()
+        loss = recon + kl_coeff * kld
+        p_loss = torch.zeros((), device=x.device)
+        if self.perceptual is not None:
+            with record_function("stage1/lpips"):
+                p_loss = self.perceptual(target, output).mean()
+            loss = loss + lc.perceptual_weight * p_loss
+        new_sn, sn = sn_state, torch.zeros((), device=x.device)
+        if lc.sn_reg:
+            with record_function("stage1/sn"):
+                sn, new_sn = spectral_norm_loss(self.vae, sn_state)
+                sn = sn + norm_scale_loss(self.vae)
+            loss = loss + sn * self._sn_weight(kl_coeff)
+        metrics = {"loss": loss, "recon": recon, "kl": kld, "kl_coeff": kl_coeff,
+                   "lpips": p_loss, "sn": sn}
+        return loss, metrics, new_sn, (target, output, scale)
+
+    def _augment(self, x, draws: Stage1Draws):
+        return diff_augment(x, self.diffaug_policy, draws.aug) if draws.aug else x
+
+    def stage1_train_step(self, state: Stage1State, x: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          host_generator: Optional[torch.Generator] = None,
+                          draws: Optional[Stage1Draws] = None):
+        """One micro-step: the loss and its gradients, then the optimizer (and
+        for the adversarial configs the discriminator's loss, gradient and
+        optimizer, from the same forward); the draws are `draws` or made by
+        `draw_stage1`.  Advances state.step.  -> (state, metrics of
+        detached scalars)."""
+        if draws is None:
+            draws = self.draw_stage1(x.shape[0], generator, host_generator)
+        loss, metrics, sn, (target, output, scale) = self.stage1_loss(
+            x, state.step, draws, state.sn, generator)
+        if self.gan is None:
+            with record_function("stage1/backward"):
+                loss.backward()
+        else:
+            with record_function("stage1/gan"):
+                t_aug, o_aug = self._augment(target, draws), self._augment(output, draws)
+                # the generator's gradient with respect to the discriminator
+                # is not taken (JAX discards it)
+                self.gan.requires_grad_(False)
+                g_gan = self.gan.generator_loss(t_aug, o_aug, scale)
+            with record_function("stage1/backward"):
+                (loss + g_gan).backward()
+            with record_function("stage1/gan"):
+                self.gan.requires_grad_(True)
+                d_loss = self.gan.discriminator_loss(t_aug, o_aug, scale)
+                d_loss.backward()
+                disc = list(state.disc.values())
+                state.disc_opt.update(disc, [p.grad for p in disc])
+                for p in disc:
+                    p.grad = None
+            metrics = dict(metrics, g_gan=g_gan, d_loss=d_loss)
+        with record_function("stage1/optimizer"):
+            params = list(state.params.values())
+            state.opt.update(params, [p.grad if p.grad is not None else torch.zeros_like(p)
+                                      for p in params])
+            for p in params:
+                p.grad = None
+        state.sn = sn
+        state.step += 1
+        return state, {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def reconstruct(self, x: torch.Tensor, resolution: Optional[int] = None,
+                    eps: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    render_seed: int = 0) -> torch.Tensor:
+        """Reconstruction at any resolution (the rFID path): x (b, H, W, C)
+        in [0, 1] is resized to the anchor, symmetrized and clipped,
+        encoded, sampled with `eps` (drawn from `generator` when not given),
+        decoded, and rendered at resolution x resolution (the anchor when
+        None) with scale injection anchor / resolution through the fused
+        render: the INR decode kernel on the card, its plain version on the
+        CPU, its NoiseInjection keyed by `render_seed`.  Under model.amp the
+        VAE computes on bf16 casts of its parameters; on the card the render
+        takes the kernel's bf16 tokens.  -> (b, res, res, out_ch) in [0, 1],
+        fp32."""
+        res = resolution or self.anchor
+        dtype = torch.bfloat16 if self.amp else self.vae.post_quant_conv.weight.dtype
+        y = resize_antialias(symmetrize(x.to(self.device).float()), self.anchor).clamp(-1.0, 1.0)
+        y = y.permute(0, 3, 1, 2).to(dtype)
+        if y.is_cuda:
+            y = y.contiguous(memory_format=torch.channels_last)
+        p_vae = {k: v.to(dtype) for k, v in self.vae.named_parameters()}
+        posterior = method_call(self.vae, p_vae, "encode", y)
+        if eps is None:
+            eps = torch.randn(posterior.mean.shape, generator=generator, device=self.device)
+        hdbf = method_call(self.vae, p_vae, "decode", posterior.sample(eps.to(self.device)))
+        if self.device.type == "cuda":
+            hdbf = [h.to(torch.bfloat16) for h in hdbf]
+        out = self._render_grid(hdbf, res, get_scale_injection(res, self.anchor), render_seed)
+        img = out.float().reshape(x.shape[0], res, res, -1)
         return unsymmetrize(img.clamp(-1.0, 1.0))
 
     # ------------------------------------------------------------ stage 2

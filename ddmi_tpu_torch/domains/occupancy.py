@@ -35,6 +35,7 @@ from ddmi_tpu_torch.core.convocc_config import (
     load_convocc_config,
     pointnet_kwargs,
 )
+from ddmi_tpu_torch.core.amp import method_call
 from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.nn.inr import INR3D
@@ -166,10 +167,19 @@ class OccupancyPipeline(nn.Module):
     @torch.no_grad()
     def decode_pyramids(self, z: torch.Tensor):
         """z (b, 3 * embed_dim, r, r) -> the (xy, yz, xz) HDBF pyramids, each
-        a list of NCHW planes coarse to fine, in the VAE's dtype (not
-        inference tensors: refinement differentiates the logits through
-        them)."""
-        return self.vae.decode(z.to(self.device, self.vae_dtype))
+        a list of NCHW planes coarse to fine (not inference tensors:
+        refinement differentiates the logits through them).  The decode
+        runs in the promotion of z's and the VAE's dtypes, as flax promotes:
+        fp32 latents on bf16 parameters decode in fp32 on the bf16-valued
+        weights (the decode's own, upcast for the call), as the JAX
+        occupancy service decodes its fp32 DDIM latents."""
+        z = z.to(self.device)
+        dt = torch.promote_types(z.dtype, self.vae_dtype)
+        if dt == self.vae_dtype:
+            return self.vae.decode(z)
+        params = {k: v.to(dt) for k, v in self.vae.named_parameters()
+                  if k.startswith(("post_quant_conv", "decoder."))}
+        return method_call(self.vae, params, "decode", z.to(dt))
 
     def logits_from_pyramids(self, points: torch.Tensor, pyramids) -> torch.Tensor:
         """Occupancy logits at points (b, n, 3) given decoded pyramids

@@ -6,8 +6,12 @@ ddmi_tpu/interop/reference_ckpt.py that the ported slices need: for images
 `convert_unet_triplane`, the decoder half of `convert_video_vae` and
 `convert_mlp_video`; for NeRF the decoder half of `convert_triplane_vae` and
 `convert_mlp_nerf` (the UNet is the image one); for occupancy
-`convert_triplane_vae` whole, `convert_mlp_3d` and `convert_pointnet`.  The port's modules use the reference
-PyTorch layouts, so every map here is a transpose, reshape or channel
+`convert_triplane_vae` whole, `convert_mlp_3d` and `convert_pointnet`.  For
+stage-1 training: LPIPS into the reference checkpoint layout (the JAX
+package's evals/lpips.py::load_torch_weights reads it back), and the
+PatchGAN and the spectral-norm state, which the JAX package has no
+converter for (`*_to_jax` give the inverses).  The port's modules use the
+reference PyTorch layouts, so every map here is a transpose, reshape or channel
 permutation and the round trip is bit-exact:
 
   * Flax Conv (kh, kw, I, O)   -> Conv2d (O, I, kh, kw)
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from ddmi_tpu_torch.nn.unet import qkv_permutation
+from ddmi_tpu_torch.nn.vae import jax_layout
 
 SD = Dict[str, torch.Tensor]
 
@@ -154,69 +159,22 @@ def _vae_attn(sd: SD, key: str, p) -> None:
         _conv(sd, f"{key}.{name}", p[name])
 
 
-def _vae_encoder(sd: SD, enc, cfg) -> None:
-    """JAX Encoder params -> `encoder.*` (reference_ckpt._convert_vae_encoder
-    inverted: flax numbers the ResnetBlock/AttnBlock/Downsample instances in
-    construction order, mid blocks included)."""
-    _conv(sd, "encoder.conv_in", enc["conv_in"])
-    rb = ab = 0
-    curr = cfg.resolution
-    n = len(cfg.ch_mult)
-    for i in range(n):
-        for j in range(cfg.num_res_blocks):
-            _vae_resnet(sd, f"encoder.down.{i}.block.{j}", enc[f"ResnetBlock_{rb}"])
-            rb += 1
-            if curr in cfg.attn_resolutions:
-                _vae_attn(sd, f"encoder.down.{i}.attn.{j}", enc[f"AttnBlock_{ab}"])
-                ab += 1
-        if i != n - 1:
-            _conv(sd, f"encoder.down.{i}.downsample.conv", enc[f"Downsample_{i}"]["Conv_0"])
-            curr //= 2
-    _vae_resnet(sd, "encoder.mid.block_1", enc[f"ResnetBlock_{rb}"])
-    if cfg.attn_type != "none":
-        _vae_attn(sd, "encoder.mid.attn_1", enc[f"AttnBlock_{ab}"])
-    _vae_resnet(sd, "encoder.mid.block_2", enc[f"ResnetBlock_{rb + 1}"])
-    _gn(sd, "encoder.norm_out", enc["Norm_0"]["GroupNorm_0"])
-    _conv(sd, "encoder.conv_out", enc["conv_out"])
-
-
 def vae_from_jax(tree, cfg) -> SD:
     """JAX Autoencoder params (nn/vae.py) -> state_dict of the port's
     Autoencoder (`encoder.*`, `quant_conv.*`, `decoder.*`,
-    `post_quant_conv.*`); inverts reference_ckpt.convert_vae."""
-    if cfg.attn_type not in ("vanilla", "none"):
-        raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
-    dec = tree["decoder"]
+    `post_quant_conv.*`), any attn_type; inverts reference_ckpt.convert_vae
+    along the port's `jax_layout`."""
     sd: SD = {}
-    _vae_encoder(sd, tree["encoder"], cfg)
-    _conv(sd, "quant_conv", tree["quant_conv"])
-    _conv(sd, "decoder.conv_in", dec["conv_in"])
-    rb = ab = up = 0
-    n = len(cfg.ch_mult)
-    curr = cfg.resolution // 2 ** (n - 1)
-    _vae_resnet(sd, "decoder.mid.block_1", dec[f"ResnetBlock_{rb}"])
-    rb += 1
-    if cfg.attn_type != "none":
-        _vae_attn(sd, "decoder.mid.attn_1", dec[f"AttnBlock_{ab}"])
-        ab += 1
-    _vae_resnet(sd, "decoder.mid.block_2", dec[f"ResnetBlock_{rb}"])
-    rb += 1
-    for i in reversed(range(n)):
-        for j in range(cfg.num_res_blocks + 1):
-            _vae_resnet(sd, f"decoder.up.{i}.block.{j}", dec[f"ResnetBlock_{rb}"])
-            rb += 1
-            if curr in cfg.attn_resolutions:
-                _vae_attn(sd, f"decoder.up.{i}.attn.{j}", dec[f"AttnBlock_{ab}"])
-                ab += 1
-        if curr in cfg.hdbf_resolutions:
-            _conv(sd, f"decoder.up.{i}.hdbf.0", dec[f"hdbf_{curr}"])
-        if i != 0:
-            _conv(sd, f"decoder.up.{i}.upsample.conv", dec[f"Upsample_{up}"]["Conv_0"])
-            up += 1
-            curr *= 2
-    _gn(sd, "decoder.norm_out", dec["Norm_0"]["GroupNorm_0"])
-    _conv(sd, "decoder.conv_out", dec["conv_out"])
-    _conv(sd, "post_quant_conv", tree["post_quant_conv"])
+    for key, path, kind in jax_layout(cfg):
+        p = tree
+        for name in path:
+            p = p[name]
+        if kind == "gn":
+            _gn(sd, key, p)
+        elif kind == "conv":
+            _conv(sd, key, p)
+        else:
+            sd[key + ".weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
     return sd
 
 
@@ -460,3 +418,72 @@ def mlp_nerf_from_jax(tree, depth: int) -> SD:
     _dense(sd, "sigma", tree["sigma"])
     _dense(sd, "rgb.0", tree["rgb"])
     return sd
+
+
+# ------------------------------------------------------- stage-1 training
+
+
+def discriminator_from_jax(tree) -> SD:
+    """JAX GANLoss2D params {"discriminator": {Conv_k, SyncBatchNorm_k}} ->
+    state_dict of the port's GANLoss2D (`discriminator.convs.{k}`,
+    `discriminator.norms.{k}.scale` (the offset from 1, as JAX stores it)
+    and `.bias`)."""
+    d = tree["discriminator"]
+    sd: SD = {}
+    k = 0
+    while f"Conv_{k}" in d:
+        _conv(sd, f"discriminator.convs.{k}", d[f"Conv_{k}"])
+        k += 1
+    k = 0
+    while f"SyncBatchNorm_{k}" in d:
+        sd[f"discriminator.norms.{k}.scale"] = _t(d[f"SyncBatchNorm_{k}"]["scale"])
+        sd[f"discriminator.norms.{k}.bias"] = _t(d[f"SyncBatchNorm_{k}"]["bias"])
+        k += 1
+    return sd
+
+
+def discriminator_to_jax(sd: SD) -> dict:
+    """The inverse of `discriminator_from_jax` (numpy leaves)."""
+    d: dict = {}
+    for key, t in sd.items():
+        _, group, k, name = key.split(".")
+        a = t.detach().cpu().numpy()
+        if group == "convs":
+            d.setdefault(f"Conv_{k}", {})["kernel" if name == "weight" else "bias"] = (
+                np.transpose(a, (2, 3, 1, 0)) if name == "weight" else a)
+        else:
+            d.setdefault(f"SyncBatchNorm_{k}", {})[name] = a
+    return {"discriminator": d}
+
+
+def lpips_from_jax(tree) -> SD:
+    """JAX LPIPS params {"vgg": {conv0..conv12}, lin0..lin4} -> the reference
+    LPIPS checkpoint layout (torchvision `features.{i}` and
+    `lin{i}.model.1.weight`), which the port's LPIPS loads and the JAX
+    package's evals/lpips.py::load_torch_weights reads back."""
+    from ddmi_tpu_torch.evals.lpips import VGG16_CFG
+
+    sd: SD = {}
+    conv = layer = 0
+    for v in VGG16_CFG:
+        if v == "M":
+            layer += 1
+            continue
+        _conv(sd, f"features.{layer}", tree["vgg"][f"conv{conv}"])
+        conv += 1
+        layer += 2
+    for i in range(5):
+        if f"lin{i}" in tree:
+            sd[f"lin{i}.model.1.weight"] = _t(np.asarray(tree[f"lin{i}"]).reshape(1, -1, 1, 1))
+    return sd
+
+
+def sn_state_from_jax(state) -> Dict[str, tuple]:
+    """JAX spectral-norm state {f"{out}x{fan_in}": (u, v)} -> the port's,
+    unchanged: the port keeps JAX's groups, matrix order and (kh, kw, in)
+    column order (core/sn_reg.py)."""
+    return {k: (_t(u), _t(v)) for k, (u, v) in state.items()}
+
+
+def sn_state_to_jax(state) -> Dict[str, tuple]:
+    return {k: (u.detach().cpu().numpy(), v.detach().cpu().numpy()) for k, (u, v) in state.items()}

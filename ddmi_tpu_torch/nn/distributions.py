@@ -2,7 +2,8 @@
 
 Moments arrive channel-concatenated [mean | logvar] on the channel axis
 (NCHW, as in the reference's DiagonalGaussianDistribution); the logvar is
-clamped to [-30, 20].
+clamped to [-30, 20].  `kl` is the divergence to N(0, I) that stage-1
+training anneals.
 """
 
 from __future__ import annotations
@@ -35,3 +36,9 @@ class DiagonalGaussian(NamedTuple):
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL divergence to the standard normal, summed over all but the
+        batch axis, in the moments' dtype -> (b,)."""
+        return 0.5 * torch.sum(self.mean**2 + torch.exp(self.logvar) - 1.0 - self.logvar,
+                               dim=tuple(range(1, self.mean.ndim)))

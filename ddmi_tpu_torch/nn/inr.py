@@ -1,6 +1,7 @@
 """INR heads of the sampling paths (counterpart of ddmi_tpu/nn/inr.py):
-the scale-aware image head `INRImage` and the video head `INRVideo`, both on
-regular grids only (the separable sampling of ops/resample.py), the
+the scale-aware image head `INRImage` on regular grids (the separable
+sampling of ops/resample.py) or at arbitrary points, the video head
+`INRVideo` on regular grids, the
 occupancy head `INR3D` at arbitrary query points with its triplane lookup
 (`normalize_coordinate`, `sample_plane_coords`, `triplane_pe_add`), and the
 NeRF MLP `INRNeRF` with its `FreqEmbedding`.
@@ -39,9 +40,13 @@ class GELUTanh(nn.Module):
 
 class INRImage(nn.Module):
     """forward(hdbf [3 x (b, latent, h, w)], si, grid_1d=(xs, ys)) ->
-    (b, len(ys) * len(xs), out_ch), tokens y-major (row-major over ys, xs).
-    The scale si conditions every conv through a sinusoidal style MLP and
-    enters every token as `in_ch` extra channels."""
+    (b, len(ys) * len(xs), out_ch), tokens y-major (row-major over ys, xs);
+    or forward(hdbf, si, coords=(b|1, n, 2)) at arbitrary (x, y) points ->
+    (b, n, out_ch), the planes sampled bilinearly with border padding and
+    align_corners=False (the JAX package's `singleplane_pe`), in fp32 index
+    math.  The scale si conditions every conv through a sinusoidal style
+    MLP and enters every token as `in_ch` extra channels.  `generator`
+    feeds the NoiseInjections (nn/stylegan.py)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -66,19 +71,27 @@ class INRImage(nn.Module):
         return h @ l2.weight.float().t() + l2.bias.float()
 
     def forward(self, hdbf: Sequence[torch.Tensor], si,
-                grid_1d: Tuple[torch.Tensor, torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                grid_1d: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator=None, coords: Optional[torch.Tensor] = None) -> torch.Tensor:
         assert len(hdbf) == 3, "expects a 3-level HDBF pyramid"
+        assert (grid_1d is None) != (coords is None), "give grid_1d or coords"
         c = self.cfg
         b = hdbf[0].shape[0]
         dtype = hdbf[0].dtype
-        xs, ys = grid_1d
-        n = xs.shape[0] * ys.shape[0]
+        if grid_1d is not None:
+            xs, ys = grid_1d
+            n = xs.shape[0] * ys.shape[0]
 
-        def pe(plane):
-            out = separable_grid_sample(plane, xs, ys, align_corners=False,
-                                        padding_mode="border")
-            return out.reshape(b, n, plane.shape[1])
+            def pe(plane):
+                out = separable_grid_sample(plane, xs, ys, align_corners=False,
+                                            padding_mode="border")
+                return out.reshape(b, n, plane.shape[1])
+        else:
+            coords = coords.expand(b, -1, -1) if coords.shape[0] == 1 else coords
+            n = coords.shape[1]
+
+            def pe(plane):
+                return grid_sample_2d(plane.permute(0, 2, 3, 1), coords, align_corners=False)
 
         style = self.style(si, b, hdbf[0].device).to(dtype)
         scale_pix = torch.full((b, n, c.in_ch), float(si), dtype=dtype, device=hdbf[0].device)

@@ -72,17 +72,26 @@ class ModulatedConv(nn.Module):
 
 class NoiseInjection(nn.Module):
     """x + w * N(0, 1), one draw per token; w zero at init.  The draw is made
-    in fp32 and then cast, as the reference's torch.randn is fp32."""
+    in fp32 and then cast, as the reference's torch.randn is fp32.
+
+    `generator` is a torch.Generator to draw from, or an iterator that
+    yields the draws themselves, (..., n, 1) fp32 each, in the order the
+    module tree calls its NoiseInjections (conv1..conv3 of net_res1, then
+    of net_res2, ...): a caller that holds another framework's draws feeds
+    them this way."""
 
     def __init__(self):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        noise = torch.randn(
-            x.shape[:-1] + (1,), generator=generator, device=x.device, dtype=torch.float32
-        ).to(x.dtype)
-        return x + self.weight.to(x.dtype) * noise
+    def forward(self, x, generator=None):
+        shape = x.shape[:-1] + (1,)
+        if generator is None or isinstance(generator, torch.Generator):
+            noise = torch.randn(shape, generator=generator, device=x.device,
+                                dtype=torch.float32)
+        else:
+            noise = next(generator).to(x.device, torch.float32).expand(shape)
+        return x + self.weight.to(x.dtype) * noise.to(x.dtype)
 
 
 class FusedLeakyReLU(nn.Module):

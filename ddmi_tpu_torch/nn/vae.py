@@ -6,13 +6,15 @@ State keys follow the reference `autoencoder_unet` Autoencoder: the Encoder
 `encoder.mid.{block_1,attn_1,block_2}`, `encoder.norm_out`,
 `encoder.conv_out`), `quant_conv`, the Decoder (`decoder.conv_in`,
 `decoder.mid.*`, `decoder.up.{i}.{block,attn,hdbf,upsample}`,
-`decoder.norm_out`, `decoder.conv_out`) and `post_quant_conv`.  The
-linear-attention variant waits for stage-1 training.
+`decoder.norm_out`, `decoder.conv_out`) and `post_quant_conv`.
+`jax_layout` names the JAX package's parameter path of every convolution
+and GroupNorm, which the weight bridge and the spectral-norm regulariser
+(core/sn_reg.py, whose matrices JAX orders by path) read.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -97,11 +99,38 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
+class LinAttnBlock(nn.Module):
+    """Linear attention (`attn_type: linear`; the reference's LinAttnBlock,
+    heads 1, dim_head C): no pre-norm and no residual.  A bias-free
+    `to_qkv` 1x1 conv gives qkv-major channels (q, then k, then v); k is
+    softmaxed over the spatial axis, the context k v^T (C x C) is read out
+    by q, and `to_out` (with bias) maps back.  The softmax and both
+    contractions run in fp32, the output in the input's dtype."""
+
+    def __init__(self, channels: int, heads: int = 1):
+        super().__init__()
+        self.heads = heads
+        self.to_qkv = nn.Conv2d(channels, 3 * channels, 1, bias=False)
+        self.to_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        nh = self.heads
+        qkv = self.to_qkv(x).reshape(B, 3, nh, C // nh, H * W).float()
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]            # (B, nh, d, n)
+        k = torch.softmax(k, dim=-1)
+        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        out = torch.einsum("bhde,bhdn->bhen", context, q)
+        return self.to_out(out.reshape(B, C, H, W).to(x.dtype))
+
+
 def _make_attn(channels: int, attn_type: str):
     if attn_type == "vanilla":
         return AttnBlock(channels)
     if attn_type == "vanilla-multihead":
         return AttnBlock(channels, num_heads=16)
+    if attn_type == "linear":
+        return LinAttnBlock(channels)
     if attn_type == "none":
         return None
     raise NotImplementedError(f"attn_type {attn_type!r} is not ported")
@@ -219,6 +248,7 @@ class Autoencoder(nn.Module):
 
     def __init__(self, cfg, embed_dim: int = 64):
         super().__init__()
+        self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         self.quant_conv = nn.Conv2d(2 * cfg.z_channels, 2 * embed_dim, 1)
@@ -230,3 +260,87 @@ class Autoencoder(nn.Module):
 
     def decode(self, z) -> List[torch.Tensor]:
         return self.decoder(self.post_quant_conv(z))
+
+
+def jax_layout(cfg) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """[(port module key, JAX parameter path, kind)] for every convolution
+    ("conv", kernel and bias; "conv_nobias", kernel only) and GroupNorm
+    ("gn") of the Autoencoder: flax numbers ResnetBlock / AttnBlock /
+    LinAttnBlock / Downsample / Upsample instances per parent in call
+    order, the decoder's levels from coarse to fine (the inverse of
+    ddmi_tpu/interop/reference_ckpt.py::convert_vae)."""
+    out: List[Tuple[str, Tuple[str, ...], str]] = []
+    attn_name = "LinAttnBlock" if cfg.attn_type == "linear" else "AttnBlock"
+
+    def resnet(key, path, cin, cout):
+        out.extend([(key + ".norm1", path + ("Norm_0", "GroupNorm_0"), "gn"),
+                    (key + ".conv1", path + ("Conv_0",), "conv"),
+                    (key + ".norm2", path + ("Norm_1", "GroupNorm_0"), "gn"),
+                    (key + ".conv2", path + ("Conv_1",), "conv")])
+        if cin != cout:
+            out.append((key + ".nin_shortcut", path + ("nin_shortcut",), "conv"))
+
+    def attn(key, path):
+        if cfg.attn_type == "linear":
+            out.extend([(key + ".to_qkv", path + ("to_qkv",), "conv_nobias"),
+                        (key + ".to_out", path + ("to_out",), "conv")])
+        else:
+            out.append((key + ".norm", path + ("Norm_0", "GroupNorm_0"), "gn"))
+            out.extend((f"{key}.{n}", path + (n,), "conv") for n in ("q", "k", "v", "proj_out"))
+
+    n = len(cfg.ch_mult)
+    enc = ("encoder",)
+    out.append(("encoder.conv_in", enc + ("conv_in",), "conv"))
+    rb = ab = 0
+    curr, block_in = cfg.resolution, cfg.ch
+    for i in range(n):
+        block_out = cfg.ch * cfg.ch_mult[i]
+        for j in range(cfg.num_res_blocks):
+            resnet(f"encoder.down.{i}.block.{j}", enc + (f"ResnetBlock_{rb}",), block_in,
+                   block_out)
+            rb, block_in = rb + 1, block_out
+            if curr in cfg.attn_resolutions:
+                attn(f"encoder.down.{i}.attn.{j}", enc + (f"{attn_name}_{ab}",))
+                ab += 1
+        if i != n - 1:
+            out.append((f"encoder.down.{i}.downsample.conv",
+                        enc + (f"Downsample_{i}", "Conv_0"), "conv"))
+            curr //= 2
+    resnet("encoder.mid.block_1", enc + (f"ResnetBlock_{rb}",), block_in, block_in)
+    if cfg.attn_type != "none":
+        attn("encoder.mid.attn_1", enc + (f"{attn_name}_{ab}",))
+    resnet("encoder.mid.block_2", enc + (f"ResnetBlock_{rb + 1}",), block_in, block_in)
+    out.append(("encoder.norm_out", enc + ("Norm_0", "GroupNorm_0"), "gn"))
+    out.append(("encoder.conv_out", enc + ("conv_out",), "conv"))
+    out.append(("quant_conv", ("quant_conv",), "conv"))
+
+    dec = ("decoder",)
+    out.append(("decoder.conv_in", dec + ("conv_in",), "conv"))
+    rb = ab = up = 0
+    curr, block_in = cfg.resolution // 2 ** (n - 1), cfg.ch * cfg.ch_mult[-1]
+    resnet("decoder.mid.block_1", dec + (f"ResnetBlock_{rb}",), block_in, block_in)
+    if cfg.attn_type != "none":
+        attn("decoder.mid.attn_1", dec + (f"{attn_name}_{ab}",))
+        ab += 1
+    resnet("decoder.mid.block_2", dec + (f"ResnetBlock_{rb + 1}",), block_in, block_in)
+    rb += 2
+    for i in reversed(range(n)):
+        block_out = cfg.ch * cfg.ch_mult[i]
+        for j in range(cfg.num_res_blocks + 1):
+            resnet(f"decoder.up.{i}.block.{j}", dec + (f"ResnetBlock_{rb}",), block_in,
+                   block_out)
+            rb, block_in = rb + 1, block_out
+            if curr in cfg.attn_resolutions:
+                attn(f"decoder.up.{i}.attn.{j}", dec + (f"{attn_name}_{ab}",))
+                ab += 1
+        if curr in cfg.hdbf_resolutions:
+            out.append((f"decoder.up.{i}.hdbf.0", dec + (f"hdbf_{curr}",), "conv"))
+        if i != 0:
+            out.append((f"decoder.up.{i}.upsample.conv", dec + (f"Upsample_{up}", "Conv_0"),
+                        "conv"))
+            up += 1
+            curr *= 2
+    out.append(("decoder.norm_out", dec + ("Norm_0", "GroupNorm_0"), "gn"))
+    out.append(("decoder.conv_out", dec + ("conv_out",), "conv"))
+    out.append(("post_quant_conv", ("post_quant_conv",), "conv"))
+    return out

@@ -1,6 +1,8 @@
-"""Bilinear sampling of NHWC planes at arbitrary coordinates (counterpart of
-ddmi_tpu/ops/grid_sample.py::grid_sample_2d at the NeRF and occupancy
-paths' settings, align_corners=True with border padding).
+"""Bilinear sampling of NHWC planes at arbitrary coordinates with border
+padding (counterpart of ddmi_tpu/ops/grid_sample.py::grid_sample_2d):
+align_corners=True at the NeRF and occupancy paths' setting, the default,
+and align_corners=False at the image INR's (stage-1 training samples its
+planes at the multiscale crop's coordinates).
 
 The JAX function is four gathers outside any Pallas kernel; here it is one
 `F.grid_sample`, which has the same semantics: coordinates in [-1, 1]
@@ -20,26 +22,32 @@ import torch
 import torch.nn.functional as F
 
 
-def grid_sample_2d(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+def grid_sample_2d(feat: torch.Tensor, grid: torch.Tensor,
+                   align_corners: bool = True) -> torch.Tensor:
     """feat (B, H, W, C), grid (B, N, 2) -> (B, N, C)."""
     if grid.requires_grad and torch.is_grad_enabled():
-        return bilinear_gather(feat, grid)
+        return bilinear_gather(feat, grid, align_corners)
     B, N = grid.shape[:2]
     out = F.grid_sample(
         feat.permute(0, 3, 1, 2).float(), grid.float().reshape(B, 1, N, 2),
-        mode="bilinear", padding_mode="border", align_corners=True,
+        mode="bilinear", padding_mode="border", align_corners=align_corners,
     )  # (B, C, 1, N)
     return out[:, :, 0].transpose(1, 2).to(feat.dtype)
 
 
-def bilinear_gather(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+def bilinear_gather(feat: torch.Tensor, grid: torch.Tensor,
+                    align_corners: bool = True) -> torch.Tensor:
     """`grid_sample_2d` as four gathers of rows of the flattened planes and
     their bilinear weights, in fp32: the same values, differentiable to any
     order in both the planes and the coordinates."""
     B, H, W, C = feat.shape
     g = grid.float()
-    x = ((g[..., 0] + 1.0) * 0.5 * (W - 1)).clamp(0.0, W - 1)
-    y = ((g[..., 1] + 1.0) * 0.5 * (H - 1)).clamp(0.0, H - 1)
+    if align_corners:
+        x = ((g[..., 0] + 1.0) * 0.5 * (W - 1)).clamp(0.0, W - 1)
+        y = ((g[..., 1] + 1.0) * 0.5 * (H - 1)).clamp(0.0, H - 1)
+    else:
+        x = (((g[..., 0] + 1.0) * W - 1.0) * 0.5).clamp(0.0, W - 1)
+        y = (((g[..., 1] + 1.0) * H - 1.0) * 0.5).clamp(0.0, H - 1)
     x0, y0 = x.detach().floor(), y.detach().floor()
     wx, wy = (x - x0)[..., None], (y - y0)[..., None]
     x0, y0 = x0.long(), y0.long()

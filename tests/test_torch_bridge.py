@@ -212,6 +212,81 @@ def test_mlp_nerf_bridge_round_trip_is_exact():
     _assert_trees_equal(convert_mlp_nerf(sd, depth=6), t)
 
 
+def test_linear_attention_vae_bridge_round_trip_is_exact():
+    """attn_type linear (LinAttnBlock at 8 x 8 and in both mid blocks)."""
+    import dataclasses
+
+    from ddmi_tpu.nn.vae import Autoencoder
+    from ddmi_tpu_torch.nn.vae import Autoencoder as TorchAE
+
+    dd = dataclasses.replace(DD, attn_type="linear", attn_resolutions=(8,))
+    t = Autoencoder(dd, embed_dim=4).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 16, 16, 3)),
+        jax.random.PRNGKey(1),
+    )["params"]
+    assert "LinAttnBlock_1" in t["encoder"] and "LinAttnBlock_1" in t["decoder"]
+    t = _random_tree(t, 9)
+    sd = vae_from_jax(t, dd)
+    TorchAE(dd, embed_dim=4).load_state_dict(sd, strict=True)
+    _assert_trees_equal(convert_vae({k: v.numpy() for k, v in sd.items()}, dd), t)
+
+
+def test_discriminator_bridge_round_trip_is_exact():
+    """The PatchGAN: JAX -> port (strict load) -> JAX, scale offsets and all."""
+    from ddmi_tpu.losses.gan import GANLoss2D
+    from ddmi_tpu_torch.interop import discriminator_from_jax, discriminator_to_jax
+    from ddmi_tpu_torch.losses.gan import GANLoss2D as TorchGAN
+
+    x = jnp.zeros((1, 32, 32, 3))
+    t = _random_tree(GANLoss2D().init(jax.random.PRNGKey(0), x, x, False, 1.0)["params"], 10)
+    sd = discriminator_from_jax(t)
+    TorchGAN(3).load_state_dict(sd, strict=True)
+    _assert_trees_equal(discriminator_to_jax(sd), t)
+
+
+def test_lpips_bridge_round_trip_is_exact():
+    """LPIPS: JAX -> the reference checkpoint layout (the port's LPIPS loads
+    it strictly) -> the JAX package's own load_torch_weights."""
+    from ddmi_tpu.evals.lpips import LPIPS, load_torch_weights
+    from ddmi_tpu_torch.evals.lpips import LPIPS as TorchLPIPS
+    from ddmi_tpu_torch.interop import lpips_from_jax
+
+    x = jnp.zeros((1, 32, 32, 3))
+    t = _random_tree(LPIPS().init(jax.random.PRNGKey(0), x, x)["params"], 11)
+    sd = lpips_from_jax(t)
+    m = TorchLPIPS()
+    m.load_state_dict(sd, strict=True)
+    assert torch.equal(m.net.features[28].weight, sd["features.28.weight"])
+    _assert_trees_equal(load_torch_weights(sd, sd), t)
+
+
+def test_sn_state_bridge_round_trip_is_exact():
+    """The spectral-norm state: JAX -> port -> JAX; its groups are the
+    port's own (core/sn_reg.py) on the same VAE."""
+    from ddmi_tpu.core.sn_reg import init_sn_state
+    from ddmi_tpu.nn.vae import Autoencoder
+    from ddmi_tpu_torch.core.sn_reg import conv_matrices
+    from ddmi_tpu_torch.interop import sn_state_from_jax, sn_state_to_jax
+    from ddmi_tpu_torch.nn.vae import Autoencoder as TorchAE
+
+    t = Autoencoder(DD, embed_dim=4).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 16, 16, 3)),
+        jax.random.PRNGKey(1),
+    )["params"]
+    state = jax.tree_util.tree_map(np.asarray, init_sn_state(t, jax.random.PRNGKey(7)))
+    ours = sn_state_from_jax(state)
+    tm = TorchAE(DD, embed_dim=4)
+    tm.load_state_dict(vae_from_jax(jax.tree_util.tree_map(np.asarray, t), DD))
+    groups = conv_matrices(tm)
+    assert set(groups) == set(state)
+    for k, (u, v) in ours.items():
+        assert u.shape == (len(groups[k]),) + groups[k][0].shape[:1]
+        assert v.shape == (len(groups[k]),) + groups[k][0].shape[1:]
+    back = sn_state_to_jax(ours)
+    for k, (u, v) in state.items():
+        assert np.array_equal(back[k][0], u) and np.array_equal(back[k][1], v)
+
+
 def test_port_nerf_service_never_imports_jax():
     """A fresh interpreter serves a tiny NeRF config (2 DDIM steps, a
     width-256 MLP, so the render goes through the kernel wrapper's plain

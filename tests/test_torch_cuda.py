@@ -719,3 +719,87 @@ def test_occupancy_service_counts_attn_block_exactly(cuda_device):
     for (v, f), (v2, f2) in zip(first, again):
         assert np.isfinite(v).all() and (np.abs(v) <= 0.55 + 1e-4).all()
         assert np.array_equal(v, v2) and np.array_equal(f, f2)
+
+
+def _stage1_cfg(amp, mlp_ch=64):
+    return config_from_dict({"model": {"amp": amp, "lr": 1e-3, "embed_dim": 4, "params": {
+        "lossconfig": dict(gradient_accumulate_every=1, epochs=2, warmup_epochs=1),
+        "ddconfig": dict(z_channels=8, resolution=64, out_ch=16, ch=64, ch_mult=[1, 1, 2],
+                         num_res_blocks=1, hdbf_resolutions=[16, 32]),
+        "mlpconfig": dict(ch=mlp_ch, latent_dim=16),
+        "unetconfig": dict(image_size=16, in_channels=4, model_channels=32, out_channels=4,
+                           attention_resolutions=[], num_res_blocks=1, channel_mult=[1])}},
+        "data": {"domain": "image"}})
+
+
+def test_stage1_micro_step_on_the_card_matches_the_cpu(cuda_device):
+    """One stage-1 loss and its gradients (multiscale, VAE, the INR at the
+    crop's coordinates, KL, LPIPS on a random VGG, the SN regulariser) at a
+    64^2 anchor: bf16 on the card against fp32 on the CPU, on the same
+    weights, SN vectors and draws: the loss within 2%, each term within 5%,
+    the gradient cosine >= 0.999, and no kernel launched (stage 1 trains
+    through plain layers)."""
+    from ddmi_tpu_torch.domains.image import ImagePipeline, Stage1Draws
+    from ddmi_tpu_torch.evals.lpips import LPIPS
+
+    torch.manual_seed(0)
+    lp = LPIPS()
+    pipes = {}
+    for dev, amp in (("cpu", False), (cuda_device, True)):
+        p = ImagePipeline(_stage1_cfg(amp), device=dev, seed=3,
+                          perceptual=LPIPS(torch.bfloat16 if amp else torch.float32))
+        p.perceptual.load_state_dict(lp.state_dict())
+        p.perceptual.to(dev)
+        pipes[dev] = p
+    cpu, gpu = pipes["cpu"], pipes[cuda_device]
+    gpu.load_state_dicts(vae=cpu.vae.state_dict(), mlp=cpu.mlp.state_dict())
+    sc, sg = cpu.init_stage1(10), gpu.init_stage1(10)
+    sg.sn = {k: (u.to(cuda_device), v.to(cuda_device)) for k, (u, v) in sc.sn.items()}
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((2, 128, 128, 3)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((2, 4, 16, 16)).astype(np.float32))
+    noise = [torch.from_numpy(rng.standard_normal((2, 64 * 64, 1)).astype(np.float32))
+             for _ in range(12)]
+    counts = [k.launches for k in (attn_block.fused_attention_block, inr_decode.inr_decode_fused,
+                                   flash_attention.flash_attention, attention.mha_vmem)]
+    out = {}
+    for dev, pipe, st in (("cpu", cpu, sc), ("cuda", gpu, sg)):
+        draws = Stage1Draws((0.7, 5, 20, 0, 0), eps.to(pipe.device), iter(noise))
+        loss, m, _, _ = pipe.stage1_loss(x.to(pipe.device), 3, draws, st.sn)
+        loss.backward()
+        g = torch.cat([p.grad.float().cpu().flatten() for p in st.params.values()])
+        out[dev] = (loss.item(), {k: float(v) for k, v in m.items()}, g)
+    assert counts == [k.launches for k in (attn_block.fused_attention_block,
+                                           inr_decode.inr_decode_fused,
+                                           flash_attention.flash_attention, attention.mha_vmem)]
+    (lc, mc, gc), (lg, mg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 0.02 * abs(lc), (lg, lc)
+    for k in ("recon", "kl", "lpips", "sn"):
+        assert abs(mg[k] - mc[k]) <= 0.05 * abs(mc[k]), (k, mg[k], mc[k])
+    cos = torch.nn.functional.cosine_similarity(gg, gc, dim=0).item()
+    assert cos >= 0.999, cos
+
+
+@pytest.mark.parametrize("res", [64, 96])
+def test_reconstruct_runs_the_inr_decode_kernel(cuda_device, res):
+    """ImagePipeline.reconstruct on the card (bf16 VAE, the render through
+    inr_decode, whose INR is 256 wide: one launch per call) against the same
+    pipeline on the CPU in fp32 through the kernel's plain version: mean
+    |pixel error| <= 0.02 (the kernels' bf16 bar), pixels in [0, 1]."""
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+
+    cpu = ImagePipeline(_stage1_cfg(False, 256), device="cpu", seed=4)
+    gpu = ImagePipeline(_stage1_cfg(True, 256), device=cuda_device, seed=4)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).random((3, 128, 128, 3)).astype(np.float32))
+    eps = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 4, 16, 16))
+                           .astype(np.float32))
+    ref = cpu.reconstruct(x, res, eps=eps, render_seed=5)
+    before = inr_decode.inr_decode_fused.launches
+    got = gpu.reconstruct(x.to(cuda_device), res, eps=eps.to(cuda_device), render_seed=5)
+    torch.cuda.synchronize()
+    assert inr_decode.inr_decode_fused.launches == before + 1
+    assert got.shape == (3, res, res, 3) and torch.isfinite(got).all()
+    assert 0.0 <= got.min().item() and got.max().item() <= 1.0
+    err = (got.cpu() - ref).abs().mean().item()
+    assert err <= 0.02, err

@@ -404,6 +404,29 @@ def test_encode_latents_and_occupancy_logits_match_jax(shared):
     _close(got, ref, "occupancy_logits")
 
 
+def test_decode_of_fp32_latents_on_bf16_parameters_matches_jax(shared):
+    """The service's decode: the JAX service casts the stage-1 parameters to
+    bf16 (serve/server.py::_bf16) and decodes fp32 DDIM latents with them,
+    which flax promotes to an fp32 decode on bf16-valued weights.  The port
+    with a bf16 VAE decodes fp32 z the same way: every plane of the three
+    pyramids is fp32 and within 1e-5 relative (Frobenius) of JAX's."""
+    from ddmi_tpu.serve.server import _bf16
+
+    jpipe, s1, _, sds = shared
+    z = np.random.default_rng(21).standard_normal((2, 8, 8, 24)).astype(np.float32)
+    ref = jpipe.decode_pyramids(_bf16(jax.tree_util.tree_map(jnp.asarray, s1)), jnp.asarray(z))
+    pipe = _port_pipe(sds)
+    pipe.vae.to(torch.bfloat16)
+    got = pipe.decode_pyramids(_nchw(z))
+    for g_planes, r_planes in zip(got, ref):
+        for g, r in zip(g_planes, r_planes):
+            r = np.asarray(r)
+            assert g.dtype == torch.float32 and r.dtype == np.float32
+            g = _nhwc(g)
+            rel = np.linalg.norm(g - r) / np.linalg.norm(r)
+            assert rel <= 1e-5, rel
+
+
 def test_entry_points_need_the_card_unless_asked_for_the_cpu():
     from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
     from ddmi_tpu_torch.serve.server import SamplerService

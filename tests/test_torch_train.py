@@ -8,6 +8,7 @@ sides.  Each test states its tolerance.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -440,7 +441,8 @@ class _Images:
 def test_trainer_train_stage2(tmp_path):
     """Trainer.train_stage2: the step count, parameters that change only at
     accumulation boundaries (micro-steps 3 and 6), finite logged losses, a
-    NaN loss stopped by the guard at its check step, and no resume."""
+    NaN loss stopped by the guard at its check step, and a resume from the
+    checkpoint the first run saved at its last epoch."""
     from ddmi_tpu_torch.core.trainer import NaNLossError, Trainer
     from ddmi_tpu_torch.domains.image import ImagePipeline
 
@@ -469,5 +471,9 @@ def test_trainer_train_stage2(tmp_path):
     bad = Trainer(cfg, pipe, _Images(6, nan_at=2), save_dir=str(tmp_path / "nan"))
     with pytest.raises(NaNLossError, match="step 4"):
         bad.train_stage2(epochs=1)
-    with pytest.raises(NotImplementedError):
-        bad.train_stage2(resume=True)
+    assert not (tmp_path / "nan" / "stage2").exists() or not os.listdir(tmp_path / "nan" / "stage2")
+
+    pipe = ImagePipeline(cfg, device="cpu", seed=cfg.seed)
+    again = Trainer(cfg, pipe, _Images(6), save_dir=str(tmp_path / "ok"))
+    state = again.train_stage2(epochs=1, resume=True)
+    assert state.step == 12 and state.opt.gradient_step == 4
