@@ -126,7 +126,43 @@ Phases, each of which ends the run with a non-zero exit on failure:
      micro-steps and saves, and a new trainer resumes for 1 more;
  25. stage-1 reference: one loss and its gradients at a small config, bf16
      on the GPU against fp32 on the CPU (loss within 2%, each term within
-     5%, gradient cosine >= 0.999).
+     5%, gradient cosine >= 0.999);
+ 26. video stage 1: Trainer.train_stage1 on configs/d2c-vae/skytimelapse.yaml
+     at full width (batch 2 of 16 x 256^2 synthetic clips, fp32 masters with
+     bf16 compute, accumulation over 5, LPIPS on a random VGG16, the SN
+     regulariser; 10 micro-steps): one flash forward with LSE and one
+     backward per micro-step (the decoder's n = 20,480 cross-plane
+     attention; the n = 73,728 one trains through the MEA) and no other
+     launch, every loss term finite, the parameters bit-unchanged through
+     micro-step 9 and all changed at 10, the SN state changed at every
+     micro-step, the flash shapes recorded; the eval hook's PSNR of 2
+     reconstructed clips (2 flash launches); then a timed run of 6
+     micro-steps (micro-steps/s, clips/s, peak memory), a split by the
+     stage1/* ranges, host against device time and a profile;
+ 27. video checkpoint and reconstruction: the state restored bit for bit
+     into a scrambled one and a resumed run of 2 micro-steps; reconstruct
+     of 2 clips (2 flash launches, pixels in [0, 1], PSNR);
+ 28. adversarial video stage 1 (configs/d2c-vae/skytimelapse_gan.yaml, 5
+     checked micro-steps after 3 timed): the 2D and 3D discriminators
+     change at every micro-step, the VAE and INR at none;
+ 29. video stage 2: Trainer.train_stage2 on configs/ldm/skytimelapse.yaml
+     at full width on the stage-1 checkpoint (batch 2, 10 micro-steps): the
+     flash forward and backward counts per micro-step against the calls
+     recorded in the run, finite losses, the parameters moving at every
+     micro-step and the EMA at micro-steps 1 and 6 (copies before step
+     100); the state saved, restored bit for bit into a scrambled one and
+     resumed for a micro-step; a timed run, a micro-step split (encode / forward / backward /
+     optimizer+EMA), a profile, and the stage-2 eval hook's EMA video
+     sample (NFE 200) with the sampling path's exact counts;
+ 30. video train kernels: the flash forward with LSE and the backward
+     against their plain versions at every shape phases 26 and 29 recorded,
+     timed beside the plain versions, torch's SDPA forward and backward
+     and the bound; the ptxas registers and spills of the hd-128 dk/dv
+     instance;
+ 31. video train reference: one stage-1 and one stage-2 micro-step at a
+     small config (64^2, 8 frames; the decoder's 64^2 attention through
+     flash), bf16 on the GPU against fp32 on the CPU (loss within 2%,
+     gradient cosine >= 0.999).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -226,6 +262,19 @@ S1_BATCH, S1_RES, S1_STEPS, S1_GAN_STEPS = 10, 512, 10, 5
 # one stage-1 micro-step at a small config, bf16 on the GPU against fp32 on
 # the CPU: the loss, each term (recon, KL, LPIPS, SN), the gradient cosine
 S1_REF_LOSS_REL, S1_REF_TERM_REL, S1_REF_MIN_COS = 0.02, 0.05, 0.999
+# video training (configs/d2c-vae/skytimelapse.yaml, then configs/ldm/
+# skytimelapse.yaml on its checkpoint): batches of 2 synthetic clips of 16 x
+# 256^2; stage 1 accumulates over 5, 10 micro-steps checked and 6 timed (the
+# steady window, micro-steps 2-6, holds the update at 5), the adversarial
+# config 5; per stage-1 micro-step one flash forward with LSE and
+# one backward (the decoder's n = 20,480 cross-plane attention at hd 128; the
+# n = 73,728 one trains through the MEA above FLASH_TRAIN_MAX_TOKENS); stage 2
+# steps every micro-step, 10 of them
+V_BATCH, V1_STEPS, V1_TIMED, V1_GAN_STEPS, V2_STEPS = 2, 10, 6, 5, 10
+V1_LAUNCHES = {"flash_attention": V1_STEPS, "flash_attention_bwd": V1_STEPS}
+# reconstructing 2 clips (the stage-1 eval hook, reconstruct): the decoder's
+# n = 20,480 and n = 73,728 cross-plane attentions through the flash forward
+V_RECON_LAUNCHES = {"flash_attention": 2}
 # the kernels of one attention block call (csrc/attn_block.cu), by profiler name
 ATTN_BLOCK_KERNELS = ("::group_norm_kernel", "::gemm_kernel<", "flash_fwd_kernel")
 KERNELS = {
@@ -355,8 +404,8 @@ class Ledger:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "operations" if r["t_op"] >= r["t_mem"] else "bytes",
                 "library_ms": r["library_ms"], **r.get("extra", {}),
-                "per": "service batch of each sampling path; the train path's 10 micro-steps; "
-                       "one call of each reconstruction",
+                "per": "service batch of each sampling path; the 10 micro-steps of each "
+                       "train path; one call of each reconstruction",
                 "by_path": r["by_path"]}
 
 
@@ -394,27 +443,70 @@ def reset_launches():
     return lambda: {k: fn.launches for k, fn in fns.items()}
 
 
-def device_ms(torch, fn, reps: int = 20, attempts: int = 3) -> float:
-    """Device time of one fn() from the profiler: the sum of the kernels'
-    device time over `reps` calls (after a warm-up), per call.  Unlike CUDA
-    events around a small call it leaves out the host's enqueue.  A profile
-    that records no kernel at all (CUPTI now and then delivers an empty
-    one, seen once in a run of unchanged code) is taken again, up to
-    `attempts` times in all."""
+def events_ms(torch, fn, reps: int) -> float:
+    """Mean time of fn() over `reps` calls between two CUDA events, with no
+    warm-up: the stand-in where the profiler records no device time."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+PROFILE_PAD = 64
+
+
+def device_ms(torch, fn, reps: int = 20, attempts: int = 3, alike: bool = True) -> float:
+    """Device time of one fn() from the profiler over `reps` calls (after a
+    warm-up), per call.  Unlike CUDA events around a small call it leaves
+    out the host's enqueue.  A process whose profiles have held many kernel
+    records loses a few records at the start of every later profile (more
+    as the process goes on), and now and then all of them, while the
+    per-record means stay right.  So each profile starts with
+    `PROFILE_PAD` spin kernels, left out of the sum, to be lost in place of
+    fn's.  Where the calls are `alike` (each launches the same kernels), a
+    kernel's launches per call are its records over `reps`, rounded, and
+    the time per call is the sum of each kernel's mean record times its
+    launches per call; a profile that lost more than a quarter of some
+    kernel's records, or all of them, is taken again, up to `attempts`
+    times in all, and then the time between two CUDA events (enqueue gaps
+    included) stands in, and the log says so."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages())
-        if total:
-            return total / 1000 / reps
-        log(f"[profiler] profile {attempt + 1} of {attempts} recorded no device time")
-    raise AssertionError("the profiler saw no device time")
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+        if not alike and kernels:
+            return sum(e.device_time_total for e in kernels) / 1000 / reps
+        per_call = {e.key: round(e.count / reps) for e in kernels}
+        short = [e.key for e in kernels
+                 if not per_call[e.key] or e.count < 0.75 * per_call[e.key] * reps]
+        if kernels and not short:
+            lost = sum(per_call[e.key] * reps - e.count for e in kernels)
+            if lost:
+                log(f"[profiler] the profile lost {lost} of "
+                    f"{sum(per_call.values()) * reps} kernel records: the next 'device' time "
+                    f"is the kernels' mean record times their launches per call")
+            return sum(e.device_time_total / e.count * per_call[e.key] for e in kernels) / 1000
+        log(f"[profiler] profile {attempt + 1} of {attempts} recorded "
+            + (f"{len(short)} kernel(s) fewer than 3/4 of {reps} times a launch per call"
+               if kernels else "no device time"))
+    ms = events_ms(torch, fn, reps)
+    log(f"[profiler] no usable profile in {attempts}: the next 'device' time is CUDA events' "
+        f"({ms:.4f} ms a call, enqueue gaps included), not the profiler's")
+    return ms
 
 
 def attn_block_chain(torch, x, nw, nb, wq, bq, wp, bp, nh, s, eps=1e-5):
@@ -1868,7 +1960,9 @@ def range_split(torch, fn, prefix, calls=1, attempts=3):
     profiler's own cost included) and the device ms of the kernels
     launched inside it from any thread (the backward's ops run on
     autograd's); -> ({range: (host ms, device ms)}, device ms of all the
-    kernels per call).  A profile with no kernel in it is taken again."""
+    kernels per call).  A profile with no kernel in it is taken again; if
+    none of `attempts` has one, the host times stand and every device time
+    is NaN (not measured), and the log says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1893,7 +1987,14 @@ def range_split(torch, fn, prefix, calls=1, attempts=3):
             host, d = split.get(e.name, (0.0, 0.0))
             split[e.name] = (host + (hi - lo) / 1e3 / calls, d + dev / 1e3 / calls)
         return split, total / 1e3 / calls
-    raise AssertionError("the profiler saw no device time")
+    log(f"[profiler] no device time in {attempts} profiles: the split's device times are not "
+        f"measured (NaN), its host times stand")
+    nan = float("nan")
+    split = {}
+    for e in ranges:
+        host, _ = split.get(e.name, (0.0, nan))
+        split[e.name] = (host + (e.time_range.end - e.time_range.start) / 1e3 / calls, nan)
+    return split, nan
 
 
 def stage1_slice_phase(torch, dev, tmp):
@@ -1992,7 +2093,7 @@ def stage1_slice_phase(torch, dev, tmp):
     t_enq = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t0
-    dms = device_ms(torch, step, reps=2)
+    dms = device_ms(torch, step, reps=2, alike=False)
     log(f"[stage1-breakdown] one micro-step: wall {1e3 * t_wall:.1f} ms, host enqueue "
         f"{1e3 * t_enq:.1f} ms, device {dms:.1f} ms (profiler: kernels' time; the device is idle "
         f"{100 * max(0.0, 1 - dms / (1e3 * t_wall)):.1f}% of the wall time)")
@@ -2002,11 +2103,13 @@ def stage1_slice_phase(torch, dev, tmp):
     return pipe, trainer, state, 1e3 * steady
 
 
-def stage1_checkpoint_phase(torch, dev, pipe, trainer, state, tmp):
+def stage1_checkpoint_phase(torch, dev, pipe, trainer, state, tmp, data=None,
+                            watch="mlp.torgb.bias", per_step=None, tag="stage1-ckpt"):
     """Save the state after the run (and the breakdown's micro-steps) as
     the trainer saves it, scramble it, restore it and check it bit for bit;
-    then a resumed trainer goes on 2 micro-steps from it with finite
-    losses."""
+    then a resumed trainer goes on 2 micro-steps from it (of `data`, 512^2
+    images when None) with finite losses and `per_step` launches each (none
+    when None)."""
     from ddmi_tpu_torch.core.checkpoint import CheckpointManager
     from ddmi_tpu_torch.core.trainer import Trainer
 
@@ -2034,23 +2137,24 @@ def stage1_checkpoint_phase(torch, dev, pipe, trainer, state, tmp):
     now = flat_state(state.state_dict())
     diff = [k for k in saved if not (torch.equal(saved[k], now[k]) if torch.is_tensor(saved[k])
                                       else saved[k] == now[k])]
-    log(f"[stage1-ckpt] step {step}: {size / 2**30:.2f} GiB on disk, saved in {t_save:.2f} s, "
+    log(f"[{tag}] step {step}: {size / 2**30:.2f} GiB on disk, saved in {t_save:.2f} s, "
         f"restored in {t_restore:.2f} s into a scrambled state: {len(saved)} entries, "
         f"{len(diff)} differ {diff[:3]}")
     if diff or ckpt.latest_step() != step:
-        raise AssertionError("the stage-1 checkpoint does not restore bit for bit")
-    resumed = Trainer(trainer.cfg, pipe, Batches(S1_BATCH, S1_RES, 2, 2), save_dir=tmp)
+        raise AssertionError(f"{tag}: the checkpoint does not restore bit for bit")
+    resumed = Trainer(trainer.cfg, pipe, data or Batches(S1_BATCH, S1_RES, 2, 2), save_dir=tmp)
     read = reset_launches()
-    rec = StepRecorder(torch, pipe, "stage1_train_step", {"none": state.params["mlp.torgb.bias"]},
-                       read)
+    rec = StepRecorder(torch, pipe, "stage1_train_step", {"none": state.params[watch]}, read)
+    want = {k: (per_step or {}).get(k, 0) for k in KERNELS}
     st = resumed.train_stage1(epochs=1, resume=True, eval_hook=lambda *a: None)
     rows = rec.finish()
     losses = [r["metrics"]["loss"] for r in rows]
-    log(f"[stage1-ckpt] resumed at {step}, {len(rows)} more micro-steps to step {st.step}: "
+    log(f"[{tag}] resumed at {step}, {len(rows)} more micro-steps to step {st.step}: "
         f"losses {[round(v, 3) for v in losses]}, launches "
-        f"{sum(sum(r['launches'].values()) for r in rows)}, checkpoints {ckpt.all_steps()}")
+        f"{[{k: v for k, v in r['launches'].items() if v} for r in rows]}, checkpoints "
+        f"{ckpt.all_steps()}")
     if not (st.step == step + 2 and len(rows) == 2 and all(map(math.isfinite, losses))
-            and not any(any(r["launches"].values()) for r in rows)):
+            and all(r["launches"] == want for r in rows)):
         raise AssertionError("the resumed stage-1 run failed")
 
 
@@ -2175,14 +2279,20 @@ def stage2_handoff_phase(torch, dev, tmp):
     """configs/ldm/celebahq.yaml's train_stage2 on the save directory of
     the stage-1 run: the VAE and INR come from the newest stage-1
     checkpoint; 2 micro-steps, a checkpoint, then a new trainer resumes
-    for 1 more; finite losses.  The UNet is cut to 2 levels of 64 channels
-    (its 32^2 level keeps flash attention): the full 1.01B-parameter
-    UNet's state is 18 GB a checkpoint, and phase 15 trains it at full
-    width already."""
+    for 1 more; finite losses.  After each save the stage-2 eval hook
+    samples 2 EMA images (DDIM, then the fused render): no failure logged,
+    both images saved, NFE UNet forwards, and its launches exact (attn_block
+    once per AttentionBlock call the fused block takes, inr_decode 1, the
+    rest 0).  The UNet is cut
+    to 2 levels of 64 channels (its 32^2 level keeps flash attention): the
+    full 1.01B-parameter UNet's state is 18 GB a checkpoint, and phase 15
+    trains it at full width already."""
     from ddmi_tpu_torch.core.checkpoint import CheckpointManager
     from ddmi_tpu_torch.core.config import load_config
-    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.core.trainer import Trainer, default_stage2_eval_hook
     from ddmi_tpu_torch.domains.image import ImagePipeline
+    from ddmi_tpu_torch.nn.unet import AttentionBlock
+    from ddmi_tpu_torch.ops import attn_block
 
     cfg = load_config(os.path.join(ROOT, "configs/ldm/celebahq.yaml"))
     extra = {**cfg.data.extra, "nan_check_every": 1, "prefetch": 0, "steps_per_epoch": 2}
@@ -2193,12 +2303,36 @@ def stage2_handoff_phase(torch, dev, tmp):
         model=dataclasses.replace(cfg.model, unetconfig=unet))
     s1 = CheckpointManager(tmp, prefix="stage1")
     params = s1.restore()["state"]["params"]
-    steps = []
+    nfe = cfg.model.ddpmconfig.sampling_timesteps
+    read = reset_launches()
+    steps, hooks = [], []
+
+    def hook(tr, st, epoch):
+        unet = tr.pipe.unet
+        forwards, fused = [], []
+        handles = [unet.register_forward_hook(lambda *a: forwards.append(1))] + [
+            m.register_forward_pre_hook(lambda mod, args: fused.append(attn_block.jax_supported(
+                args[0].shape[2] * args[0].shape[3], args[0].shape[1], mod.num_heads)))
+            for m in unet.modules() if isinstance(m, AttentionBlock)]
+        before = read()
+        try:
+            default_stage2_eval_hook(tr, st, epoch)
+            torch.cuda.synchronize()
+        finally:
+            for h in handles:
+                h.remove()
+        launches = {k: v - before[k] for k, v in read().items()}
+        want = {k: 0 for k in launches}
+        want.update(attn_block=sum(fused), inr_decode=1)
+        files = sorted(f for f in os.listdir(os.path.join(tmp, "samples"))
+                       if f.startswith(f"ep{epoch}_"))
+        hooks.append((len(forwards), launches, want, files))
+
     for count, resume in ((2, False), (1, True)):
         pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
         trainer = Trainer(cfg, pipe, Batches(cfg.data.batch_size, 256, count, 5 + count),
                           save_dir=tmp)
-        st = trainer.train_stage2(epochs=1, resume=resume)
+        st = trainer.train_stage2(epochs=1, resume=resume, eval_hook=hook)
         torch.cuda.synchronize()
         same = all(torch.equal(v, params["vae." + k].to(dev, v.dtype))
                    for k, v in pipe.vae.state_dict().items()) and all(
@@ -2208,13 +2342,23 @@ def stage2_handoff_phase(torch, dev, tmp):
         torch.cuda.empty_cache()
     recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
     losses = [r["s2/loss"] for r in recs if "s2/loss" in r]
+    failures = [r for r in recs if "s2/eval_hook_failures" in r]
     log(f"[stage2-handoff] stage-1 checkpoint step {s1.latest_step()} -> train_stage2: steps "
         f"{[s for s, _ in steps]}, VAE and INR equal to the checkpoint's (bf16 VAE) "
         f"{[ok for _, ok in steps]}, losses {[round(v, 5) for v in losses]}, stage-2 "
         f"checkpoints {CheckpointManager(tmp, prefix='stage2').all_steps()}")
+    for fwd, launches, want, files in hooks:
+        log(f"[stage2-handoff] eval hook: 2 EMA images, {fwd} UNet forwards (NFE {nfe}), files "
+            f"{files}, launches { {k: v for k, v in launches.items() if v} } (expected "
+            f"{ {k: v for k, v in want.items() if v} })")
+    log(f"[stage2-handoff] eval hook failures logged: {len(failures)}")
     if not ([s for s, _ in steps] == [2, 3] and all(ok for _, ok in steps)
             and len(losses) == 3 and all(map(math.isfinite, losses))):
         raise AssertionError("the stage-1 -> stage-2 hand-off or the stage-2 resume failed")
+    if failures or len(hooks) != 2 or not all(
+            fwd == nfe and launches == want and len(files) == 2
+            for fwd, launches, want, files in hooks):
+        raise AssertionError("the image stage-2 eval hook did not sample through the kernels")
 
 
 def stage1_reference_phase(torch, dev):
@@ -2281,6 +2425,620 @@ def stage1_reference_phase(torch, dev):
     if not (rel <= S1_REF_LOSS_REL and cos >= S1_REF_MIN_COS
             and all(v <= S1_REF_TERM_REL for v in terms.values())):
         raise AssertionError("the GPU stage-1 step disagrees with the CPU reference")
+
+
+def video_train_config(path, **extra):
+    """A video config checked to train as the skytimelapse configs do (amp,
+    batch 2 of 16 x 256^2 clips), with `extra` merged into data.extra."""
+    from ddmi_tpu_torch.core.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, path))
+    m, d = cfg.model, cfg.data
+    if not (m.amp and d.batch_size == V_BATCH and d.frames == 16 and d.domain == "video"
+            and m.ddconfig.resolution == 256):
+        raise AssertionError(f"{path} no longer trains 2 clips of 16 x 256^2 with amp")
+    return dataclasses.replace(cfg, data=dataclasses.replace(d, extra={**d.extra, **extra}))
+
+
+class Clips:
+    """`count` batches of SyntheticVideos (2 clips of 16 x 256^2), made up
+    front, without a length (the trainer then reads
+    data.extra.steps_per_epoch)."""
+
+    def __init__(self, count, seed):
+        from ddmi_tpu_torch.data.video import SyntheticVideos
+
+        self.items = list(SyntheticVideos(V_BATCH, 16, 256, length=count, seed=seed))
+
+    def __iter__(self):
+        return iter(self.items)
+
+
+class ShapeRecorder:
+    """Inside the block, the calls of the flash forward by operand shape (B,
+    nh, n, hd) and whether they keep the LSE (under autograd).  It wraps
+    flash_attention_fwd, whose caller counts launches on its own name, so
+    the launch counters run on."""
+
+    def __init__(self, torch):
+        from ddmi_tpu_torch.ops import flash_attention
+
+        self.mod = flash_attention
+        self.shapes = collections.Counter()
+
+    def __enter__(self):
+        fn = self.fn = self.mod.flash_attention_fwd
+
+        def call(q, k, v, sm_scale, with_lse):
+            self.shapes[(tuple(q.shape), bool(with_lse))] += 1
+            return fn(q, k, v, sm_scale, with_lse)
+
+        self.mod.flash_attention_fwd = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention_fwd = self.fn
+
+
+def video_stage1_phase(torch, dev, tmp):
+    """Trainer.train_stage1 on configs/d2c-vae/skytimelapse.yaml at full
+    width (seeded weights, zero-init layers perturbed, LPIPS on a random
+    VGG16): 10 micro-steps of 2 synthetic clips of 16 x 256^2, checked (the
+    launch counters of each micro-step, finite losses, the parameters
+    bit-unchanged through micro-step 9 and all changed at 10, the SN state
+    changed at every one, the flash shapes recorded), with the eval hook
+    (PSNR of 2 reconstructed clips) after the epoch's checkpoint; then a
+    separate timed run, a split by the stage1/* ranges, the idle share and
+    a profile.  -> (pipe, trainer, state, ms per micro-step, flash shapes
+    {shape: calls per micro-step})."""
+    from ddmi_tpu_torch.core.trainer import Trainer, default_stage1_eval_hook
+    from ddmi_tpu_torch.domains.video import VideoPipeline
+    from ddmi_tpu_torch.evals.lpips import build_perceptual
+
+    cfg = video_train_config("configs/d2c-vae/skytimelapse.yaml", nan_check_every=5,
+                             prefetch=2, steps_per_epoch=V1_STEPS)
+    lc = cfg.model.lossconfig
+    if not (lc.gradient_accumulate_every == 5 and lc.sn_reg and lc.lr_scheduler):
+        raise AssertionError("skytimelapse.yaml no longer accumulates over 5 with the SN "
+                             "regulariser and the warm-up schedule")
+    t0 = time.perf_counter()
+    pipe = VideoPipeline(cfg, device=dev, seed=cfg.seed, perceptual=build_perceptual(cfg, dev))
+    for i, module in enumerate((pipe.vae, pipe.mlp)):
+        perturb_zero_init(module, 90 + i)
+    n_enc = sum(p.numel() for k, p in pipe.vae.named_parameters() if not k.startswith(
+        ("decoder.", "post_")))
+    n_vae = sum(p.numel() for p in pipe.vae.parameters())
+    n_mlp = sum(p.numel() for p in pipe.mlp.parameters())
+    log(f"[v-stage1] skytimelapse stage 1 at full width: VAE {n_vae} parameters ({n_enc} in "
+        f"the encode half: TimeSformer depth 8, width {cfg.model.ddconfig.timesformer_channels}) "
+        f"+ INR {n_mlp} (fp32 masters, bf16 compute), LPIPS VGG16 random and frozen; set up in "
+        f"{time.perf_counter() - t0:.1f} s; cuts: {V1_STEPS} micro-steps instead of 200 epochs, "
+        f"synthetic clips, random-init VAE, INR and VGG (no weight files in the repository)")
+    data = Clips(V1_STEPS, 0)
+    trainer = Trainer(cfg, pipe, data, save_dir=tmp)
+    read = reset_launches()
+    hook_launches, psnr_seen = {}, []
+
+    def hook(tr, st, epoch):
+        before = read()
+        default_stage1_eval_hook(tr, st, epoch)
+        torch.cuda.synchronize()
+        hook_launches.update({k: v - before[k] for k, v in read().items()})
+
+    watch = pipe.stage1_params()
+    rec = StepRecorder(torch, pipe, "stage1_train_step", watch, read)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ShapeRecorder(torch) as shapes:
+        state = trainer.train_stage1(epochs=1, eval_hook=hook)
+    rows = rec.finish()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = {k: V1_LAUNCHES[k] // V1_STEPS for k in V1_LAUNCHES}
+    bad = [(i, r["launches"]) for i, r in enumerate(rows, 1)
+           if r["launches"] != {k: per_step.get(k, 0) for k in r["launches"]}]
+    for r in rows:
+        r["launches"] = {}
+    check_stage1_rows(rows, "v-stage1", len(watch))
+    m = rows[-1]["metrics"]
+    train_shapes = {s: c // V1_STEPS for (s, g), c in shapes.shapes.items() if g}
+    log(f"[v-stage1] {len(rows)} micro-steps, losses "
+        f"{[round(r['metrics']['loss'], 2) for r in rows]}; last: " + ", ".join(
+            f"{k} {v:.5g}" for k, v in m.items())
+        + f"; parameters changed at {[i for i, r in enumerate(rows, 1) if any(r['params'])]} "
+        f"({len(watch)} tensors at 10), SN state changed at every micro-step; launches per "
+        f"micro-step {per_step} (the others 0) at every one: {not bad}; flash calls by shape "
+        f"(shape, under autograd): {dict(shapes.shapes)}; peak allocated {peak / 2**30:.2f} GiB "
+        f"(the checked run)")
+    if bad:
+        raise AssertionError(f"v-stage1: launch counts off at {bad[:3]}")
+    if sum(train_shapes.values()) != per_step["flash_attention"]:
+        raise AssertionError(f"v-stage1: flash calls under autograd {train_shapes}")
+    recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
+    psnr = [r["eval/psnr"] for r in recs if "eval/psnr" in r]
+    failures = [r for r in recs if "s1/eval_hook_failures" in r]
+    log(f"[v-stage1] eval hook: PSNR {psnr} dB over 2 reconstructed clips, launches "
+        f"{ {k: v for k, v in hook_launches.items() if v} }, failures {len(failures)}")
+    if not (len(psnr) == 1 and math.isfinite(psnr[0]) and not failures
+            and {k: v for k, v in hook_launches.items() if v} == V_RECON_LAUNCHES):
+        raise AssertionError("the video stage-1 eval hook did not reconstruct through flash "
+                             "and log PSNR")
+
+    timed_dir = os.path.join(tmp, "timed")
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = StepTimer(torch, pipe, "stage1_train_step", V1_TIMED)
+    timed_cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, extra={**cfg.data.extra, "steps_per_epoch": V1_TIMED}))
+    t0 = time.perf_counter()
+    Trainer(timed_cfg, pipe, Clips(V1_TIMED, 1), save_dir=timed_dir).train_stage1(
+        epochs=1, eval_hook=lambda *a: None)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    steady = timer.finish()
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(timed_dir)
+    log(f"[v-stage1] timed run: {V1_TIMED} micro-steps and a checkpoint in {t_run:.3f} s; "
+        f"steady over micro-steps 2-{V1_TIMED} (micro-step 5 an optimizer update) "
+        f"{1 / steady:.4f} micro-steps/s = {V_BATCH / steady:.4f} training clips/s "
+        f"({1e3 * steady:.1f} ms per micro-step) on {nvidia_smi()}; peak allocated "
+        f"{peak / 2**30:.2f} GiB")
+
+    gen = torch.Generator(device=dev).manual_seed(95)
+    x = torch.from_numpy(Clips(1, 2).items[0]).to(dev)
+    step = lambda: pipe.stage1_train_step(state, x, generator=gen)
+    split, dev_total = range_split(torch, step, "stage1/")
+    stages = ("encode", "decode", "inr", "lpips", "sn", "backward", "optimizer")
+    missing = [k for k in stages if "stage1/" + k not in split]
+    log("[v-stage1-breakdown] one micro-step (after a warm-up one) by the profiler's stage1/* "
+        "ranges: " + "; ".join(f"{k} {split['stage1/' + k][1]:.2f} ms device / "
+                               f"{split['stage1/' + k][0]:.2f} ms host"
+                               for k in stages if k not in missing)
+        + f"; outside the ranges {dev_total - sum(d for _, d in split.values()):.2f} ms device; "
+        f"all kernels {dev_total:.2f} ms (host times under the profiler)")
+    if missing:
+        raise AssertionError(f"the video micro-step's profile has no range for {missing}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    dms = device_ms(torch, step, reps=1)
+    log(f"[v-stage1-breakdown] one micro-step: wall {1e3 * t_wall:.1f} ms, host enqueue "
+        f"{1e3 * t_enq:.1f} ms, device {dms:.1f} ms (profiler: kernels' time; the device is idle "
+        f"{100 * max(0.0, 1 - dms / (1e3 * t_wall)):.1f}% of the wall time)")
+    profile_top(torch, step, "v-stage1-profile", ("flash_fwd_kernel", "flash_bwd_"),
+                inference=False)
+    return pipe, trainer, state, 1e3 * steady, train_shapes
+
+
+def video_reconstruct_phase(torch, dev, pipe):
+    """reconstruct of 2 clips: the decoder's two long attentions through the
+    flash kernel (2 launches, nothing else), pixels finite in [0, 1], the
+    PSNR; -> launches."""
+    x = torch.from_numpy(Clips(1, 3).items[0]).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    read = reset_launches()
+    with ShapeRecorder(torch) as shapes:
+        out = pipe.reconstruct(x, generator=g)
+        torch.cuda.synchronize()
+    n = read()
+    ms = cuda_ms(lambda: pipe.reconstruct(x, generator=g), 2)
+    psnr = -10 * math.log10(max(((out - x) ** 2).mean().item(), 1e-12))
+    ok = bool(torch.isfinite(out).all()) and 0 <= out.min().item() and out.max().item() <= 1
+    log(f"[v-reconstruct] 2 clips of 16 x 256^2: launches { {k: v for k, v in n.items() if v} } "
+        f"at {dict(shapes.shapes)}, pixels in [{out.min().item():.4f}, {out.max().item():.4f}], "
+        f"PSNR {psnr:.2f} dB (random weights after 10 micro-steps), {ms:.1f} ms per call")
+    if not (ok and {k: v for k, v in n.items() if v} == V_RECON_LAUNCHES):
+        raise AssertionError(f"video reconstruct: launches {n}, pixels ok {ok}")
+    return n
+
+
+def video_stage1_gan_phase(torch, dev, tmp, plain_ms):
+    """configs/d2c-vae/skytimelapse_gan.yaml: 3 micro-steps timed, then 5
+    from a fresh state checked: the 2D and 3D discriminators change at
+    every micro-step, the VAE and INR at none (the first window's update
+    has rate 0), finite losses, flash launches as the plain config's."""
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.domains.video import VideoPipeline
+    from ddmi_tpu_torch.evals.lpips import build_perceptual
+
+    cfg = video_train_config("configs/d2c-vae/skytimelapse_gan.yaml", nan_check_every=5,
+                             prefetch=2, steps_per_epoch=V1_STEPS)
+    if not cfg.model.lossconfig.adversarial:
+        raise AssertionError("skytimelapse_gan.yaml is not adversarial")
+    pipe = VideoPipeline(cfg, device=dev, seed=cfg.seed, perceptual=build_perceptual(cfg, dev))
+    for i, module in enumerate((pipe.vae, pipe.mlp, pipe.gan)):
+        perturb_zero_init(module, 96 + i)
+    timed_dir = os.path.join(tmp, "timed")
+    timer = StepTimer(torch, pipe, "stage1_train_step", 3)
+    Trainer(cfg, pipe, Clips(3, 4), save_dir=timed_dir).train_stage1(
+        epochs=1, eval_hook=lambda *a: None)
+    steady = timer.finish()
+    shutil.rmtree(timed_dir)
+    trainer = Trainer(cfg, pipe, Clips(V1_GAN_STEPS, 5), save_dir=tmp)
+    watch = pipe.stage1_params()
+    read = reset_launches()
+    rec = StepRecorder(torch, pipe, "stage1_train_step", watch, read)
+    state = trainer.train_stage1(epochs=1, eval_hook=lambda *a: None)
+    rows = rec.finish()
+    bad = [r["launches"] for r in rows if r["launches"] != {
+        k: V1_LAUNCHES.get(k, 0) // V1_STEPS for k in r["launches"]}]
+    for r in rows:
+        r["launches"] = {}
+    check_stage1_rows(rows, "v-stage1-gan", len(watch))
+    disc_ok = all(all(r["disc"]) for r in rows)
+    n3d = sum(1 for k in state.disc if k.startswith("disc3d."))
+    log(f"[v-stage1-gan] {len(rows)} micro-steps: d_loss "
+        f"{[round(r['metrics']['d_loss'], 4) for r in rows]}, g_gan "
+        f"{[round(r['metrics']['g_gan'], 4) for r in rows]}; the discriminators' "
+        f"{len(state.disc)} tensors ({n3d} of the 3D one) changed at every micro-step {disc_ok}; "
+        f"VAE and INR unchanged; flash launches as the plain run's {not bad}; steady "
+        f"{1e3 * steady:.1f} ms per micro-step (micro-steps 2-3), {1e3 * steady - plain_ms:.1f} "
+        f"ms more than the plain run's ({plain_ms:.1f} ms) on {nvidia_smi()}")
+    if not disc_ok or bad:
+        raise AssertionError(f"video GAN: discriminators changed {disc_ok}, launches {bad[:2]}")
+
+
+def video_stage2_phase(torch, dev, tmp):
+    """Trainer.train_stage2 on configs/ldm/skytimelapse.yaml at full width
+    (the UNet seeded, zero-init layers perturbed) with the VAE and INR of
+    the stage-1 checkpoint in `tmp`: 10 micro-steps of 2 clips, saving no
+    checkpoint of their own; the flash counts per micro-step against the
+    calls recorded in the run, finite losses, the parameters changing at
+    every micro-step and the EMA at the schedule's (every 5th from 0, a
+    copy before step 100); then the state saved as the trainer saves it,
+    restored bit for bit into a scrambled one and resumed for a micro-step;
+    a timed run, a micro-step split and the stage-2 eval hook's video
+    sample.  -> (launches of the checked run, flash shapes {shape: calls
+    per micro-step})."""
+    from ddmi_tpu_torch.core.amp import amp_denoiser
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.core.trainer import Trainer, default_stage2_eval_hook
+    from ddmi_tpu_torch.diffusion.process import diffusion_loss
+    from ddmi_tpu_torch.domains.video import VideoPipeline
+
+    cfg = video_train_config("configs/ldm/skytimelapse.yaml", nan_check_every=5, prefetch=2,
+                             steps_per_epoch=V2_STEPS)
+    s1 = load_config(os.path.join(ROOT, "configs/d2c-vae/skytimelapse.yaml"))
+    if cfg.model.ddconfig != s1.model.ddconfig or cfg.model.mlpconfig != s1.model.mlpconfig:
+        raise AssertionError("the ldm and d2c-vae skytimelapse configs no longer share a VAE")
+    lc = cfg.model.lossconfig
+    if not (lc.gradient_accumulate_every == 1 and lc.ema_update_every == 5):
+        raise AssertionError("configs/ldm/skytimelapse.yaml no longer steps every micro-step "
+                             "with EMA every 5")
+    pipe = VideoPipeline(cfg, device=dev, seed=cfg.seed)
+    perturb_zero_init(pipe.unet, 97)
+    n_unet = sum(p.numel() for p in pipe.unet.parameters())
+    trainer = Trainer(cfg, pipe, Clips(V2_STEPS, 6), save_dir=tmp)
+    read = reset_launches()
+    rows, step_fn = [], pipe.stage2_train_step
+    watch = ["unet.input_blocks.0.0.weight", "unet.mid_attn.q.weight", "unet.out.2.weight",
+             "mixing_logit"]
+
+    def recording(state, x, **kw):
+        with torch.no_grad():
+            p0 = torch._foreach_mul([state.params[k] for k in watch], 1.0)
+            e0 = torch._foreach_mul(list(state.ema.values()), 1.0)
+        before = read()
+        out = step_fn(state, x, **kw)
+        after = read()
+        with torch.no_grad():
+            dp = torch.stack(torch._foreach_norm(torch._foreach_sub(
+                [state.params[k] for k in watch], p0)))
+            de = torch.stack(torch._foreach_norm(torch._foreach_sub(
+                list(state.ema.values()), e0)))
+            same = all(torch.equal(e, p) for e, p in zip(state.ema.values(),
+                                                         state.params.values()))
+        rows.append((dp > 0, de > 0, same, out[1]["loss"],
+                     {k: after[k] - before[k] for k in after}))
+        return out
+
+    pipe.stage2_train_step = recording
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ShapeRecorder(torch) as shapes:
+        state = trainer.train_stage2(epochs=1, save=False)
+    torch.cuda.synchronize()
+    del pipe.stage2_train_step
+    peak = torch.cuda.max_memory_allocated(dev)
+    train_shapes = {s: c // V2_STEPS for (s, g), c in shapes.shapes.items() if g}
+    per_step = sum(train_shapes.values())
+    expect = {k: (per_step if k in ("flash_attention", "flash_attention_bwd") else 0)
+              for k in KERNELS}
+    n = len(state.params)
+    checks = []
+    for i, (dp, de, same, loss, launches) in enumerate(rows, 1):
+        ema_step = (i - 1) % lc.ema_update_every == 0
+        checks.append(bool(dp.all()) and (bool(de.any()) == ema_step)
+                      and (not ema_step or same) and math.isfinite(float(loss))
+                      and launches == expect)
+    log(f"[v-stage2] skytimelapse stage 2 at full width: TriplaneUNet {n_unet} parameters "
+        f"(fp32 masters, bf16 compute) on the stage-1 checkpoint's VAE and INR; "
+        f"{len(rows)} micro-steps, losses {[round(float(r[3]), 5) for r in rows]}; the watched "
+        f"{watch} changed at {[i for i, r in enumerate(rows, 1) if r[0].all()]}; the "
+        f"EMA ({n} tensors) changed at {[i for i, r in enumerate(rows, 1) if r[1].any()]} "
+        f"(a copy of the parameters there); flash calls by shape (shape, under autograd): "
+        f"{dict(shapes.shapes)}; launches per micro-step {rows[0][4]} (expected {expect}); "
+        f"every check per micro-step {checks}; peak allocated {peak / 2**30:.2f} GiB")
+    if len(rows) != V2_STEPS or not all(checks):
+        raise AssertionError("the video stage-2 run failed its checks")
+
+    from ddmi_tpu_torch.core.checkpoint import CheckpointManager
+
+    ckpt = CheckpointManager(tmp, prefix="stage2")
+    step = state.step
+    gen = torch.Generator(device=dev).manual_seed(99)
+    t0 = time.perf_counter()
+    ckpt.save(step, {"state": state.state_dict(), "generators": [gen.get_state()]})
+    t_save = time.perf_counter() - t0
+    saved = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in flat_state(state.state_dict()).items()}
+    size = os.path.getsize(os.path.join(ckpt.root, f"{step}.pt"))
+    with torch.no_grad():
+        for t in list(state.params.values()) + list(state.ema.values()) + state.opt.mu:
+            t.add_(1.0)
+    state.step, state.opt.count = -1, -1
+
+    class Wrap:
+        def load_state_dict(self, sd):
+            state.load_state_dict(sd["state"])
+
+    t0 = time.perf_counter()
+    ckpt.restore(Wrap())
+    t_restore = time.perf_counter() - t0
+    now = flat_state(state.state_dict())
+    diff = [k for k in saved if not (torch.equal(saved[k], now[k]) if torch.is_tensor(saved[k])
+                                      else saved[k] == now[k])]
+    del saved, now
+    rows.clear()
+    pipe.stage2_train_step = recording
+    resumed = Trainer(cfg, pipe, Clips(1, 10), save_dir=tmp).train_stage2(epochs=1, resume=True,
+                                                                           save=False)
+    del pipe.stage2_train_step
+    log(f"[v-stage2-ckpt] step {step}: {size / 2**30:.2f} GiB on disk, saved in {t_save:.2f} s, "
+        f"restored in {t_restore:.2f} s into a scrambled state: {len(diff)} entries differ "
+        f"{diff[:3]}; resumed to step {resumed.step}, loss {float(rows[0][3]):.5f}, launches "
+        f"{ {k: v for k, v in rows[0][4].items() if v} }")
+    if diff or resumed.step != step + 1 or not math.isfinite(float(rows[0][3])) or (
+            rows[0][4] != expect):
+        raise AssertionError("the video stage-2 checkpoint does not restore bit for bit and resume")
+    state = resumed
+
+    timer = StepTimer(torch, pipe, "stage2_train_step", V2_STEPS)
+    t0 = time.perf_counter()
+    Trainer(cfg, pipe, Clips(V2_STEPS, 7), save_dir=os.path.join(tmp, "timed")).train_stage2(
+        epochs=1, save=False)
+    torch.cuda.synchronize()
+    steady = timer.finish()
+    log(f"[v-stage2] timed run: {V2_STEPS} micro-steps in {time.perf_counter() - t0:.3f} s (the "
+        f"stage-1 checkpoint's load included); steady {1 / steady:.4f} micro-steps/s = "
+        f"{V_BATCH / steady:.4f} training clips/s ({1e3 * steady:.1f} ms per micro-step) on "
+        f"{nvidia_smi()}")
+
+    g = torch.Generator(device=dev).manual_seed(98)
+    x = torch.from_numpy(Clips(1, 8).items[0]).to(dev)
+    split = {"encode": [], "forward": [], "backward": [], "optimizer+EMA": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = pipe.encode_latents(x, generator=g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, _ = diffusion_loss(pipe.gd, amp_denoiser(pipe.unet, pipe.amp), pipe.mixing_logit,
+                                 z, g)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        pipe.stage2_apply(state)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            split[key].append(1e3 * dt)
+    log("[v-stage2-breakdown] one micro-step (host clock with sync, 5 in a row, one an EMA "
+        "update): " + "; ".join(f"{k} {sum(v) / len(v):.3f} ms mean "
+                                f"({', '.join(f'{t:.1f}' for t in v)})" for k, v in split.items()))
+    profile_top(torch, lambda: pipe.stage2_train_step(state, x, generator=g), "v-stage2-profile",
+                ("flash_fwd_kernel", "flash_bwd_"), inference=False)
+
+    before = read()
+    t0 = time.perf_counter()
+    default_stage2_eval_hook(trainer, state, 0)
+    torch.cuda.synchronize()
+    hook = {k: v - before[k] for k, v in read().items()}
+    files = sorted(f for f in os.listdir(os.path.join(tmp, "samples")) if f.startswith("ep0_video"))
+    recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
+    failures = [r for r in recs if "s2/eval_hook_failures" in r]
+    want = dict(VIDEO_LAUNCHES)
+    log(f"[v-stage2] eval hook: one EMA video sample (NFE {VIDEO_NFE}) in "
+        f"{time.perf_counter() - t0:.1f} s, {len(files)} frame files {files[:3]}, launches "
+        f"{ {k: v for k, v in hook.items() if v} } (expected {want}), failures {len(failures)}")
+    if failures or len(files) != 16 or {k: v for k, v in hook.items() if v} != want:
+        raise AssertionError("the stage-2 eval hook did not sample a video through the kernels")
+    return {k: V2_STEPS * v for k, v in expect.items()}, train_shapes
+
+
+def video_train_kernel_phase(torch, dev, shapes):
+    """The flash forward (with LSE) and backward against flash_plain /
+    flash_bwd_plain at every shape the video training path called them at
+    ({(B, nh, n, hd): (path, calls per micro-step)}), each timed beside the
+    plain versions, SDPA's forward and backward, and the bound; then the
+    hd-128 dk/dv instance's registers and spills from the build report."""
+    import re
+
+    import torch.nn.functional as F
+
+    from ddmi_tpu_torch.ops import build
+    from ddmi_tpu_torch.ops import flash_attention as fa
+
+    for i, ((B, nh, n, hd), (path, calls)) in enumerate(sorted(shapes.items())):
+        g = torch.Generator(device=dev).manual_seed(700 + i)
+        q, k, v, do = (torch.randn((B, nh, n, hd), generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        s = hd**-0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, s, with_lse=True)
+        ref_out, ref_lse = fa.flash_plain(q, k, v, s, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, s)
+        ref = fa.flash_bwd_plain(q, k, v, out, lse, do, s)
+        torch.cuda.synchronize()
+        lse_err = (lse - ref_lse).abs().max().item()
+        stats = []
+        for a, r in [(out, ref_out)] + list(zip(got, ref)):
+            a, r = a.float(), r.float()
+            err = (a - r).abs().max().item()
+            corr = torch.corrcoef(torch.stack([a.flatten(), r.flatten()]))[0, 1].item()
+            stats.append((err, err / r.abs().max().item(), corr))
+        del got, ref, ref_out
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, s, with_lse=True)
+        fwd_plain = lambda: fa.flash_plain(q, k, v, s, with_lse=True)
+        fms, fpms = paired_ms(fwd, fwd_plain, 3)
+        flms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=s), 3)
+        bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, s)
+        bwd_plain = lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, s)
+        bms_k, bpms = paired_ms(bwd, bwd_plain, 3)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o2 = F.scaled_dot_product_attention(*leaves, scale=s)
+        blms = cuda_ms(lambda: torch.autograd.grad(o2, leaves, do, retain_graph=True), 3)
+        fflops, fbytes = 4 * B * nh * n * n * hd, 4 * q.numel() * 2 + lse.numel() * 4
+        bflops, bbytes = 10 * B * nh * n * n * hd, 8 * q.numel() * 2 + 2 * lse.numel() * 4
+        fb, fby = bound(fflops, fbytes)
+        bb, bby = bound(bflops, bbytes)
+        log(f"[v-train-kernel] {path} B={B} heads={nh} n={n} hd={hd} ({calls} per micro-step): "
+            + ", ".join(f"{c} max|err| {e:.6f} (/max|ref| {r:.5f}) corr {c2:.6f}"
+                        for c, (e, r, c2) in zip(("out", "dq", "dk", "dv"), stats))
+            + f"; LSE max|err| {lse_err:.2e}; forward with LSE {fms:.4f} ms (plain fp32 "
+            f"{fpms:.4f}, library sdpa {flms:.4f}, bound {fb:.4f} ms {fby}); backward "
+            f"{bms_k:.4f} ms (plain fp32 {bpms:.4f}, library sdpa backward {blms:.4f}, bound "
+            f"{bb:.4f} ms {bby}) on {nvidia_smi()}")
+        if not all(r <= FLASH_BWD_REL_ERR and c2 >= FLASH_BWD_MIN_CORR for _, r, c2 in stats):
+            raise AssertionError(f"flash disagrees at the video shape {(B, nh, n, hd)}: {stats}")
+        if not lse_err <= LSE_MAX_ERR:
+            raise AssertionError(f"flash LSE off by {lse_err} at {(B, nh, n, hd)}")
+        n10 = calls * V1_STEPS
+        LEDGER.add("flash_attention", path, n10, fms, fpms, flms, fflops, fbytes, stats[0][0])
+        LEDGER.add("flash_attention_bwd", path, n10, bms_k, bpms, blms, bflops, bbytes,
+                   max(e for e, _, _ in stats[1:]))
+        del q, k, v, do, out, lse, leaves, o2
+        torch.cuda.empty_cache()
+    info = build.BUILD_LOG.get("flash")
+    if info is None:
+        log("[v-train-kernel] hd-128 dk/dv instance: the flash library was built before this "
+            "run, so its ptxas report is not here")
+        return
+    lines, found = info["ptxas"], None
+    for j, line in enumerate(lines):
+        if re.search(r"flash_bwd_dkv_kernelILi128E", line):
+            found = j
+    if found is None:
+        raise AssertionError("no ptxas report for the hd-128 dk/dv instance")
+    report = [ln.strip() for ln in lines[found + 1 : found + 4]
+              if "spill" in ln or "registers" in ln]
+    log(f"[v-train-kernel] hd-128 dk/dv instance (flash_bwd_dkv_kernel<128>), ptxas: "
+        + "; ".join(report))
+
+
+def video_small_config(amp):
+    """A small video config whose decoder takes the flash route under
+    autograd at its 16^2 and 64^2 levels (n = 512 at hd 128, n = 5,120 at
+    hd 64; the others take the MEA): resolution 64, 8 frames, ch 64."""
+    from ddmi_tpu_torch.core.config import config_from_dict
+
+    return config_from_dict({"seed": 3, "model": {
+        "amp": amp, "use_fp16": amp, "lr": 1e-3, "embed_dim": 4, "params": {
+            "lossconfig": dict(gradient_accumulate_every=5, epochs=2, warmup_epochs=1),
+            "ddconfig": dict(double_z=True, timesformer_channels=64, splits=1, patch_size=8,
+                             resolution=64, z_channels=8, in_channels=3, out_ch=8, ch=64,
+                             ch_mult=[1, 1, 2, 2], num_res_blocks=1, attn_resolutions=[],
+                             hdbf_resolutions=[16, 32], inter_attn_resolutions=[8, 16, 32, 64],
+                             attn_type="vanilla-multihead"),
+            "mlpconfig": dict(in_ch=2, out_ch=3, ch=64, latent_dim=8),
+            "unetconfig": dict(triplane=True, in_channels=4, model_channels=64, out_channels=4,
+                               attention_resolutions=[1, 2], num_res_blocks=1,
+                               channel_mult=[1, 2], num_head_channels=32),
+            "ddpmconfig": dict(image_size=8, channels=4)}},
+        "data": {"domain": "video", "batch_size": 1, "frames": 8}})
+
+
+def video_reference_train_phase(torch, dev):
+    """One stage-1 micro-step's loss and gradients, then one stage-2
+    micro-step's, at a small config: bf16 on the card against fp32 plain
+    versions on the CPU, on the same weights, SN vectors and draws (loss
+    within 2%, each stage-1 term (recon, KL, LPIPS, SN) within 5%, gradient
+    cosines in float64 >= 0.999).  The decoder's 16^2 and 64^2
+    cross-plane attentions go through the flash forward and backward; at
+    this size the TriplaneUNet's attentions (n = 192) are below the flash
+    tier.  The pre_* moments layers are scaled by 0.1 so that the
+    posterior's logvar stays near 0, as after training: at the random init
+    it reaches +-11, where one bf16 rounding of it moves the std by up to 3%."""
+    import numpy as np
+
+    from ddmi_tpu_torch.domains.video import VideoDraws, VideoPipeline
+    from ddmi_tpu_torch.evals.lpips import LPIPS
+
+    torch.manual_seed(0)
+    vgg = LPIPS().state_dict()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((1, 8, 64, 64, 3)).astype(np.float32))
+    eps = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+           for s in ((1, 4, 8, 8), (1, 4, 8, 8), (1, 4, 8, 8))]
+    t = torch.tensor([417])
+    noise = torch.from_numpy(rng.standard_normal((1, 64 + 2 * 8 * 8, 4)).astype(np.float32))
+    out, weights, sn = {}, None, None
+    read = reset_launches()
+    launches = {}
+    for tag, where, amp in (("cpu", "cpu", False), ("card", dev, True)):
+        lp = LPIPS(torch.bfloat16 if amp else torch.float32)
+        lp.load_state_dict(vgg)
+        pipe = VideoPipeline(video_small_config(amp), device=where, seed=3,
+                             perceptual=lp.to(where))
+        if weights is None:
+            perturb_zero_init(pipe, 81)
+            with torch.no_grad():
+                for plane in ("xy", "xt", "yt"):
+                    for p in getattr(pipe.vae, f"pre_{plane}").parameters():
+                        p.mul_(0.1)
+            weights = {k: v.clone() for k, v in pipe.state_dict().items()}
+        else:
+            pipe.load_state_dict({k: v.to(where) for k, v in weights.items()})
+        st = pipe.init_stage1(10)
+        if sn is None:
+            sn = st.sn
+        else:
+            st.sn = {k: (u.to(where), v.to(where)) for k, (u, v) in sn.items()}
+        draws = VideoDraws(tuple(e.to(where) for e in eps), torch.tensor([5]).to(where))
+        before = read()
+        loss, m, _, _ = pipe.stage1_loss(x.to(where), 3, draws, st.sn)
+        loss.backward()
+        g1 = torch.cat([p.grad.float().cpu().flatten() for p in st.params.values()])
+        pipe.vae.zero_grad(set_to_none=True)
+        pipe.mlp.zero_grad(set_to_none=True)
+        st2 = pipe.init_stage2()
+        loss2, _ = pipe.stage2_loss(x.to(where), t=t.to(where), noise=noise.to(where),
+                                    eps=[e.to(where) for e in eps])
+        loss2.backward()
+        g2 = torch.cat([p.grad.float().cpu().flatten() for p in st2.params.values()])
+        if where != "cpu":
+            torch.cuda.synchronize()
+            launches = {k: v - before[k] for k, v in read().items()}
+        out[tag] = (loss.item(), {k: float(v) for k, v in m.items()}, g1, loss2.item(), g2)
+        del pipe
+    (l1c, mc, g1c, l2c, g2c), (l1g, mg, g1g, l2g, g2g) = out["cpu"], out["card"]
+    cos1 = torch.nn.functional.cosine_similarity(g1g.double(), g1c.double(), dim=0).item()
+    cos2 = torch.nn.functional.cosine_similarity(g2g.double(), g2c.double(), dim=0).item()
+    rel1, rel2 = abs(l1g - l1c) / abs(l1c), abs(l2g - l2c) / abs(l2c)
+    terms = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("recon", "kl", "lpips", "sn")}
+    log(f"[v-reference] small config (64^2, 8 frames), one micro-step each: stage 1 bf16 on the "
+        f"card loss {l1g:.5f} vs fp32 on the CPU {l1c:.5f} (relative {rel1:.5f}; terms "
+        + ", ".join(f"{k} {mg[k]:.5g} vs {mc[k]:.5g} (relative {v:.5f})"
+                    for k, v in terms.items())
+        + f"), gradient cosine {cos1:.6f}; stage 2 loss {l2g:.6f} vs {l2c:.6f} (relative "
+        f"{rel2:.5f}), gradient cosine {cos2:.6f}; launches on the card "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not (launches.get("flash_attention", 0) >= 1
+            and launches.get("flash_attention_bwd", 0) >= 1):
+        raise AssertionError(f"the video reference missed the flash kernels: {launches}")
+    if not (rel1 <= S1_REF_LOSS_REL and cos1 >= S1_REF_MIN_COS and rel2 <= TRAIN_REF_LOSS_REL
+            and cos2 >= TRAIN_REF_MIN_COS and all(v <= S1_REF_TERM_REL for v in terms.values())):
+        raise AssertionError("the GPU video train steps disagree with the CPU reference")
 
 
 def build_report(name, ptxas) -> None:
@@ -2419,8 +3177,31 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    vtmp = tempfile.mkdtemp(prefix="video_train_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        vpipe, vtrainer, vstate, v1_ms, v1_shapes = video_stage1_phase(torch, dev, vtmp)
+        stage1_checkpoint_phase(torch, dev, vpipe, vtrainer, vstate, vtmp, data=Clips(2, 9),
+                                watch="mlp.net_out.bias",
+                                per_step={k: 1 for k in V1_LAUNCHES}, tag="v-stage1-ckpt")
+        vrecon = video_reconstruct_phase(torch, dev, vpipe)
+        del vpipe, vtrainer, vstate
+        torch.cuda.empty_cache()
+        video_stage1_gan_phase(torch, dev, os.path.join(vtmp, "gan"), v1_ms)
+        torch.cuda.empty_cache()
+        vtrain2, v2_shapes = video_stage2_phase(torch, dev, vtmp)
+        torch.cuda.empty_cache()
+        shapes = {s: ("video-stage1", c) for s, c in v1_shapes.items()}
+        shapes.update({s: ("video-stage2", c) for s, c in v2_shapes.items()})
+        video_train_kernel_phase(torch, dev, shapes)
+        torch.cuda.empty_cache()
+        video_reference_train_phase(torch, dev)
+    finally:
+        shutil.rmtree(vtmp, ignore_errors=True)
+    vtrain1 = {k: V1_LAUNCHES.get(k, 0) for k in KERNELS}
+
     kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]
-                            + occ[name] + recon[name]) for name in KERNELS]
+                            + occ[name] + recon[name] + vtrain1[name] + vrecon[name]
+                            + vtrain2[name]) for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

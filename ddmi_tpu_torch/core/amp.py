@@ -25,6 +25,17 @@ def compute_cast(params: dict, enabled: bool) -> dict:
             for k, v in params.items()}
 
 
+def rounded_cast(params: dict, enabled: bool) -> dict:
+    """fp32 copies of the bf16 roundings of the fp32 tensors of `params`
+    when enabled: what flax computes with when a bf16-cast weight meets an
+    fp32 input (it promotes the weight back to fp32), as the video INR's
+    fp32 positional encoding does under the JAX package's amp policy."""
+    if not enabled:
+        return params
+    return {k: v.to(torch.bfloat16).float() if v.dtype == torch.float32 else v
+            for k, v in params.items()}
+
+
 class _Method(torch.nn.Module):
     """`module.<method>` as a forward, for functional_call."""
 

@@ -148,12 +148,15 @@ def stage2_adamw(cfg, params: List[torch.Tensor]):
     return MultiSteps(tx, params, accum) if accum > 1 else tx
 
 
-def stage1_adamw(cfg, params: List[torch.Tensor], steps_per_epoch: int):
-    """The stage-1 optimizer (ddmi_tpu/domains/image.py::stage1_optimizer):
-    AdamW(wd 0, fp32 mu) on a schedule of optimizer updates, a linear
-    warm-up from 0 over warmup_epochs then cosine decay to 0 by the last
-    epoch (lossconfig.lr_scheduler), or the warm-up alone, inside
-    MultiSteps when lossconfig.gradient_accumulate_every > 1."""
+def stage1_adamw(cfg, params: List[torch.Tensor], steps_per_epoch: int,
+                 warmup_only: bool = True):
+    """The stage-1 optimizer (ddmi_tpu/domains/{image,video}.py::
+    stage1_optimizer): AdamW(wd 0, fp32 mu) on a schedule of optimizer
+    updates, a linear warm-up from 0 over warmup_epochs then cosine decay
+    to 0 by the last epoch (lossconfig.lr_scheduler); without the
+    scheduler the warm-up alone (`warmup_only`, the image domain's) or a
+    constant model.lr (the video domain's).  Inside MultiSteps when
+    lossconfig.gradient_accumulate_every > 1."""
     m = cfg.model
     lc = m.lossconfig
     accum = max(1, lc.gradient_accumulate_every)
@@ -161,8 +164,10 @@ def stage1_adamw(cfg, params: List[torch.Tensor], steps_per_epoch: int):
     warmup = steps_per_epoch * lc.warmup_epochs // accum
     if lc.lr_scheduler:
         sched = warmup_cosine_decay_schedule(0.0, m.lr, max(warmup, 1), max(total, 2))
-    else:
+    elif warmup_only:
         sched = linear_schedule(0.0, m.lr, max(warmup, 1))
+    else:
+        sched = m.lr
     tx = AdamW(params, sched, mu_dtype=torch.float32)
     return MultiSteps(tx, params, accum) if accum > 1 else tx
 

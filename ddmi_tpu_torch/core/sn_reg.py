@@ -1,14 +1,16 @@
 """The spectral-norm regulariser of stage-1 training (counterpart of
 ddmi_tpu/core/sn_reg.py; reference utils/sr_utils.py).
 
-Every convolution kernel of the VAE (1x1 attention, quant and HDBF convs
-included) is flattened to an (out, kh * kw * in) matrix with its columns
-in the JAX package's (kh, kw, in) order, and the matrices are grouped by
-shape under the key f"{out}x{kh * kw * in}".  Within a group they are
-stacked in the order of their JAX parameter paths (`nn/vae.py::jax_layout`)
-sorted as strings, so "Conv_10" comes before "Conv_2"; the state's (u, v)
-are then the JAX package's, element for element, and carry across
-unchanged.  Each evaluation refreshes (u, v) by power iteration on the
+Every kernel that is a 4-D convolution in the JAX package (1x1 attention,
+quant and HDBF convs included; the video VAE's Dense layers, whose kernels
+are 2-D there, are not) is flattened to an (out, kh * kw * in) matrix with
+its columns in the JAX package's (kh, kw, in) order, and the matrices are
+grouped by shape under the key f"{out}x{kh * kw * in}".  Within a group
+they are stacked in the order of their JAX parameter paths (the VAE's
+`jax_layout()`: nn/vae.py for the image VAE, nn/video_vae.py for the
+video one) sorted as strings, so "Conv_10" comes before "Conv_2"; the
+state's (u, v) are then the JAX package's, element for element, and carry
+across unchanged.  Each evaluation refreshes (u, v) by power iteration on the
 detached weights and returns the sum of the estimated top singular values
 u^T W v, differentiable in W.  `norm_scale_loss` sums max|scale| over the
 VAE's GroupNorms.  Everything reads the fp32 master parameters.
@@ -20,15 +22,13 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from ddmi_tpu_torch.nn.vae import jax_layout
-
 SNState = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _sorted_layout(vae, kinds) -> List[str]:
     """Port module keys of the VAE's layers of `kinds`, in sorted JAX path
     order."""
-    return [key for path, key in sorted((path, key) for key, path, kind in jax_layout(vae.cfg)
+    return [key for path, key in sorted((path, key) for key, path, kind in vae.jax_layout()
                                         if kind in kinds)]
 
 

@@ -11,11 +11,15 @@ where the last checkpoint left off; stage 2 takes its VAE and INR from the
 newest stage-1 checkpoint in the save directory when there is one.  The JAX
 trainer's mesh becomes one card: `cfg.mesh` is read and changes nothing,
 which the run says once, as the JAX package's `make_mesh` fallback does.
-The stage-2 eval hook is not ported.
+The eval hooks run after each save: stage 1 reconstructs and logs PSNR
+(image and video), stage 2 samples with the EMA weights and saves the
+samples (image and video); the occupancy and NeRF branches wait for their
+domains' training.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import queue
@@ -188,7 +192,7 @@ class Trainer:
         return step
 
     def train_stage2(self, epochs: Optional[int] = None, resume: bool = False,
-                     save: bool = True):
+                     save: bool = True, eval_hook: Optional[Callable] = None):
         """Stage-2 training of the pipeline's UNet and mixing logit over
         `epochs` passes of the dataset (lossconfig.epochs when None); the
         frozen VAE encoder makes the latents.  The VAE and the INR come from
@@ -198,7 +202,10 @@ class Trainer:
         trainer draws them from cfg.seed, the seed to build the pipeline
         with).  The step draws (posterior eps, t, noise) come from a
         torch.Generator seeded cfg.seed + 2, the JAX trainer's step stream.
-        `save=False` writes no checkpoint.  Returns the final Stage2State."""
+        `save=False` writes no checkpoint (and runs no eval).
+        `eval_hook(trainer, state, epoch)` runs after each save
+        (default_stage2_eval_hook when None).  Returns the final
+        Stage2State."""
         if CheckpointManager(self.save_dir, prefix="stage1").latest_step() is not None:
             print(f"[s2/] stage-1 weights from step {self.load_stage1()} of "
                   f"{os.path.join(self.save_dir, 'stage1')}", flush=True)
@@ -211,7 +218,8 @@ class Trainer:
         print(f"[s2/] {epochs} epoch(s) of {self._steps_per_epoch()} micro-steps on "
               f"{self.pipe.device}", flush=True)
         step_fn = lambda s, x: self.pipe.stage2_train_step(s, x, generator=gen)
-        return self._epochs(state, resumable, ckpt, step_fn, epochs, "s2/", None, save)
+        return self._epochs(state, resumable, ckpt, step_fn, epochs, "s2/",
+                            default_stage2_eval_hook if eval_hook is None else eval_hook, save)
 
     @staticmethod
     def _save_images(imgs: np.ndarray, prefix: str) -> None:
@@ -233,32 +241,93 @@ def _first_test_batch(trainer: Trainer):
     return None
 
 
+def _psnr(recon: torch.Tensor, ref: torch.Tensor) -> float:
+    mse = float(((recon - ref) ** 2).mean())
+    return -10.0 * math.log10(max(mse, 1e-12))
+
+
 def default_stage1_eval_hook(trainer: Trainer, state, epoch: int) -> None:
-    """The stage-1 eval after each save, for the image domain: reconstruct 4
-    test images (the first test batch, or the first training batch without
-    a test set) at the anchor resolution with eps drawn from a generator
-    seeded 0, log their PSNR against the images (resized to that resolution
-    when they differ, where the JAX hook logs NaN) as eval/psnr, and save
-    them under <save_dir>/recon/ep<epoch>.  A failure is warned about and
-    counted (s1/eval_hook_failures), never raised, as in the JAX trainer."""
-    if trainer.cfg.data.domain != "image":
+    """The stage-1 eval after each save, on the first test batch (or the
+    first training batch without a test set), with eps drawn from a
+    generator seeded 0.  Image: reconstruct 4 images at the anchor
+    resolution, log their PSNR against the images (resized to that
+    resolution when they differ, where the JAX hook logs NaN) as
+    eval/psnr, and save them under <save_dir>/recon/ep<epoch>.  Video:
+    reconstruct 2 clips and log their PSNR as eval/psnr.  A failure is
+    warned about and counted (s1/eval_hook_failures), never raised, as in
+    the JAX trainer."""
+    domain = trainer.cfg.data.domain
+    if domain not in ("image", "video"):
         return
     batch = _first_test_batch(trainer)
     if batch is None:
         return
     try:
         pipe = trainer.pipe
-        x = torch.as_tensor(np.asarray(batch)[:4]).to(pipe.device)
         g = torch.Generator(device=pipe.device).manual_seed(0)
+        if domain == "video":
+            x = torch.as_tensor(np.asarray(batch)[:2]).to(pipe.device)
+            recon = pipe.reconstruct(x, generator=g)
+            trainer.logger.log(state.step, {"psnr": _psnr(recon, x.float())}, prefix="eval/")
+            return
+        x = torch.as_tensor(np.asarray(batch)[:4]).to(pipe.device)
         recon = pipe.reconstruct(x, generator=g)
         ref = x.float()
         if ref.shape != recon.shape:
             ref = resize_antialias(ref, recon.shape[1])
-        mse = float(((recon - ref) ** 2).mean())
-        trainer.logger.log(state.step, {"psnr": -10.0 * math.log10(max(mse, 1e-12))},
-                           prefix="eval/")
+        trainer.logger.log(state.step, {"psnr": _psnr(recon, ref)}, prefix="eval/")
         trainer._save_images(recon.cpu().numpy(),
                              os.path.join(trainer.save_dir, "recon", f"ep{epoch}"))
     except Exception as e:  # an eval must never end a training run
         warnings.warn(f"stage1 eval hook failed: {e}\n{traceback.format_exc()}")
         trainer.logger.log(epoch, {"eval_hook_failures": 1.0}, prefix="s1/")
+
+
+@contextlib.contextmanager
+def ema_weights(pipe, state):
+    """Inside the block the pipeline's UNet and mixing logit hold the EMA
+    weights, the UNet cast to bf16 on the card (the dtype the sampling
+    kernels take, as the sampling service casts it) and fp32 on the CPU;
+    after it the trained fp32 parameters are back, bit for bit (the same
+    tensors, so the optimizer keeps them)."""
+    saved = {k: p.detach().clone() for k, p in state.params.items()}
+    try:
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(state.ema[k])
+        if pipe.device.type == "cuda":
+            pipe.unet.to(torch.bfloat16)
+        yield pipe
+    finally:
+        pipe.unet.float()
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(saved[k])
+
+
+def default_stage2_eval_hook(trainer: Trainer, state, epoch: int) -> None:
+    """The stage-2 eval after each save: sample with the EMA weights from a
+    generator seeded cfg.seed + 100 + epoch and save the samples under
+    <save_dir>/samples/: image, 2 images at min(test_resolution, 256)
+    (ep<epoch>_<i>); video, one clip's frames (ep<epoch>_video_<i>).  A
+    failure is warned about and counted (s2/eval_hook_failures), never
+    raised, as in the JAX trainer."""
+    domain = trainer.cfg.data.domain
+    if domain not in ("image", "video"):
+        return
+    out_dir = os.path.join(trainer.save_dir, "samples")
+    try:
+        pipe = trainer.pipe
+        g = torch.Generator(device=pipe.device).manual_seed(trainer.cfg.seed + 100 + epoch)
+        with ema_weights(pipe, state):
+            if domain == "image":
+                res = min(trainer.cfg.data.test_resolution, 256)
+                imgs = pipe.sample_images(2, resolution=res, generator=g)
+                trainer._save_images(imgs.cpu().numpy(), os.path.join(out_dir, f"ep{epoch}"))
+            else:
+                vids = pipe.sample_videos(1, generator=g)
+                trainer._save_images(vids[0].cpu().numpy(),
+                                     os.path.join(out_dir, f"ep{epoch}_video"))
+    except Exception as e:  # an eval must never end a training run
+        warnings.warn(f"stage2 eval hook failed: {e}\n{traceback.format_exc()}")
+        trainer.logger.log(epoch, {"eval_hook_failures": 1.0}, prefix="s2/")

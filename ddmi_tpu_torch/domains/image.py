@@ -52,6 +52,29 @@ def _copy_into(dst: Dict[str, torch.Tensor], src) -> None:
             t.copy_(src[k])
 
 
+def stage1_kl_coeff(lc, total_iters: int, step: int) -> float:
+    """The KL weight at micro-step `step`: annealed over total_iters
+    micro-steps (lossconfig.kl_anneal), else kl_max_coeff; in JAX's fp32."""
+    if not lc.kl_anneal:
+        return float(np.float32(lc.kl_max_coeff))
+    total = max(total_iters, 1)
+    f32 = np.float32
+    return linear_kl_coeff(step, f32(lc.kl_anneal_portion) * f32(total),
+                           f32(lc.kl_const_portion) * f32(total),
+                           lc.kl_const_coeff, lc.kl_max_coeff)
+
+
+def stage1_sn_weight(lc, kl_coeff: float) -> float:
+    """The SN regulariser's weight: annealed geometrically from
+    sn_reg_weight_decay_init to sn_reg_weight_decay along the KL weight
+    (lossconfig.sn_reg_weight_decay_anneal), else sn_reg_weight_decay."""
+    if not lc.sn_reg_weight_decay_anneal:
+        return lc.sn_reg_weight_decay
+    f32, k = np.float32, np.float32(kl_coeff)
+    return float(np.exp((f32(1.0) - k) * np.log(f32(lc.sn_reg_weight_decay_init))
+                        + k * np.log(f32(lc.sn_reg_weight_decay))))
+
+
 @dataclasses.dataclass
 class Stage1Draws:
     """The random draws of one stage-1 micro-step: `multiscale` = (p, i, j,
@@ -124,7 +147,97 @@ class Stage2State:
         self.opt.load_state_dict(sd["opt"])
 
 
-class ImagePipeline(nn.Module):
+class LatentTraining:
+    """The training methods the image and video pipelines share: their
+    parameter sets, both stages' states, stage 2's optimizer and EMA step.
+    A pipeline brings `vae`, `mlp`, `unet`, `mixing_logit`, `gan`, `cfg`,
+    `lc`, `amp`, `device` and its own `stage2_loss`, and says whether its
+    stage-1 rate without lossconfig.lr_scheduler keeps the warm-up
+    (`stage1_warmup_only`) or is constant."""
+
+    # The KL anneal's length in micro-steps until init_stage1 sets it (the
+    # JAX package's default).
+    _stage1_total_iters = 100_000
+
+    def stage1_params(self) -> Dict[str, torch.Tensor]:
+        """The trainable parameters: the VAE's and the INR's."""
+        params = {f"vae.{k}": p for k, p in self.vae.named_parameters()}
+        params.update({f"mlp.{k}": p for k, p in self.mlp.named_parameters()})
+        return params
+
+    def init_stage1(self, steps_per_epoch: int = 1000) -> Stage1State:
+        """Ready the pipeline for stage-1 training from its current weights:
+        the VAE and the INR train in fp32 (the VAE laid out channels-last on
+        the card), and the state starts with a fresh optimizer, spectral-norm
+        vectors drawn from a generator seeded 7 (the JAX package's key) and,
+        for the adversarial configs, the discriminator's optimizer.  The KL
+        anneals over steps_per_epoch x lossconfig.epochs micro-steps."""
+        for module in (self.vae, self.mlp):
+            module.float().requires_grad_(True)
+        if self.device.type == "cuda":
+            self.vae.to(memory_format=torch.channels_last)
+        self._stage1_total_iters = steps_per_epoch * self.lc.epochs
+        params = self.stage1_params()
+        gen = torch.Generator(device=self.device).manual_seed(7)
+        sn = init_sn_state(self.vae, gen)
+        disc = disc_opt = None
+        if self.gan is not None:
+            self.gan.float().requires_grad_(True)
+            disc = dict(self.gan.named_parameters())
+            disc_opt = disc_adamw(self.cfg, list(disc.values()))
+        opt = stage1_adamw(self.cfg, list(params.values()), steps_per_epoch,
+                           warmup_only=self.stage1_warmup_only)
+        return Stage1State(0, params, opt, sn, disc, disc_opt)
+
+    def stage2_params(self) -> Dict[str, torch.Tensor]:
+        """The trainable parameters: the UNet's and the mixing logit."""
+        params = {f"unet.{k}": p for k, p in self.unet.named_parameters()}
+        params["mixing_logit"] = self.mixing_logit
+        return params
+
+    def init_stage2(self) -> Stage2State:
+        """Ready the pipeline for stage-2 training from its current weights:
+        the UNet and the mixing logit train in fp32 (on the card laid out
+        channels-last), the VAE and the INR are frozen, and under model.amp
+        the frozen VAE is cast to bf16 once (the bf16 cast JAX takes of it
+        every step).  Returns the state with fp32 EMA copies and a fresh
+        optimizer: AdamW(lr, wd 0, bf16 mu) with gradient accumulation."""
+        for module in (self.vae, self.mlp):
+            module.requires_grad_(False)
+        self.unet.float().requires_grad_(True)
+        self.mixing_logit.requires_grad_(True)
+        if self.device.type == "cuda":
+            for module in (self.unet, self.vae):
+                module.to(memory_format=torch.channels_last)
+        if self.amp:
+            self.vae.to(torch.bfloat16)
+        params = self.stage2_params()
+        ema = {k: p.detach().clone() for k, p in params.items()}
+        return Stage2State(0, params, ema, stage2_adamw(self.cfg, list(params.values())))
+
+    def stage2_apply(self, state: Stage2State) -> None:
+        """The optimizer (gradients taken from the parameters' .grad, which
+        are cleared) and the EMA for one micro-step; advances state.step."""
+        params = list(state.params.values())
+        state.opt.update(params, [p.grad for p in params])
+        for p in params:
+            p.grad = None
+        ema_update(state.ema, state.params, state.step, beta=self.lc.ema_decay,
+                   update_every=self.lc.ema_update_every)
+        state.step += 1
+
+    def stage2_train_step(self, state: Stage2State, x, generator: Optional[torch.Generator] = None,
+                          t=None, noise=None, eps=None):
+        """One micro-step: the loss and its gradients, then the optimizer and
+        the EMA; the draws as in `stage2_loss`.  -> (state, aux of detached
+        fp32 scalars)."""
+        loss, aux = self.stage2_loss(x, generator, t=t, noise=noise, eps=eps)
+        loss.backward()
+        self.stage2_apply(state)
+        return state, {k: v.detach() for k, v in aux.items()}
+
+
+class ImagePipeline(LatentTraining, nn.Module):
     """The models of one image config: `unet` + `mixing_logit` (stage 2),
     `vae` + `mlp` (stage 1), and `gan` (the PatchGAN loss) for the
     adversarial stage-1 configs.
@@ -136,6 +249,8 @@ class ImagePipeline(nn.Module):
     `mixing_logit`, which stays fp32 as in the JAX package.  `perceptual`
     is the LPIPS of stage-1 training (evals/lpips.py::build_perceptual), or
     None to train without it, as the JAX pipeline's perceptual_fn."""
+
+    stage1_warmup_only = True
 
     def __init__(self, cfg, device="cuda", seed: int = 0, perceptual: Optional[nn.Module] = None):
         super().__init__()
@@ -243,35 +358,6 @@ class ImagePipeline(nn.Module):
 
     # ------------------------------------------------------------ stage 1
 
-    def stage1_params(self) -> Dict[str, torch.Tensor]:
-        """The trainable parameters: the VAE's and the INR's."""
-        params = {f"vae.{k}": p for k, p in self.vae.named_parameters()}
-        params.update({f"mlp.{k}": p for k, p in self.mlp.named_parameters()})
-        return params
-
-    def init_stage1(self, steps_per_epoch: int = 1000) -> Stage1State:
-        """Ready the pipeline for stage-1 training from its current weights:
-        the VAE and the INR train in fp32 (the VAE laid out channels-last on
-        the card), and the state starts with a fresh optimizer, spectral-norm
-        vectors drawn from a generator seeded 7 (the JAX package's key) and,
-        for the adversarial configs, the discriminator's optimizer.  The KL
-        anneals over steps_per_epoch x lossconfig.epochs micro-steps."""
-        for module in (self.vae, self.mlp):
-            module.float().requires_grad_(True)
-        if self.device.type == "cuda":
-            self.vae.to(memory_format=torch.channels_last)
-        self._stage1_total_iters = steps_per_epoch * self.lc.epochs
-        params = self.stage1_params()
-        gen = torch.Generator(device=self.device).manual_seed(7)
-        sn = init_sn_state(self.vae, gen)
-        disc = disc_opt = None
-        if self.gan is not None:
-            self.gan.float().requires_grad_(True)
-            disc = dict(self.gan.named_parameters())
-            disc_opt = disc_adamw(self.cfg, list(disc.values()))
-        opt = stage1_adamw(self.cfg, list(params.values()), steps_per_epoch)
-        return Stage1State(0, params, opt, sn, disc, disc_opt)
-
     def latent_shape(self, b: int) -> Tuple[int, int, int, int]:
         c = self.cfg.model.ddconfig
         r = c.resolution // 2 ** (len(c.ch_mult) - 1)
@@ -290,24 +376,6 @@ class ImagePipeline(nn.Module):
             aug = draw_diffaugment((b, self.anchor, self.anchor, self.cfg.model.mlpconfig.out_ch),
                                    self.diffaug_policy, generator, self.device)
         return Stage1Draws(ms, eps, aug=aug)
-
-    def _kl_coeff(self, step: int) -> float:
-        lc = self.lc
-        if not lc.kl_anneal:
-            return float(np.float32(lc.kl_max_coeff))
-        total = max(getattr(self, "_stage1_total_iters", 100_000), 1)
-        f32 = np.float32
-        return linear_kl_coeff(step, f32(lc.kl_anneal_portion) * f32(total),
-                               f32(lc.kl_const_portion) * f32(total),
-                               lc.kl_const_coeff, lc.kl_max_coeff)
-
-    def _sn_weight(self, kl_coeff: float) -> float:
-        lc = self.lc
-        if not lc.sn_reg_weight_decay_anneal:
-            return lc.sn_reg_weight_decay
-        f32, k = np.float32, np.float32(kl_coeff)
-        return float(np.exp((f32(1.0) - k) * np.log(f32(lc.sn_reg_weight_decay_init))
-                            + k * np.log(f32(lc.sn_reg_weight_decay))))
 
     def stage1_loss(self, x: torch.Tensor, step: int, draws: Stage1Draws, sn_state,
                     generator: Optional[torch.Generator] = None):
@@ -344,7 +412,7 @@ class ImagePipeline(nn.Module):
             output = out.float().reshape(b, res, res, -1)
 
         kld = posterior.kl().float().mean()
-        kl_coeff = self._kl_coeff(step)
+        kl_coeff = stage1_kl_coeff(lc, self._stage1_total_iters, step)
         recon = (output - target).abs().sum(dim=(1, 2, 3)).mean()
         loss = recon + kl_coeff * kld
         p_loss = torch.zeros((), device=x.device)
@@ -357,7 +425,7 @@ class ImagePipeline(nn.Module):
             with record_function("stage1/sn"):
                 sn, new_sn = spectral_norm_loss(self.vae, sn_state)
                 sn = sn + norm_scale_loss(self.vae)
-            loss = loss + sn * self._sn_weight(kl_coeff)
+            loss = loss + sn * stage1_sn_weight(lc, kl_coeff)
         metrics = {"loss": loss, "recon": recon, "kl": kld, "kl_coeff": kl_coeff,
                    "lpips": p_loss, "sn": sn}
         return loss, metrics, new_sn, (target, output, scale)
@@ -443,36 +511,6 @@ class ImagePipeline(nn.Module):
 
     # ------------------------------------------------------------ stage 2
 
-    def stage2_params(self) -> Dict[str, torch.Tensor]:
-        """The trainable parameters: the UNet's and the mixing logit."""
-        params = {f"unet.{k}": p for k, p in self.unet.named_parameters()}
-        params["mixing_logit"] = self.mixing_logit
-        return params
-
-    def stage2_optimizer(self, params: Dict[str, torch.Tensor]):
-        """AdamW(lr, wd 0, bf16 mu) with gradient accumulation."""
-        return stage2_adamw(self.cfg, list(params.values()))
-
-    def init_stage2(self) -> Stage2State:
-        """Ready the pipeline for stage-2 training from its current weights:
-        the UNet and the mixing logit train in fp32 (on the card laid out
-        channels-last), the VAE and the INR are frozen, and under model.amp
-        the frozen VAE is cast to bf16 once (the bf16 cast JAX takes of it
-        every step).  Returns the state with fp32 EMA copies and a fresh
-        optimizer."""
-        for module in (self.vae, self.mlp):
-            module.requires_grad_(False)
-        self.unet.float().requires_grad_(True)
-        self.mixing_logit.requires_grad_(True)
-        if self.device.type == "cuda":
-            for module in (self.unet, self.vae):
-                module.to(memory_format=torch.channels_last)
-        if self.amp:
-            self.vae.to(torch.bfloat16)
-        params = self.stage2_params()
-        ema = {k: p.detach().clone() for k, p in params.items()}
-        return Stage2State(0, params, ema, self.stage2_optimizer(params))
-
     @torch.no_grad()
     def encode_latents(self, x, eps=None, generator: Optional[torch.Generator] = None):
         """The frozen stage-1 encode: x (b, H, W, 3) in [0, 1] is resized to
@@ -497,24 +535,3 @@ class ImagePipeline(nn.Module):
         z = self.encode_latents(x, eps, generator)
         model_fn = amp_denoiser(self.unet, self.amp)
         return diffusion_loss(self.gd, model_fn, self.mixing_logit, z, generator, t, noise)
-
-    def stage2_apply(self, state: Stage2State) -> None:
-        """The optimizer (gradients taken from the parameters' .grad, which
-        are cleared) and the EMA for one micro-step; advances state.step."""
-        params = list(state.params.values())
-        state.opt.update(params, [p.grad for p in params])
-        for p in params:
-            p.grad = None
-        ema_update(state.ema, state.params, state.step, beta=self.lc.ema_decay,
-                   update_every=self.lc.ema_update_every)
-        state.step += 1
-
-    def stage2_train_step(self, state: Stage2State, x, generator: Optional[torch.Generator] = None,
-                          t=None, noise=None, eps=None):
-        """One micro-step: the loss and its gradients, then the optimizer and
-        the EMA; the draws as in `stage2_loss`.  -> (state, aux of detached
-        fp32 scalars)."""
-        loss, aux = self.stage2_loss(x, generator, t=t, noise=noise, eps=eps)
-        loss.backward()
-        self.stage2_apply(state)
-        return state, {k: v.detach() for k, v in aux.items()}

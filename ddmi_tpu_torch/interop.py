@@ -3,25 +3,27 @@
 The exact inverse of the converters in
 ddmi_tpu/interop/reference_ckpt.py that the ported slices need: for images
 `convert_unet`, `convert_vae` and `convert_mlp_image`; for video
-`convert_unet_triplane`, the decoder half of `convert_video_vae` and
-`convert_mlp_video`; for NeRF the decoder half of `convert_triplane_vae` and
+`convert_unet_triplane`, `convert_video_vae` (whole, or its decoder half)
+and `convert_mlp_video`; for NeRF the decoder half of `convert_triplane_vae` and
 `convert_mlp_nerf` (the UNet is the image one); for occupancy
 `convert_triplane_vae` whole, `convert_mlp_3d` and `convert_pointnet`.  For
 stage-1 training: LPIPS into the reference checkpoint layout (the JAX
 package's evals/lpips.py::load_torch_weights reads it back), and the
-PatchGAN and the spectral-norm state, which the JAX package has no
-converter for (`*_to_jax` give the inverses).  The port's modules use the
+PatchGANs (the image one and the video 2D + 3D pair) and the
+spectral-norm state, which the JAX package has no converter for (`*_to_jax` give the inverses).  The port's modules use the
 reference PyTorch layouts, so every map here is a transpose, reshape or channel
 permutation and the round trip is bit-exact:
 
   * Flax Conv (kh, kw, I, O)   -> Conv2d (O, I, kh, kw)
+  * Flax Conv (kt, kh, kw, I, O) -> Conv3d (O, I, kt, kh, kw) [3D PatchGAN]
+  * LayerNorm scale / bias     -> weight / bias
   * Flax 1x1 Conv (1, 1, I, O) -> Conv1d (O, I, 1)        [ADM attention]
   * Flax Dense (I, O)          -> Linear (O, I)
   * GroupNorm scale / bias     -> weight / bias
   * ModulatedConv (k, k, I, O) -> (1, O, I, k, k)
   * Flax Dense (I, O) over tokens -> Conv1d (O, I, 1)   [1D attention]
-  * Flax Dense (I, O) over planes -> 1x1 Conv2d (O, I, 1, 1) [video post_*,
-                                                    triplane post_quant_conv_*]
+  * Flax Dense (I, O) over planes -> 1x1 Conv2d (O, I, 1, 1) [video pre_* and
+                                        post_*, triplane post_quant_conv_*]
   * ADM qkv: qkv-major output channels -> head-major (QKVAttentionLegacy)
 """
 
@@ -282,6 +284,66 @@ def video_decoder_from_jax(tree, cfg) -> SD:
     return sd
 
 
+def _vit_attn(sd: SD, key: str, norm, qkv, out) -> None:
+    """PreNorm(Attention): LayerNorm, bias-free qkv, to_out.0."""
+    _gn(sd, key + ".norm", norm)  # a LayerNorm's scale and bias map as a GroupNorm's
+    sd[key + ".fn.to_qkv.weight"] = _t(np.transpose(qkv["kernel"]))
+    _dense(sd, key + ".fn.to_out.0", out)
+
+
+def _vit_ff(sd: SD, key: str, norm, p) -> None:
+    _gn(sd, key + ".norm", norm)
+    _dense(sd, key + ".fn.net.0", p["Dense_0"])
+    _dense(sd, key + ".fn.net.3", p["Dense_1"])
+
+
+def timesformer_from_jax(tree) -> SD:
+    """JAX TimeSformerEncoder params (nn/vit.py) -> port TimeSformerEncoder
+    state_dict (`to_patch_embedding`, `layers.{i}.{0,1,2}`)."""
+    sd: SD = {}
+    _dense(sd, "to_patch_embedding", tree["to_patch_embedding"])
+    i = 0
+    while f"time_attn_{i}" in tree:
+        for j, part in enumerate(("time", "space")):
+            a = tree[f"{part}_attn_{i}"]
+            _vit_attn(sd, f"layers.{i}.{j}", tree[f"{part}_norm_{i}"], a["to_qkv"], a["to_out"])
+        _vit_ff(sd, f"layers.{i}.2", tree[f"ff_norm_{i}"], tree[f"ff_{i}"])
+        i += 1
+    return sd
+
+
+def vit_transformer_from_jax(tree) -> SD:
+    """JAX Transformer params (nn/vit.py, the pooling transformer) -> port
+    Transformer state_dict (`layers.{i}.{0,1}`)."""
+    sd: SD = {}
+    i = 0
+    while f"qkv_{i}" in tree:
+        _vit_attn(sd, f"layers.{i}.0", tree[f"attn_norm_{i}"], tree[f"qkv_{i}"],
+                  tree[f"attn_out_{i}"])
+        _vit_ff(sd, f"layers.{i}.1", tree[f"ff_norm_{i}"], tree[f"ff_{i}"])
+        i += 1
+    return sd
+
+
+def video_vae_from_jax(tree, cfg) -> SD:
+    """JAX VideoAutoencoder params (nn/video_vae.py) -> state_dict of the
+    port's whole VideoAutoencoder (`with_encoder=True`): the decode half of
+    `video_decoder_from_jax`, the TimeSformer (`encoder.*`), the class
+    tokens and positions, the pooling transformers and `pre_{xy,xt,yt}`.
+    Inverts reference_ckpt.convert_video_vae."""
+    sd = video_decoder_from_jax(tree, cfg)
+    sd.update({"encoder." + k: v for k, v in timesformer_from_jax(tree["encoder"]).items()})
+    for plane in ("xy", "xt", "yt"):
+        sd[f"{plane}_token"] = _t(tree[f"{plane}_token"])
+        sd[f"{plane}_pos_embedding"] = _t(tree[f"{plane}_pos"])
+        sd.update({f"{plane}_quant_attn.{k}": v for k, v in
+                   vit_transformer_from_jax(tree[f"{plane}_quant_attn"]).items()})
+        p = tree[f"pre_{plane}"]
+        sd[f"pre_{plane}.weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
+        sd[f"pre_{plane}.bias"] = _t(p["bias"])
+    return sd
+
+
 def mlp_video_from_jax(tree) -> SD:
     """JAX INRVideo params (nn/inr.py) -> port INRVideo state_dict (the
     reference MLPVideo's keys); inverts reference_ckpt.convert_mlp_video."""
@@ -454,6 +516,49 @@ def discriminator_to_jax(sd: SD) -> dict:
         else:
             d.setdefault(f"SyncBatchNorm_{k}", {})[name] = a
     return {"discriminator": d}
+
+
+def discriminator3d_from_jax(tree) -> SD:
+    """JAX GANLoss3D params {"disc2d": ..., "disc3d": ...} (each {Conv_k,
+    SyncBatchNorm_k}) -> state_dict of the port's GANLoss3D
+    (`disc2d.convs.{k}`, `disc2d.norms.{k}.{scale,bias}`, and the same
+    under `disc3d`; Flax Conv (kt, kh, kw, I, O) -> Conv3d (O, I, kt, kh,
+    kw))."""
+    sd: SD = {}
+    for name, d in ((n, tree[n]) for n in ("disc2d", "disc3d")):
+        k = 0
+        while f"Conv_{k}" in d:
+            kernel = np.asarray(d[f"Conv_{k}"]["kernel"])
+            nd = kernel.ndim
+            sd[f"{name}.convs.{k}.weight"] = _t(np.transpose(
+                kernel, (nd - 1, nd - 2) + tuple(range(nd - 2))))
+            sd[f"{name}.convs.{k}.bias"] = _t(d[f"Conv_{k}"]["bias"])
+            k += 1
+        k = 0
+        while f"SyncBatchNorm_{k}" in d:
+            for leaf in ("scale", "bias"):
+                sd[f"{name}.norms.{k}.{leaf}"] = _t(d[f"SyncBatchNorm_{k}"][leaf])
+            k += 1
+    return sd
+
+
+def discriminator3d_to_jax(sd: SD) -> dict:
+    """The inverse of `discriminator3d_from_jax` (numpy leaves)."""
+    tree: dict = {}
+    for name in ("disc2d", "disc3d"):
+        d: dict = {}
+        for key, t in sd.items():
+            owner, group, k, leaf = key.split(".")
+            if owner != name:
+                continue
+            a = t.detach().cpu().numpy()
+            if group == "convs":
+                d.setdefault(f"Conv_{k}", {})[leaf if leaf == "bias" else "kernel"] = (
+                    a if leaf == "bias" else np.transpose(a, tuple(range(2, a.ndim)) + (1, 0)))
+            else:
+                d.setdefault(f"SyncBatchNorm_{k}", {})[leaf] = a
+        tree[name] = d
+    return tree
 
 
 def lpips_from_jax(tree) -> SD:

@@ -261,6 +261,10 @@ class Autoencoder(nn.Module):
     def decode(self, z) -> List[torch.Tensor]:
         return self.decoder(self.post_quant_conv(z))
 
+    def jax_layout(self) -> List[Tuple[str, Tuple[str, ...], str]]:
+        """`jax_layout` of this VAE's config (core/sn_reg.py reads it)."""
+        return jax_layout(self.cfg)
+
 
 def jax_layout(cfg) -> List[Tuple[str, Tuple[str, ...], str]]:
     """[(port module key, JAX parameter path, kind)] for every convolution

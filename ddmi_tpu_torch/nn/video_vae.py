@@ -1,27 +1,46 @@
-"""Video D2C-VAE, decode half (counterpart of ddmi_tpu/nn/video_vae.py):
-the shared-weight triplane decoder with cross-plane 1D attention
-(reference VideoDecoder_light) and the VITAutoencoder's `post_*` layers.
+"""Video D2C-VAE (counterpart of ddmi_tpu/nn/video_vae.py; reference
+VITAutoencoder and VideoDecoder_light): the TimeSformer encoder whose
+patch tokens are pooled per axis into three plane posteriors, and the
+shared-weight triplane decoder with cross-plane 1D attention.
 
-Latent tokens are [xy | xt | yt]; the decoded pyramids come out in the order
-(xy, yt, xt), as in the JAX package.  Planes are NCHW; the t axis of the xt
-and yt planes is never upsampled.  State keys follow the reference:
-`decoder.conv_in`, `decoder.mid.{block_1,attn_1,block_2}`, `decoder.mid_attn`,
+Video enters (b, t, h, w, c).  The xy plane pools the time axis, the plane
+named 'yt' pools the h axis and 'xt' the w axis (the reference's labels).
+Posteriors come back in the order (xy, yt, xt), NCHW: xy (b, E, r, r), yt
+and xt (b, E, t, r).  Latent tokens are [xy | xt | yt]; the decoded
+pyramids come out in the order (xy, yt, xt).  Planes are NCHW; the t axis
+of the xt and yt planes is never upsampled.  State keys follow the
+reference: `encoder.*` (nn/vit.py), `{xy,xt,yt}_token`,
+`{xy,xt,yt}_pos_embedding`, `{xy,xt,yt}_quant_attn.*`, `pre_{xy,xt,yt}`
+and `post_{xy,xt,yt}` (1x1 Conv2d, applied as linear maps over
+channel-last tokens), `decoder.conv_in`,
+`decoder.mid.{block_1,attn_1,block_2}`, `decoder.mid_attn`,
 `decoder.up.{i}.{block,attn,inter_attn.0,hdbf.0,upsample.conv}`,
-`decoder.norm_out`, `decoder.conv_out`, and `post_{xy,xt,yt}` (1x1 Conv2d).
-The TimeSformer encoder waits for the training slice.
+`decoder.norm_out`, `decoder.conv_out`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ddmi_tpu_torch.nn.attention1d import AttnBlock1DExpand
-from ddmi_tpu_torch.nn.unet_triplane import cross_plane
+from ddmi_tpu_torch.nn.distributions import DiagonalGaussian
+from ddmi_tpu_torch.nn.unet_triplane import cat_tokens, cross_plane
 from ddmi_tpu_torch.nn.vae import Norm, ResnetBlock, _make_attn
+from ddmi_tpu_torch.nn.vit import TimeSformerEncoder, Transformer
+
+PLANES = ("xy", "xt", "yt")
+ENCODE_HALF = ("encoder",) + tuple(f"{p}_{part}" for p in PLANES
+                                   for part in ("token", "pos_embedding", "quant_attn")) + tuple(
+    f"pre_{p}" for p in PLANES)
+
+
+def is_encode_key(key: str) -> bool:
+    """Whether a VideoAutoencoder state key belongs to the encode half."""
+    return key.split(".")[0] in ENCODE_HALF
 
 
 class SharedUpsample(nn.Module):
@@ -132,18 +151,72 @@ class VideoDecoder(nn.Module):
         return hdbf_xy, hdbf_yt, hdbf_xt
 
 
-class VideoAutoencoder(nn.Module):
-    """The decode half of the reference VITAutoencoder: `post_*` 1x1 convs
-    from the embed dim to z_channels per plane, then the triplane decoder."""
+def cat_planes(xy, xt, yt) -> torch.Tensor:
+    """NCHW planes -> (b, n, c) tokens [xy | xt | yt]."""
+    return cat_tokens((xy, xt, yt))
 
-    def __init__(self, cfg, embed_dim: int = 64, frames: int = 16):
+
+class VideoAutoencoder(nn.Module):
+    """The reference VITAutoencoder: `encode` (TimeSformer, per-axis
+    class-token pooling, `pre_*` moments) -> three posteriors; `decode`
+    (`post_*` from the embed dim to z_channels per plane, then the triplane
+    decoder).  The TimeSformer's depth 8, heads 8 and dim_head 64 and the
+    pooling transformers' depth 4, heads 4, dim_head tc / 8 and MLP 512 are
+    the module's, not the config's; the patch is 4 at resolution 128.
+    Without `with_encoder` the module holds the decode half alone (the
+    sampling paths)."""
+
+    def __init__(self, cfg, embed_dim: int = 64, frames: int = 16, with_encoder: bool = False):
         super().__init__()
-        self.down_res = cfg.resolution // 8
-        self.frames = frames // cfg.splits
+        self.cfg = cfg
+        self.down_res = r = cfg.resolution // 8
+        self.frames = f = frames // cfg.splits
+        if with_encoder:
+            tc = cfg.timesformer_channels
+            self.encoder = TimeSformerEncoder(
+                dim=tc, depth=8, patch_size=4 if cfg.resolution == 128 else cfg.patch_size)
+            moments = 2 * embed_dim if cfg.double_z else embed_dim
+            for plane, n in zip(PLANES, (f, r, r)):
+                setattr(self, f"{plane}_token", nn.Parameter(torch.randn(1, 1, tc)))
+                setattr(self, f"{plane}_pos_embedding", nn.Parameter(torch.randn(1, n + 1, tc)))
+                setattr(self, f"{plane}_quant_attn",
+                        Transformer(tc, depth=4, heads=4, dim_head=tc // 8, mlp_dim=512))
+                setattr(self, f"pre_{plane}", nn.Conv2d(tc, moments, 1))
         self.decoder = VideoDecoder(cfg)
         self.post_xy = nn.Conv2d(embed_dim, cfg.z_channels, 1)
         self.post_xt = nn.Conv2d(embed_dim, cfg.z_channels, 1)
         self.post_yt = nn.Conv2d(embed_dim, cfg.z_channels, 1)
+
+    @staticmethod
+    def _linear(conv: nn.Conv2d, tok: torch.Tensor) -> torch.Tensor:
+        return F.linear(tok, conv.weight[:, :, 0, 0], conv.bias)
+
+    def _pool(self, tokens, plane: str) -> torch.Tensor:
+        """Append the class token last, add the positions, transform, and
+        read position 0 (the reference reads index 0 after attention)."""
+        g, n, tc = tokens.shape
+        cls = getattr(self, f"{plane}_token").expand(g, 1, tc)
+        pos = getattr(self, f"{plane}_pos_embedding")[:, : n + 1]
+        return getattr(self, f"{plane}_quant_attn")(torch.cat([tokens, cls], dim=1) + pos)[:, 0]
+
+    def _posterior(self, plane: str, tok: torch.Tensor) -> DiagonalGaussian:
+        """(b, h, w, tc) pooled tokens -> the posterior of NCHW moments."""
+        moments = self._linear(getattr(self, f"pre_{plane}"), tok)
+        return DiagonalGaussian.from_moments(moments.permute(0, 3, 1, 2))
+
+    def encode(self, video: torch.Tensor) -> Tuple[DiagonalGaussian, ...]:
+        """video (b, t, h, w, 3) in [-1, 1] -> posteriors (xy, yt, xt)."""
+        b, t = video.shape[:2]
+        r = self.down_res
+        x = self.encoder(video)
+        tc = x.shape[-1]
+        x = x.reshape(b, t, r, r, tc)
+        xy = self._pool(x.permute(0, 2, 3, 1, 4).reshape(b * r * r, t, tc), "xy")
+        yt = self._pool(x.transpose(2, 3).reshape(b * t * r, r, tc), "yt")
+        xt = self._pool(x.reshape(b * t * r, r, tc), "xt")
+        return (self._posterior("xy", xy.reshape(b, r, r, tc)),
+                self._posterior("yt", yt.reshape(b, t, r, tc)),
+                self._posterior("xt", xt.reshape(b, t, r, tc)))
 
     def decode(self, z):
         """z (b, n, embed_dim) tokens [xy | xt | yt] -> (hdbf_xy, hdbf_yt,
@@ -151,10 +224,75 @@ class VideoAutoencoder(nn.Module):
         r, t, b = self.down_res, self.frames, z.shape[0]
 
         def post(conv, tok, h, w):
-            out = F.linear(tok, conv.weight[:, :, 0, 0], conv.bias)
-            return out.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+            return self._linear(conv, tok).reshape(b, h, w, -1).permute(0, 3, 1, 2)
 
         xy = post(self.post_xy, z[:, : r * r], r, r)
         xt = post(self.post_xt, z[:, r * r : r * (r + t)], t, r)
         yt = post(self.post_yt, z[:, r * (r + t) :], t, r)
         return self.decoder((xy, yt, xt))
+
+    def forward(self, video, eps: List[torch.Tensor], sample_posterior: bool = True):
+        """encode -> sample (xy, yt, xt) with the standard-normal fp32 `eps`
+        of the posteriors' shapes (the modes when not sample_posterior) ->
+        [xy | xt | yt] tokens -> decode.  -> (pyramids, posteriors)."""
+        posts = self.encode(video)
+        if sample_posterior:
+            xy, yt, xt = (p.sample(e) for p, e in zip(posts, eps))
+        else:
+            xy, yt, xt = (p.mode() for p in posts)
+        return self.decode(cat_planes(xy, xt, yt)), posts
+
+    def jax_layout(self) -> List[Tuple[str, Tuple[str, ...], str]]:
+        """[(port module key, JAX parameter path, kind)] for every 4-D
+        convolution ("conv") and GroupNorm ("gn") of the JAX VideoAutoencoder,
+        the spectral-norm regulariser's view (core/sn_reg.py).  The
+        TimeSformer's, the pooling transformers', the 1D attentions' q, k, v,
+        proj_out and the pre_* / post_* layers are Dense in JAX (2-D
+        kernels), so only their GroupNorms enter."""
+        cfg = self.cfg
+        out: List[Tuple[str, Tuple[str, ...], str]] = []
+        dec = ("decoder",)
+
+        def resnet(key, path, blk):
+            out.extend([(key + ".norm1", path + ("Norm_0", "GroupNorm_0"), "gn"),
+                        (key + ".conv1", path + ("Conv_0",), "conv"),
+                        (key + ".norm2", path + ("Norm_1", "GroupNorm_0"), "gn"),
+                        (key + ".conv2", path + ("Conv_1",), "conv")])
+            if blk.nin_shortcut is not None:
+                out.append((key + ".nin_shortcut", path + ("nin_shortcut",), "conv"))
+
+        def attn(key, path):
+            out.append((key + ".norm", path + ("Norm_0", "GroupNorm_0"), "gn"))
+            out.extend((f"{key}.{n}", path + (n,), "conv") for n in ("q", "k", "v", "proj_out"))
+
+        def attn1d(key, path):
+            out.append((key + ".norm", path + ("GroupNormTokens_0", "GroupNorm_0"), "gn"))
+
+        d = self.decoder
+        out.append(("decoder.conv_in", dec + ("conv_in",), "conv"))
+        resnet("decoder.mid.block_1", dec + ("mid_block1",), d.mid.block_1)
+        ab = 0
+        if d.mid.attn_1 is not None:
+            attn("decoder.mid.attn_1", dec + ("AttnBlock_0",))
+            ab = 1
+        resnet("decoder.mid.block_2", dec + ("mid_block2",), d.mid.block_2)
+        attn1d("decoder.mid_attn", dec + ("mid_inter_attn",))
+        curr = cfg.resolution // 2 ** (len(cfg.ch_mult) - 1)
+        for i in reversed(range(len(d.up))):
+            lvl = d.up[i]
+            for j, blk in enumerate(lvl.block):
+                resnet(f"decoder.up.{i}.block.{j}", dec + (f"up_{i}_{j}",), blk)
+                if len(lvl.attn):
+                    attn(f"decoder.up.{i}.attn.{j}", dec + (f"AttnBlock_{ab}",))
+                    ab += 1
+            if lvl.inter_attn is not None:
+                attn1d(f"decoder.up.{i}.inter_attn.0", dec + (f"inter_attn_{i}",))
+            if lvl.hdbf is not None:
+                out.append((f"decoder.up.{i}.hdbf.0", dec + (f"hdbf_{curr}",), "conv"))
+            if lvl.upsample is not None:
+                out.append((f"decoder.up.{i}.upsample.conv", dec + (f"upsample_{i}", "Conv_0"),
+                            "conv"))
+                curr *= 2
+        out.append(("decoder.norm_out", dec + ("norm_out", "GroupNorm_0"), "gn"))
+        out.append(("decoder.conv_out", dec + ("conv_out",), "conv"))
+        return out

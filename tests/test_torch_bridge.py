@@ -3,6 +3,7 @@ trees -> port state_dicts, checked as an exact round trip through the JAX
 package's own converters (ddmi_tpu/interop/reference_ckpt.py), and a fresh
 interpreter running the port never loads JAX."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -410,3 +411,39 @@ def test_port_config_reader_matches_jax():
                 if f.name == "extra" or dataclasses.is_dataclass(getattr(a, f.name)):
                     continue
                 assert getattr(a, f.name) == getattr(b, f.name), (name, f.name)
+
+
+def test_video_vae_bridge_round_trip_is_exact():
+    """The whole video VAE (TimeSformer, class tokens and positions, the
+    pooling transformers, pre_* and the decode half): every JAX leaf lands
+    in a port key and every key of the port's VideoAutoencoder
+    (with_encoder) is filled, strictly; the JAX package's
+    reference_ckpt.convert_video_vae reads it back bit for bit."""
+    from ddmi_tpu.interop.reference_ckpt import convert_video_vae
+    from ddmi_tpu.nn.video_vae import VideoAutoencoder
+    from ddmi_tpu_torch.interop import video_vae_from_jax
+    from ddmi_tpu_torch.nn.video_vae import VideoAutoencoder as TorchAE
+
+    dd = dataclasses.replace(VIDEO_DD, timesformer_channels=32)
+    t = jax.jit(lambda k: VideoAutoencoder(dd, embed_dim=8, frames=4).init(
+        {"params": k}, jnp.zeros((1, 4, 32, 32, 3)), jax.random.PRNGKey(1)))(
+        jax.random.PRNGKey(0))["params"]
+    t = _random_tree(t, 7)
+    sd = video_vae_from_jax(t, dd)
+    TorchAE(dd, embed_dim=8, frames=4, with_encoder=True).load_state_dict(sd, strict=True)
+    _assert_trees_equal(convert_video_vae({k: v.numpy() for k, v in sd.items()}, dd), t)
+
+
+def test_discriminator3d_bridge_round_trip_is_exact():
+    """The video PatchGAN pair (2D on a frame, 3D on the clip): the port's
+    GANLoss3D loads the bridged state strictly, and discriminator3d_to_jax
+    gives JAX's tree back bit for bit."""
+    from ddmi_tpu.losses.gan import GANLoss3D
+    from ddmi_tpu_torch.interop import discriminator3d_from_jax, discriminator3d_to_jax
+    from ddmi_tpu_torch.losses.gan import GANLoss3D as TorchGAN
+
+    x = jnp.zeros((1, 4, 16, 16, 3))
+    t = _random_tree(GANLoss3D().init(jax.random.PRNGKey(0), x, x, False)["params"], 8)
+    sd = discriminator3d_from_jax(t)
+    TorchGAN(3).load_state_dict(sd, strict=True)
+    _assert_trees_equal(discriminator3d_to_jax(sd), t)

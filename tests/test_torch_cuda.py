@@ -803,3 +803,65 @@ def test_reconstruct_runs_the_inr_decode_kernel(cuda_device, res):
     assert 0.0 <= got.min().item() and got.max().item() <= 1.0
     err = (got.cpu() - ref).abs().mean().item()
     assert err <= 0.02, err
+
+
+# the flash calls of video training: the stage-1 decoder's 128^2 cross-plane
+# attention (8 heads of the full 128 channels, n = 128^2 + 2 * 16 * 128) at
+# batch 1, and the stage-2 TriplaneUNet's cross-plane attentions (16 heads,
+# as recorded on the card: n = 2,048 at hd 16 and 32, n = 512 at hd 16, 32
+# and 64) at batch 2
+@pytest.mark.parametrize("B,nh,n,hd", [(1, 8, 20480, 128), (2, 16, 2048, 16), (2, 16, 2048, 32),
+                                       (2, 16, 512, 16), (2, 16, 512, 32), (2, 16, 512, 64)])
+def test_flash_forward_and_backward_at_the_video_training_shapes(cuda_device, B, nh, n, hd):
+    """The forward with LSE and the backward kernels against flash_plain and
+    flash_bwd_plain (fp32 on the same bf16 operands) at the video training
+    shapes: the output, dq, dk and dv each within max|err| <= 0.03 *
+    max|ref| and correlation >= 0.999; the LSE within 1e-4 of
+    torch.logsumexp of the fp32 scaled scores."""
+    q, k, v = _qkv(n + hd, B, nh, n, hd, cuda_device)
+    do = _qkv(11, B, nh, n, hd, cuda_device)[0]
+    s = hd**-0.5
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, s, with_lse=True)
+    ref_out, ref_lse = flash_attention.flash_plain(q, k, v, s, with_lse=True)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, s)
+    ref = flash_attention.flash_bwd_plain(q, k, v, out, lse, do, s)
+    torch.cuda.synchronize()
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for a, r in [(out, ref_out)] + list(zip(got, ref)):
+        a, r = a.float(), r.float()
+        corr = torch.corrcoef(torch.stack([a.flatten(), r.flatten()]))[0, 1].item()
+        assert (a - r).abs().max().item() <= 0.03 * r.abs().max().item() and corr >= 0.999
+
+
+def test_video_stage1_micro_step_on_the_card(cuda_device):
+    """One video stage-1 loss and its gradients on the card (bf16 compute,
+    64^2 clips of 8 frames, LPIPS on a random VGG): the decoder's 16^2 and
+    64^2 cross-plane attentions (n = 512 at hd 128, n = 5,120 at hd 64)
+    launch the flash forward and backward once each, the loss is finite
+    and every gradient is finite."""
+    from ddmi_tpu_torch.domains.video import VideoPipeline
+    from ddmi_tpu_torch.evals.lpips import LPIPS
+
+    cfg = config_from_dict({"seed": 3, "model": {
+        "amp": True, "use_fp16": True, "lr": 1e-3, "embed_dim": 4, "params": {
+            "lossconfig": dict(gradient_accumulate_every=5, epochs=2, warmup_epochs=1),
+            "ddconfig": dict(double_z=True, timesformer_channels=64, splits=1, patch_size=8,
+                             resolution=64, z_channels=8, in_channels=3, out_ch=8, ch=64,
+                             ch_mult=[1, 1, 2, 2], num_res_blocks=1, attn_resolutions=[],
+                             hdbf_resolutions=[16, 32], inter_attn_resolutions=[8, 16, 32, 64],
+                             attn_type="vanilla-multihead"),
+            "mlpconfig": dict(in_ch=2, out_ch=3, ch=64, latent_dim=8)}},
+        "data": {"domain": "video", "batch_size": 1, "frames": 8}})
+    pipe = VideoPipeline(cfg, device=cuda_device, seed=3,
+                         perceptual=LPIPS(torch.bfloat16).to(cuda_device))
+    st = pipe.init_stage1(10)
+    x = torch.rand((1, 8, 64, 64, 3), device=cuda_device)
+    f0, b0 = flash_attention.flash_attention.launches, flash_attention.flash_attention_bwd.launches
+    loss, m, _, _ = pipe.stage1_loss(x, 3, pipe.draw_stage1(1), st.sn)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == f0 + 2
+    assert flash_attention.flash_attention_bwd.launches == b0 + 2
+    assert all(np.isfinite(float(v)) for v in m.values()), m
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in st.params.values())
