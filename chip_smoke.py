@@ -107,8 +107,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      finite, the VAE's and INR's parameters bit-unchanged through
      micro-step 9 and all changed at 10 (the first update's rate is 0), the
      SN state changed at every micro-step, no launch of the six kernels;
-     the eval hook after the epoch's checkpoint logs PSNR, saves its images
-     and launches inr_decode once; micro-steps/s, samples/s, peak memory,
+     the eval hook after the epoch's checkpoint logs the PSNR of a 256^2
+     test batch, saves its images and launches inr_decode once; micro-steps/s, samples/s, peak memory,
      a micro-step split (multiscale, encode, decode, INR, LPIPS, SN,
      backward, optimizer), host against device time and a profile;
  21. stage-1 checkpoint: the state saved as the trainer saves it restores
@@ -162,7 +162,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
  31. video train reference: one stage-1 and one stage-2 micro-step at a
      small config (64^2, 8 frames; the decoder's 64^2 attention through
      flash), bf16 on the GPU against fp32 on the CPU (loss within 2%,
-     gradient cosine >= 0.999).
+     gradient cosine >= 0.999);
+ 32. srn_cars training: Trainer.train_stage1 on configs/d2c-vae/srn_cars.yaml
+     at full width (batch 1 of a 3000 x 6 cloud and a 128^2 view, 5000 rays
+     x 256 perturbed samples a micro-step, amp, accumulation over 10 with a
+     warm-up from rate 0; 20 micro-steps): every launch counter 0 (the
+     render trains through the INRNeRF module, never nerf_mlp), finite
+     losses, the parameters bit-unchanged through micro-step 19 and all
+     changed at 20, the SN state changed at every one, the eval hook silent;
+     a timed run (micro-steps/s, scenes/s, peak memory), a split by the
+     stage1/* ranges (encode, decode, render, sn, backward, optimizer), the
+     idle share and a profile; then configs/ldm/srn_cars.yaml's
+     train_stage2 on that checkpoint (10 micro-steps: every counter 0, the
+     parameters moving at each, the EMA on its schedule), its checkpoint
+     restored bit for bit into a scrambled state and resumed, a timed run;
+ 33. shapenet training: configs/d2c-vae/shapenet.yaml's stage 1 at full
+     width (batch 12, 3000-point clouds, 2048 query points, accumulation
+     over 5; 10 micro-steps, checked as in 32), its eval hook's IoU, a timed
+     run, split and profile; configs/ldm/shapenet.yaml's stage 2 on that
+     checkpoint as in 32, then the stage-2 eval hook: one EMA latent at NFE
+     200 with attn_block at exactly 2200 launches and nothing else, a 32^3
+     mesh written as ep0.off;
+ 34. 3D reference: one stage-1 loss and its gradients of each domain at a
+     small config, amp on the GPU against fp32 on the CPU (each term within
+     5%, float64 gradient cosine >= 0.99, no launch).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -275,6 +298,19 @@ V1_LAUNCHES = {"flash_attention": V1_STEPS, "flash_attention_bwd": V1_STEPS}
 # reconstructing 2 clips (the stage-1 eval hook, reconstruct): the decoder's
 # n = 20,480 and n = 73,728 cross-plane attentions through the flash forward
 V_RECON_LAUNCHES = {"flash_attention": 2}
+# srn_cars and shapenet training (configs/d2c-vae/{srn_cars,shapenet}.yaml,
+# then configs/ldm/ on their checkpoints), synthetic data at the real
+# shapes: srn_cars stage 1 at batch 1 accumulates over 10 and warms up from
+# rate 0, so its parameters move at micro-step 20 (the update at 10 has rate
+# 0); shapenet stage 1 at batch 12 accumulates over 5, 10 micro-steps; both
+# stage 2s take 10 micro-steps; each stage 1 also a timed run
+N1_STEPS, N1_TIMED, O_BATCH, O1_STEPS, O1_TIMED, T2_STEPS = 20, 10, 12, 10, 10, 10
+# the occupancy stage-2 eval hook samples one latent at NFE 200 through the
+# shapenet UNet's 11 fused attention blocks per forward
+O2_HOOK_LAUNCHES = {"attn_block": 11 * OCC_NFE}
+# a 3D stage-1 micro-step at a small config, amp on the card against fp32 on
+# the CPU: each loss term, the float64 gradient cosine
+T3_REF_TERM_REL, T3_REF_MIN_COS = 0.05, 0.99
 # the kernels of one attention block call (csrc/attn_block.cu), by profiler name
 ATTN_BLOCK_KERNELS = ("::group_norm_kernel", "::gemm_kernel<", "flash_fwd_kernel")
 KERNELS = {
@@ -1934,19 +1970,20 @@ class StepRecorder:
                 for r in self.rows]
 
 
-def check_stage1_rows(rows, tag, n_params):
-    """Finite loss terms; the watched parameters bit-unchanged until the
-    10th micro-step and every one changed there (the first update's rate
-    is 0); the SN state changed at every micro-step; no kernel of the six
-    launched."""
+def check_stage1_rows(rows, tag, n_params, move_at=10):
+    """Finite loss terms; the watched parameters bit-unchanged until micro-step
+    `move_at` and every one changed there (the first update's rate is 0,
+    so with accumulation over k they move at the second update, 2k); the
+    SN state changed at every micro-step; no kernel of the six launched."""
     for i, r in enumerate(rows, 1):
         bad = [k for k, v in r["metrics"].items() if not math.isfinite(v)]
         if bad:
             raise AssertionError(f"{tag}: micro-step {i} has non-finite {bad}")
         changed = sum(r["params"])
-        if (i < 10 and changed) or (i == 10 and changed != n_params):
+        if (i < move_at and changed) or (i == move_at and changed != n_params):
             raise AssertionError(f"{tag}: micro-step {i} changed {changed} of {n_params} "
-                                 f"parameter tensors: they must change at micro-step 10 only")
+                                 f"parameter tensors: they must change at micro-step "
+                                 f"{move_at} only")
         if not r["sn"]:
             raise AssertionError(f"{tag}: the SN state did not change at micro-step {i}")
         if any(r["launches"].values()):
@@ -2040,7 +2077,9 @@ def stage1_slice_phase(torch, dev, tmp):
         f"training samples/s ({1e3 * steady:.1f} ms per micro-step) on {nvidia_smi()}; peak "
         f"allocated {peak / 2**30:.2f} GiB")
 
-    trainer = Trainer(cfg, pipe, data, save_dir=tmp)
+    # the eval hook reads the first test batch: 4 images at the anchor, the
+    # reconstructions' size (on a 512^2 training batch it logs NaN, as JAX)
+    trainer = Trainer(cfg, pipe, data, test_dataset=Batches(4, 256, 1, 3), save_dir=tmp)
     read = reset_launches()
     hook_launches = {}
 
@@ -3041,6 +3080,485 @@ def video_reference_train_phase(torch, dev):
         raise AssertionError("the GPU video train steps disagree with the CPU reference")
 
 
+def threed_config(path, **extra):
+    """A 3D config (configs/{d2c-vae,ldm}/{srn_cars,shapenet}.yaml) with its
+    data.conv_config made absolute and `extra` merged into data.extra."""
+    from ddmi_tpu_torch.core.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, path))
+    d = cfg.data
+    d = dataclasses.replace(d, conv_config=os.path.join(ROOT, d.conv_config),
+                            extra={**d.extra, **extra})
+    return dataclasses.replace(cfg, data=d)
+
+
+class Items:
+    """Batches made up front by a synthetic loader, without a length (the
+    trainer then reads data.extra.steps_per_epoch)."""
+
+    def __init__(self, loader):
+        self.items = list(loader)
+
+    def __iter__(self):
+        return iter(self.items)
+
+
+def nerf_data(count, seed):
+    """`count` srn_cars-shaped batches: 1 scene, a 3000 x 6 cloud, one
+    128^2 view and its pose."""
+    from ddmi_tpu_torch.data.nerf import SyntheticNeRF
+
+    return Items(SyntheticNeRF(1, 3000, 128, length=count, seed=seed))
+
+
+def occ_data(count, seed):
+    """`count` shapenet-shaped batches: 12 shapes, 3000-point clouds, 2048
+    query points with their occupancies."""
+    from ddmi_tpu_torch.data.shapenet import SyntheticOccupancy
+
+    return Items(SyntheticOccupancy(O_BATCH, 2048, 3000, length=count, seed=seed))
+
+
+def on_device(torch, batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def threed_stage1_phase(torch, dev, tmp, tag, cfg, pipe, data_fn, steps, timed, per_step,
+                        stages):
+    """Trainer.train_stage1 at full width: `steps` micro-steps checked
+    (check_stage1_rows: the parameters move at the last, every launch
+    counter 0, the SN state changed at every one), the default eval hook
+    after the epoch's checkpoint; then a separate timed run of `timed`
+    micro-steps (micro-steps/s, `per_step` samples per micro-step, peak
+    memory), a split by the stage1/* ranges, host against device time and
+    a profile.  -> (trainer, state, ms per micro-step, records of the
+    checked run)."""
+    from ddmi_tpu_torch.core.trainer import Trainer
+
+    trainer = Trainer(cfg, pipe, data_fn(steps, 0), save_dir=tmp)
+    read = reset_launches()
+    watch = pipe.stage1_params()
+    rec = StepRecorder(torch, pipe, "stage1_train_step", watch, read)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = trainer.train_stage1(epochs=1)
+    torch.cuda.synchronize()
+    rows = rec.finish()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_stage1_rows(rows, tag, len(watch), move_at=steps)
+    m = rows[-1]["metrics"]
+    log(f"[{tag}] {len(rows)} micro-steps, losses {[round(r['metrics']['loss'], 3) for r in rows]}"
+        f"; last: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+        + f"; parameters changed at {[i for i, r in enumerate(rows, 1) if any(r['params'])]} "
+        f"({len(watch)} tensors at {steps}), SN state changed at every micro-step, every launch "
+        f"counter 0 (nerf_mlp and flash included); peak allocated {peak / 2**30:.2f} GiB (the "
+        f"checked run)")
+    recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
+
+    timed_dir = os.path.join(tmp, "timed")
+    timed_cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, extra={**cfg.data.extra, "steps_per_epoch": timed}))
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = StepTimer(torch, pipe, "stage1_train_step", timed)
+    t0 = time.perf_counter()
+    Trainer(timed_cfg, pipe, data_fn(timed, 1), save_dir=timed_dir).train_stage1(
+        epochs=1, eval_hook=lambda *a: None)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    steady = timer.finish()
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(timed_dir)
+    log(f"[{tag}] timed run: {timed} micro-steps and a checkpoint in {t_run:.3f} s; steady over "
+        f"micro-steps 2-{timed} {1 / steady:.4f} micro-steps/s = {per_step / steady:.4f} "
+        f"training samples/s ({1e3 * steady:.1f} ms per micro-step) on {nvidia_smi()}; peak "
+        f"allocated {peak / 2**30:.2f} GiB")
+
+    gen = torch.Generator(device=dev).manual_seed(120)
+    batch = on_device(torch, data_fn(1, 2).items[0], dev)
+    step = lambda: pipe.stage1_train_step(state, batch, generator=gen)
+    split, dev_total = range_split(torch, step, "stage1/")
+    missing = [k for k in stages if "stage1/" + k not in split]
+    log(f"[{tag}-breakdown] one micro-step (after a warm-up one) by the profiler's stage1/* "
+        "ranges: " + "; ".join(f"{k} {split['stage1/' + k][1]:.2f} ms device / "
+                               f"{split['stage1/' + k][0]:.2f} ms host"
+                               for k in stages if k not in missing)
+        + f"; outside the ranges {dev_total - sum(d for _, d in split.values()):.2f} ms device; "
+        f"all kernels {dev_total:.2f} ms (host times under the profiler)")
+    if missing:
+        raise AssertionError(f"{tag}: the micro-step's profile has no range for {missing}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    dms = device_ms(torch, step, reps=2, alike=False)
+    log(f"[{tag}-breakdown] one micro-step: wall {1e3 * t_wall:.1f} ms, host enqueue "
+        f"{1e3 * t_enq:.1f} ms, device {dms:.1f} ms (profiler: kernels' time; the device is idle "
+        f"{100 * max(0.0, 1 - dms / (1e3 * t_wall)):.1f}% of the wall time)")
+    profile_top(torch, step, f"{tag}-profile", ("nerf_mlp", "flash_", "gemm_kernel",
+                                                 "group_norm_kernel"), inference=False)
+    return trainer, state, 1e3 * steady, recs
+
+
+def threed_stage2_phase(torch, dev, tmp, tag, cfg, pipe, data_fn, per_step):
+    """Trainer.train_stage2 at full width on the stage-1 checkpoint in `tmp`:
+    `T2_STEPS` micro-steps saving no checkpoint of their own, each with
+    finite loss, every launch counter 0 (the UNet's attentions train
+    through the plain block, n <= 64 is below the flash tier), the watched
+    parameters changed (no accumulation) and the EMA at the schedule's
+    micro-steps (a copy of the parameters before step 100); the state saved
+    as the trainer saves it, restored bit for bit into a scrambled one and
+    resumed for a micro-step; a timed run.  -> (trainer, state, ms per
+    micro-step)."""
+    from ddmi_tpu_torch.core.checkpoint import CheckpointManager
+    from ddmi_tpu_torch.core.trainer import Trainer
+
+    lc = cfg.model.lossconfig
+    n_unet = sum(p.numel() for p in pipe.unet.parameters())
+    trainer = Trainer(cfg, pipe, data_fn(T2_STEPS, 6), save_dir=tmp)
+    read = reset_launches()
+    rows, step_fn = [], pipe.stage2_train_step
+    watch = ["unet.input_blocks.0.0.weight", "unet.out.2.weight", "mixing_logit"]
+
+    def recording(state, x, **kw):
+        with torch.no_grad():
+            p0 = torch._foreach_mul([state.params[k] for k in watch], 1.0)
+            e0 = torch._foreach_mul(list(state.ema.values()), 1.0)
+        before = read()
+        out = step_fn(state, x, **kw)
+        after = read()
+        with torch.no_grad():
+            dp = torch.stack(torch._foreach_norm(torch._foreach_sub(
+                [state.params[k] for k in watch], p0)))
+            de = torch.stack(torch._foreach_norm(torch._foreach_sub(
+                list(state.ema.values()), e0)))
+            same = all(torch.equal(e, p) for e, p in zip(state.ema.values(),
+                                                         state.params.values()))
+        rows.append((dp > 0, de > 0, same, out[1]["loss"],
+                     {k: after[k] - before[k] for k in after}))
+        return out
+
+    pipe.stage2_train_step = recording
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = trainer.train_stage2(epochs=1, save=False)
+    torch.cuda.synchronize()
+    del pipe.stage2_train_step
+    peak = torch.cuda.max_memory_allocated(dev)
+    zero = {k: 0 for k in KERNELS}
+    checks = []
+    for i, (dp, de, same, loss, launches) in enumerate(rows, 1):
+        ema_step = (i - 1) % lc.ema_update_every == 0
+        checks.append(bool(dp.all()) and (bool(de.any()) == ema_step)
+                      and (not ema_step or same) and math.isfinite(float(loss))
+                      and launches == zero)
+    log(f"[{tag}] stage 2 at full width: UNet {n_unet} parameters (fp32 masters, bf16 "
+        f"compute) on the stage-1 checkpoint's pointnet, VAE and INR (the pointnet and VAE "
+        f"frozen in bf16); {len(rows)} micro-steps, losses "
+        f"{[round(float(r[3]), 5) for r in rows]}; the EMA changed at "
+        f"{[i for i, r in enumerate(rows, 1) if r[1].any()]}; launches per micro-step "
+        f"{ {k: v for k, v in rows[0][4].items() if v} } (all 0 expected); every check per "
+        f"micro-step {checks}; peak allocated {peak / 2**30:.2f} GiB")
+    if len(rows) != T2_STEPS or not all(checks):
+        raise AssertionError(f"{tag}: the stage-2 run failed its checks")
+
+    ckpt = CheckpointManager(tmp, prefix="stage2")
+    step = state.step
+    gen = torch.Generator(device=dev).manual_seed(99)
+    t0 = time.perf_counter()
+    ckpt.save(step, {"state": state.state_dict(), "generators": [gen.get_state()]})
+    t_save = time.perf_counter() - t0
+    saved = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in flat_state(state.state_dict()).items()}
+    size = os.path.getsize(os.path.join(ckpt.root, f"{step}.pt"))
+    with torch.no_grad():
+        for t in list(state.params.values()) + list(state.ema.values()) + state.opt.mu:
+            t.add_(1.0)
+    state.step, state.opt.count = -1, -1
+
+    class Wrap:
+        def load_state_dict(self, sd):
+            state.load_state_dict(sd["state"])
+
+    ckpt.restore(Wrap())
+    now = flat_state(state.state_dict())
+    diff = [k for k in saved if not (torch.equal(saved[k], now[k]) if torch.is_tensor(saved[k])
+                                      else saved[k] == now[k])]
+    del saved, now
+    rows.clear()
+    pipe.stage2_train_step = recording
+    resumed = Trainer(cfg, pipe, data_fn(1, 10), save_dir=tmp).train_stage2(
+        epochs=1, resume=True, save=False)
+    del pipe.stage2_train_step
+    log(f"[{tag}-ckpt] step {step}: {size / 2**30:.3f} GiB on disk, saved in {t_save:.2f} s, "
+        f"restored into a scrambled state: {len(diff)} entries differ {diff[:3]}; resumed to "
+        f"step {resumed.step}, loss {float(rows[0][3]):.5f}, launches "
+        f"{ {k: v for k, v in rows[0][4].items() if v} }")
+    if diff or resumed.step != step + 1 or not math.isfinite(float(rows[0][3])) or (
+            rows[0][4] != zero):
+        raise AssertionError(f"{tag}: the stage-2 checkpoint does not restore bit for bit and "
+                             f"resume")
+
+    timer = StepTimer(torch, pipe, "stage2_train_step", T2_STEPS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    Trainer(cfg, pipe, data_fn(T2_STEPS, 7), save_dir=os.path.join(tmp, "timed")).train_stage2(
+        epochs=1, save=False)
+    torch.cuda.synchronize()
+    steady = timer.finish()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[{tag}] timed run: {T2_STEPS} micro-steps in {time.perf_counter() - t0:.3f} s (the "
+        f"stage-1 checkpoint's load included); steady {1 / steady:.4f} micro-steps/s = "
+        f"{per_step / steady:.4f} training samples/s ({1e3 * steady:.1f} ms per micro-step) on "
+        f"{nvidia_smi()}; peak allocated {peak / 2**30:.2f} GiB")
+    batch = on_device(torch, data_fn(1, 8).items[0], dev)
+    g = torch.Generator(device=dev).manual_seed(98)
+    step_once = lambda: pipe.stage2_train_step(resumed, batch, generator=g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_once()
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    dms = device_ms(torch, step_once, reps=2, alike=False)
+    log(f"[{tag}-breakdown] one micro-step: wall {1e3 * t_wall:.1f} ms, host enqueue "
+        f"{1e3 * t_enq:.1f} ms, device {dms:.1f} ms (the device is idle "
+        f"{100 * max(0.0, 1 - dms / (1e3 * t_wall)):.1f}% of the wall time)")
+    return trainer, resumed, 1e3 * steady
+
+
+def nerf_train_phase(torch, dev, tmp):
+    """srn_cars training at full width: configs/d2c-vae/srn_cars.yaml's stage
+    1 (batch 1, accumulation over 10 with the warm-up from rate 0, so the
+    parameters move at micro-step 20; 5000 rays of 256 perturbed samples
+    per micro-step through the INRNeRF module, never the MLP kernel), then
+    configs/ldm/srn_cars.yaml's stage 2 on its checkpoint; the NeRF eval
+    hooks log nothing and fail nothing.  -> ms per micro-step (stage 1,
+    stage 2)."""
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.domains.nerf import NeRFPipeline
+
+    cfg = threed_config("configs/d2c-vae/srn_cars.yaml", nan_check_every=5, prefetch=2,
+                        steps_per_epoch=N1_STEPS)
+    m, lc = cfg.model, cfg.model.lossconfig
+    if not (m.amp and cfg.data.batch_size == 1 and lc.gradient_accumulate_every == 10
+            and lc.sn_reg and lc.lr_scheduler and not lc.kl_anneal):
+        raise AssertionError("configs/d2c-vae/srn_cars.yaml no longer trains batch 1 at amp with "
+                             "accumulation over 10, the warm-up schedule and SN")
+    t0 = time.perf_counter()
+    pipe = NeRFPipeline(cfg, device=dev, seed=cfg.seed)
+    got = (pipe.n_rand, pipe.n_samples, pipe.perturb, pipe.pointnet.fc_pos.in_features)
+    if got != (5000, 256, 1.0, 6):
+        raise AssertionError(f"srn_cars renders (N_rand, N_samples, perturb, cloud width) {got}")
+    for i, module in enumerate((pipe.pointnet, pipe.vae, pipe.mlp)):
+        perturb_zero_init(module, 100 + i)
+    n = {k: sum(p.numel() for p in getattr(pipe, k).parameters())
+         for k in ("pointnet", "vae", "mlp")}
+    log(f"[n-stage1] srn_cars stage 1 at full width: pointnet {n['pointnet']} + triplane VAE "
+        f"{n['vae']} + INRNeRF {n['mlp']} parameters (fp32 masters; VAE and INRNeRF bf16 "
+        f"compute), set up in {time.perf_counter() - t0:.1f} s; 5000 rays x 256 samples = "
+        f"1.28 M MLP points per micro-step; cuts: {N1_STEPS} micro-steps instead of 4000 "
+        f"epochs, synthetic scenes (a 3000-point coloured sphere, a 128^2 view), random-init "
+        f"weights (no data or weight files in the repository)")
+    trainer, state, ms1, recs = threed_stage1_phase(
+        torch, dev, tmp, "n-stage1", cfg, pipe, nerf_data, N1_STEPS, N1_TIMED, 1,
+        ("encode", "decode", "render", "sn", "backward", "optimizer"))
+    if [r for r in recs if any(k.startswith("eval/") or "failures" in k for k in r)]:
+        raise AssertionError("the NeRF stage-1 eval hook logged something")
+    del trainer, state
+    pipe.cpu()
+    del pipe
+    torch.cuda.empty_cache()
+
+    cfg2 = threed_config("configs/ldm/srn_cars.yaml", nan_check_every=5, prefetch=2,
+                         steps_per_epoch=T2_STEPS)
+    s1 = load_config(os.path.join(ROOT, "configs/d2c-vae/srn_cars.yaml"))
+    if (cfg2.model.ddconfig, cfg2.model.mlpconfig, cfg2.model.embed_dim) != (
+            s1.model.ddconfig, s1.model.mlpconfig, s1.model.embed_dim):
+        raise AssertionError("srn_cars' stage-1 blocks differ between the ldm and d2c-vae configs")
+    pipe = NeRFPipeline(cfg2, device=dev, seed=cfg2.seed)
+    perturb_zero_init(pipe.unet, 110)
+    trainer, state, ms2 = threed_stage2_phase(torch, dev, tmp, "n-stage2", cfg2, pipe, nerf_data,
+                                              1)
+    from ddmi_tpu_torch.core.trainer import default_stage2_eval_hook
+
+    read = reset_launches()
+    default_stage2_eval_hook(trainer, state, 0)
+    hook = {k: v for k, v in read().items() if v}
+    if hook or os.path.exists(os.path.join(tmp, "samples")):
+        raise AssertionError(f"the NeRF stage-2 eval hook did something: {hook}")
+    return ms1, ms2
+
+
+def occ_train_phase(torch, dev, tmp):
+    """shapenet training at full width: configs/d2c-vae/shapenet.yaml's stage
+    1 (batch 12, accumulation over 5, 2048 query points, the eval hook's
+    IoU), then configs/ldm/shapenet.yaml's stage 2 on its checkpoint and
+    the stage-2 eval hook (one EMA latent at NFE 200, a 32^3 mesh without
+    MISE refinement, written as ep0.off) with its attn_block launches
+    exact.  -> (ms per micro-step (stage 1, stage 2), the hook's
+    launches)."""
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.core.trainer import default_stage2_eval_hook, ema_weights
+    from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
+
+    cfg = threed_config("configs/d2c-vae/shapenet.yaml", nan_check_every=5, prefetch=2,
+                        steps_per_epoch=O1_STEPS)
+    m, lc = cfg.model, cfg.model.lossconfig
+    if not (m.amp and cfg.data.batch_size == O_BATCH and lc.gradient_accumulate_every == 5
+            and lc.sn_reg and lc.lr_scheduler and lc.kl_anneal
+            and lc.sn_reg_weight_decay_anneal):
+        raise AssertionError("configs/d2c-vae/shapenet.yaml no longer trains batch 12 at amp "
+                             "with accumulation over 5, the warm-up, the KL and SN anneals")
+    t0 = time.perf_counter()
+    pipe = OccupancyPipeline(cfg, device=dev, seed=cfg.seed)
+    for i, module in enumerate((pipe.pointnet, pipe.vae, pipe.mlp)):
+        perturb_zero_init(module, 130 + i)
+    n = {k: sum(p.numel() for p in getattr(pipe, k).parameters())
+         for k in ("pointnet", "vae", "mlp")}
+    log(f"[o-stage1] shapenet stage 1 at full width: pointnet {n['pointnet']} + triplane VAE "
+        f"{n['vae']} + INR3D {n['mlp']} parameters (fp32 masters; VAE bf16, INR3D fp32 on bf16 "
+        f"weights), set up in {time.perf_counter() - t0:.1f} s; cuts: {O1_STEPS} micro-steps "
+        f"instead of 300 epochs, synthetic ellipsoids (3000-point clouds, 2048 query points), "
+        f"random-init weights")
+    trainer, state, ms1, recs = threed_stage1_phase(
+        torch, dev, tmp, "o-stage1", cfg, pipe, occ_data, O1_STEPS, O1_TIMED, O_BATCH,
+        ("encode", "decode", "inr", "sn", "backward", "optimizer"))
+    iou = [r["eval/iou"] for r in recs if "eval/iou" in r]
+    failures = [r for r in recs if "s1/eval_hook_failures" in r]
+    log(f"[o-stage1] eval hook: IoU {iou} of the first test shape's 2048 query points, failures "
+        f"{len(failures)}")
+    if len(iou) != 1 or not 0.0 <= iou[0] <= 1.0 or failures:
+        raise AssertionError("the occupancy stage-1 eval hook did not log its IoU")
+    del trainer, state
+    pipe.cpu()
+    del pipe
+    torch.cuda.empty_cache()
+
+    cfg2 = threed_config("configs/ldm/shapenet.yaml", nan_check_every=5, prefetch=2,
+                         steps_per_epoch=T2_STEPS)
+    s1 = load_config(os.path.join(ROOT, "configs/d2c-vae/shapenet.yaml"))
+    if (cfg2.model.ddconfig, cfg2.model.mlpconfig, cfg2.model.embed_dim) != (
+            s1.model.ddconfig, s1.model.mlpconfig, s1.model.embed_dim):
+        raise AssertionError("shapenet's stage-1 blocks differ between the ldm and d2c-vae "
+                             "configs")
+    pipe = OccupancyPipeline(cfg2, device=dev, seed=cfg2.seed)
+    perturb_zero_init(pipe.unet, 140)
+    trainer, state, ms2 = threed_stage2_phase(torch, dev, tmp, "o-stage2", cfg2, pipe, occ_data,
+                                              O_BATCH)
+    with ema_weights(pipe, state), torch.no_grad():
+        z = pipe.sample_latents(1, generator=torch.Generator(device=dev).manual_seed(
+            cfg2.seed + 100))
+        shift = recentre_field(torch, pipe, z)
+    read = reset_launches()
+    t0 = time.perf_counter()
+    default_stage2_eval_hook(trainer, state, 0)
+    torch.cuda.synchronize()
+    t_hook = time.perf_counter() - t0
+    hook = {k: v for k, v in read().items() if v}
+    path = os.path.join(tmp, "samples", "ep0.off")
+    with open(path) as f:
+        head = [f.readline().strip() for _ in range(2)]
+    nv, nf, _ = map(int, head[1].split())
+    recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
+    failures = [r for r in recs if "s2/eval_hook_failures" in r]
+    log(f"[o-stage2] eval hook: one EMA latent (NFE {OCC_NFE}), a 32^3 grid, no MISE "
+        f"refinement, in {t_hook:.2f} s: {path.rsplit(os.sep, 1)[-1]} with {nv} vertices and "
+        f"{nf} faces (INR3D's output bias shifted by {shift:.3f} so that {OCC_INSIDE:.0%} of the "
+        f"box lies inside); launches {hook} (expected {O2_HOOK_LAUNCHES}); failures "
+        f"{len(failures)}")
+    if head[0] != "OFF" or failures or hook != O2_HOOK_LAUNCHES or not nf:
+        raise AssertionError("the occupancy stage-2 eval hook did not write its mesh through the "
+                             "fused attention block")
+    return ms1, ms2, hook
+
+
+def threed_small_configs(domain, amp):
+    """Small stage-1 configs of the two 3D domains (the JAX tests' tiny
+    widths)."""
+    from ddmi_tpu_torch.core.config import config_from_dict
+
+    dd = dict(double_z=True, z_channels=32, in_channels=8, out_ch=8, ch=32,
+              num_res_blocks=1, attn_resolutions=[], attn_type="vanilla")
+    lc = dict(epochs=2, warmup_epochs=1, gradient_accumulate_every=2, sn_reg=True)
+    if domain == "nerf":
+        dd.update(resolution=16, ch_mult=[1, 2], hdbf_resolutions=[], inter_attn_resolutions=[16])
+        mlp = dict(in_ch=3, out_ch=4, ch=64, latent_dim=8, D=6, W=64, skips=[2, 4], multires=4,
+                   multires_views=2, N_samples=32, N_rand=256)
+        pn = {"c_dim": 8, "hidden_dim": 32, "plane_resolution": 16, "n_blocks": 3}
+    else:
+        dd.update(resolution=32, ch_mult=[1, 2, 4], hdbf_resolutions=[8, 16],
+                  inter_attn_resolutions=[32, 16])
+        mlp = dict(in_ch=3, out_ch=1, ch=64, latent_dim=8)
+        pn = {"c_dim": 8, "hidden_dim": 32, "plane_resolution": 32, "n_blocks": 3}
+    return config_from_dict({"seed": 3, "model": {
+        "amp": amp, "use_fp16": amp, "lr": 1e-4, "embed_dim": 8, "pointnet": pn, "params": {
+            "lossconfig": lc, "ddconfig": dd, "mlpconfig": mlp,
+            "unetconfig": dict(image_size=8, in_channels=24, model_channels=32, out_channels=24,
+                               num_res_blocks=1, attention_resolutions=[2], channel_mult=[1, 2],
+                               num_head_channels=16),
+            "ddpmconfig": dict(image_size=8, channels=24)}},
+        "data": {"domain": domain, "batch_size": 2}})
+
+
+def threed_reference_phase(torch, dev):
+    """One stage-1 loss and its gradients of each 3D domain at a small
+    config: amp on the card against fp32 on the CPU, on the same weights,
+    SN vectors, batch and draws: each loss term within 5%, the float64
+    cosine of all gradients >= 0.99 (bf16 roundings, and the sign of an L1
+    term that flips under them: the JAX package's own amp gradients at the
+    tests' widths have cosines down to 0.9974 with its fp32 ones), no
+    kernel launched."""
+    import numpy as np
+
+    from ddmi_tpu_torch.data.nerf import SyntheticNeRF
+    from ddmi_tpu_torch.data.shapenet import SyntheticOccupancy
+    from ddmi_tpu_torch.domains.nerf import NeRFPipeline
+    from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
+    from ddmi_tpu_torch.domains.triplane import TriplaneDraws
+
+    cases = (("nerf", NeRFPipeline, next(iter(SyntheticNeRF(2, 300, 24, length=1, seed=4)))),
+             ("occupancy", OccupancyPipeline,
+              next(iter(SyntheticOccupancy(2, 512, 600, length=1, seed=4)))))
+    for domain, Pipe, batch in cases:
+        out, weights, sn, draws = {}, None, None, None
+        read = reset_launches()
+        for tag, where, amp in (("cpu", "cpu", False), ("card", dev, True)):
+            pipe = Pipe(threed_small_configs(domain, amp), device=where, seed=3)
+            if weights is None:
+                perturb_zero_init(pipe, 150)
+                weights = {k: v.clone() for k, v in pipe.state_dict().items()}
+            else:
+                pipe.load_state_dict({k: v.to(where) for k, v in weights.items()})
+            st = pipe.init_stage1(10)
+            if sn is None:
+                sn = st.sn
+                draws = pipe.draw_stage1(batch if domain == "occupancy" else
+                                         {k: torch.from_numpy(v) for k, v in batch.items()},
+                                         torch.Generator().manual_seed(5))
+            st.sn = {k: (u.to(where), v.to(where)) for k, (u, v) in sn.items()}
+            d = TriplaneDraws(tuple(e.to(where) for e in draws.eps),
+                              None if draws.pixels is None else draws.pixels.to(where),
+                              None if draws.uniforms is None else draws.uniforms.to(where))
+            before = read()
+            loss, m, _ = pipe.stage1_loss(on_device(torch, batch, where), 3, d, st.sn)
+            loss.backward()
+            if where != "cpu":
+                torch.cuda.synchronize()
+            launches = {k: v - before[k] for k, v in read().items() if v - before[k]}
+            g = torch.cat([p.grad.double().cpu().flatten() for p in st.params.values()])
+            out[tag] = ({k: float(v) for k, v in m.items()}, g, launches)
+            del pipe
+        (mc, gc, _), (mg, gg, launches) = out["cpu"], out["card"]
+        cos = torch.nn.functional.cosine_similarity(gg, gc, dim=0).item()
+        terms = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc if k != "kl_coeff"}
+        log(f"[3d-reference] {domain}, one stage-1 micro-step at a small config: amp on the card "
+            f"against fp32 on the CPU: " + ", ".join(f"{k} {mg[k]:.6g} vs {mc[k]:.6g} (relative "
+                                                    f"{v:.5f})" for k, v in terms.items())
+            + f"; float64 gradient cosine {cos:.6f}; launches on the card {launches}")
+        if launches or cos < T3_REF_MIN_COS or any(v > T3_REF_TERM_REL for v in terms.values()):
+            raise AssertionError(f"the {domain} stage-1 step on the card disagrees with the CPU")
+
+
 def build_report(name, ptxas) -> None:
     """Registers, spills and dynamic shared memory of each kernel of a
     library built in this run, from the ptxas report and the libraries' own
@@ -3199,9 +3717,19 @@ def main() -> int:
         shutil.rmtree(vtmp, ignore_errors=True)
     vtrain1 = {k: V1_LAUNCHES.get(k, 0) for k in KERNELS}
 
+    ttmp = tempfile.mkdtemp(prefix="threed_train_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        nerf_train_phase(torch, dev, os.path.join(ttmp, "nerf"))
+        torch.cuda.empty_cache()
+        _, _, o2_hook = occ_train_phase(torch, dev, os.path.join(ttmp, "occupancy"))
+        torch.cuda.empty_cache()
+        threed_reference_phase(torch, dev)
+    finally:
+        shutil.rmtree(ttmp, ignore_errors=True)
+
     kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]
                             + occ[name] + recon[name] + vtrain1[name] + vrecon[name]
-                            + vtrain2[name]) for name in KERNELS]
+                            + vtrain2[name] + o2_hook.get(name, 0)) for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

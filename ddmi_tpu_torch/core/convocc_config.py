@@ -1,6 +1,7 @@
 """Nested convocc-style YAML for the 3D slices (the port's own copy of
 ddmi_tpu/core/convocc_config.py's `load_convocc_config`, `encoder_name`,
-`pointnet_kwargs`, `generation_kwargs` and `nerf_kwargs`).
+`pointnet_kwargs`, `generation_kwargs` and `nerf_kwargs`; `pointnet_input_dim`
+reads the cloud's width, which the JAX package takes from its input).
 
 `data.conv_config` (configs/ldm/shapenet.yaml, configs/ldm/srn_cars.yaml)
 names a convocc YAML whose `inherit_from` chain is merged recursively; its
@@ -45,14 +46,18 @@ def load_convocc_config(path: str) -> Dict[str, Any]:
 
 
 def nerf_kwargs(conv_cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """The render settings that sampling reads from the model.TN block
-    (srncars_nerf_3plane.yaml), with the JAX package's defaults."""
+    """The render settings of the model.TN block (srncars_nerf_3plane.yaml),
+    with the JAX package's defaults: samples per ray, rays per training
+    scene, the stratified perturbation (the file spells it `peturb`), the
+    background and the embeddings' frequencies."""
     tn = (conv_cfg.get("model") or {}).get("TN", {})
     return {
         "N_samples": tn.get("N_samples", 256),
+        "N_rand": tn.get("N_rand", 5000),
         "white_bkgd": tn.get("white_bkgd", True),
         "multires": tn.get("multires", 10),
         "multires_views": tn.get("multires_views", 4),
+        "perturb": tn.get("peturb", tn.get("perturb", 1.0)),
     }
 
 
@@ -77,6 +82,13 @@ def pointnet_kwargs(conv_cfg: Dict[str, Any]) -> Dict[str, Any]:
         kw.update(unet=True, unet_depth=uk.get("depth", 4),
                   unet_start_filts=uk.get("start_filts", 32))
     return kw
+
+
+def pointnet_input_dim(conv_cfg: Dict[str, Any]) -> int:
+    """The values each input point carries (data.dim: 3, or 6 for the
+    srn_cars clouds' xyz and rgb), the width of the pointnet's first
+    layer (flax's Dense takes it from its input)."""
+    return int((conv_cfg.get("data") or {}).get("dim", 3))
 
 
 def generation_kwargs(conv_cfg: Dict[str, Any]) -> Dict[str, Any]:

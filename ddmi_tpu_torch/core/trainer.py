@@ -7,14 +7,15 @@ a non-finite loss every `data.extra.nan_check_every` steps.  Every
 `save_and_sample_every` epochs and at the last one the state is saved
 under `<save_dir>/stage1` or `<save_dir>/stage2` (core/checkpoint.py) with
 the step generators' states, so that `resume=True` continues bit for bit
-where the last checkpoint left off; stage 2 takes its VAE and INR from the
-newest stage-1 checkpoint in the save directory when there is one.  The JAX
+where the last checkpoint left off; stage 2 takes its stage-1 modules from
+the newest stage-1 checkpoint in the save directory when there is one.  The JAX
 trainer's mesh becomes one card: `cfg.mesh` is read and changes nothing,
 which the run says once, as the JAX package's `make_mesh` fallback does.
 The eval hooks run after each save: stage 1 reconstructs and logs PSNR
-(image and video), stage 2 samples with the EMA weights and saves the
-samples (image and video); the occupancy and NeRF branches wait for their
-domains' training.
+(image and video) or the IoU of one shape's query points (occupancy); stage
+2 samples with the EMA weights and saves the samples (image and video) or
+one mesh as `.off` (occupancy).  The NeRF branches do nothing, as in the
+JAX trainer.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ import numpy as np
 import torch
 
 from ddmi_tpu_torch.core.checkpoint import CheckpointManager
-from ddmi_tpu_torch.core.coords import resize_antialias
 from ddmi_tpu_torch.core.metrics import MetricsLogger
 
 
@@ -119,7 +119,11 @@ class Trainer:
                 return 1000
             return max(1, int(spe))
 
-    def _put_batch(self, batch) -> torch.Tensor:
+    def _put_batch(self, batch):
+        """A host batch (an array, or a dict of arrays as the 3D loaders
+        yield) on the pipeline's device."""
+        if isinstance(batch, dict):
+            return {k: self._put_batch(v) for k, v in batch.items()}
         return torch.as_tensor(batch).to(self.pipe.device, non_blocking=True)
 
     def _log_step(self, step: int, metrics, prefix: str) -> None:
@@ -157,7 +161,7 @@ class Trainer:
 
     def train_stage1(self, epochs: Optional[int] = None, eval_hook: Optional[Callable] = None,
                      resume: bool = False):
-        """Stage-1 training of the pipeline's VAE and INR (and, for the
+        """Stage-1 training of the pipeline's stage-1 modules (and, for the
         adversarial configs, its discriminator) over `epochs` passes of the
         dataset (lossconfig.epochs when None).  The weights are the
         pipeline's own (the JAX trainer draws them from cfg.seed, the seed
@@ -181,22 +185,23 @@ class Trainer:
                             default_stage1_eval_hook if eval_hook is None else eval_hook, True)
 
     def load_stage1(self) -> int:
-        """Load the VAE and INR of the newest stage-1 checkpoint in the save
-        directory into the pipeline; -> its step."""
+        """Load the stage-1 modules (`pipe.stage1_modules`: the VAE and the
+        INR, and the pointnet of the 3D domains) of the newest stage-1
+        checkpoint in the save directory into the pipeline; -> its step."""
         ckpt = CheckpointManager(self.save_dir, prefix="stage1")
         step = ckpt.latest_step()
         params = ckpt.restore(step=step)["state"]["params"]
-        for name, module in (("vae", self.pipe.vae), ("mlp", self.pipe.mlp)):
-            module.load_state_dict({k[len(name) + 1:]: v for k, v in params.items()
-                                    if k.startswith(name + ".")})
+        for name in self.pipe.stage1_modules:
+            getattr(self.pipe, name).load_state_dict(
+                {k[len(name) + 1:]: v for k, v in params.items() if k.startswith(name + ".")})
         return step
 
     def train_stage2(self, epochs: Optional[int] = None, resume: bool = False,
                      save: bool = True, eval_hook: Optional[Callable] = None):
         """Stage-2 training of the pipeline's UNet and mixing logit over
         `epochs` passes of the dataset (lossconfig.epochs when None); the
-        frozen VAE encoder makes the latents.  The VAE and the INR come from
-        the newest stage-1 checkpoint in the save directory when there is
+        frozen stage-1 encoder makes the latents.  The stage-1 modules come
+        from the newest stage-1 checkpoint in the save directory when there is
         one (the JAX trainer's load_stage1_params), else they are the
         pipeline's own; the UNet's weights are the pipeline's (the JAX
         trainer draws them from cfg.seed, the seed to build the pipeline
@@ -250,14 +255,16 @@ def default_stage1_eval_hook(trainer: Trainer, state, epoch: int) -> None:
     """The stage-1 eval after each save, on the first test batch (or the
     first training batch without a test set), with eps drawn from a
     generator seeded 0.  Image: reconstruct 4 images at the anchor
-    resolution, log their PSNR against the images (resized to that
-    resolution when they differ, where the JAX hook logs NaN) as
-    eval/psnr, and save them under <save_dir>/recon/ep<epoch>.  Video:
-    reconstruct 2 clips and log their PSNR as eval/psnr.  A failure is
+    resolution, log their PSNR against the images as eval/psnr (NaN when
+    the images are of another size, as in the JAX trainer), and save them
+    under <save_dir>/recon/ep<epoch>.  Video: reconstruct 2 clips and log
+    their PSNR as eval/psnr.  Occupancy: encode the first shape's cloud,
+    evaluate its query points on the fp32 masters and log the IoU of
+    logits > 0 against occ > 0.5 as eval/iou.  NeRF: nothing.  A failure is
     warned about and counted (s1/eval_hook_failures), never raised, as in
     the JAX trainer."""
     domain = trainer.cfg.data.domain
-    if domain not in ("image", "video"):
+    if domain not in ("image", "video", "occupancy"):
         return
     batch = _first_test_batch(trainer)
     if batch is None:
@@ -265,6 +272,15 @@ def default_stage1_eval_hook(trainer: Trainer, state, epoch: int) -> None:
     try:
         pipe = trainer.pipe
         g = torch.Generator(device=pipe.device).manual_seed(0)
+        if domain == "occupancy":
+            b = {k: torch.as_tensor(np.asarray(v)[:1]).to(pipe.device) for k, v in batch.items()}
+            eps = pipe.posterior_eps(1, g)
+            pred = pipe.occupancy_logits(b["inputs"], b["points"], eps) > 0
+            occ = b["occ"] > 0.5
+            inter = int((pred & occ).sum())
+            union = int((pred | occ).sum())
+            trainer.logger.log(state.step, {"iou": inter / max(union, 1)}, prefix="eval/")
+            return
         if domain == "video":
             x = torch.as_tensor(np.asarray(batch)[:2]).to(pipe.device)
             recon = pipe.reconstruct(x, generator=g)
@@ -272,10 +288,8 @@ def default_stage1_eval_hook(trainer: Trainer, state, epoch: int) -> None:
             return
         x = torch.as_tensor(np.asarray(batch)[:4]).to(pipe.device)
         recon = pipe.reconstruct(x, generator=g)
-        ref = x.float()
-        if ref.shape != recon.shape:
-            ref = resize_antialias(ref, recon.shape[1])
-        trainer.logger.log(state.step, {"psnr": _psnr(recon, ref)}, prefix="eval/")
+        psnr = _psnr(recon, x.float()) if recon.shape == x.shape else float("nan")
+        trainer.logger.log(state.step, {"psnr": psnr}, prefix="eval/")
         trainer._save_images(recon.cpu().numpy(),
                              os.path.join(trainer.save_dir, "recon", f"ep{epoch}"))
     except Exception as e:  # an eval must never end a training run
@@ -305,15 +319,28 @@ def ema_weights(pipe, state):
                 p.copy_(saved[k])
 
 
+def _save_off(path: str, verts: np.ndarray, tris: np.ndarray) -> None:
+    """A triangle mesh as an OFF file."""
+    with open(path, "w") as f:
+        f.write("OFF\n")
+        f.write(f"{len(verts)} {len(tris)} 0\n")
+        for v in verts:
+            f.write(f"{v[0]} {v[1]} {v[2]}\n")
+        for t in tris:
+            f.write(f"3 {t[0]} {t[1]} {t[2]}\n")
+
+
 def default_stage2_eval_hook(trainer: Trainer, state, epoch: int) -> None:
     """The stage-2 eval after each save: sample with the EMA weights from a
     generator seeded cfg.seed + 100 + epoch and save the samples under
     <save_dir>/samples/: image, 2 images at min(test_resolution, 256)
-    (ep<epoch>_<i>); video, one clip's frames (ep<epoch>_video_<i>).  A
-    failure is warned about and counted (s2/eval_hook_failures), never
-    raised, as in the JAX trainer."""
+    (ep<epoch>_<i>); video, one clip's frames (ep<epoch>_video_<i>);
+    occupancy, one latent's mesh extracted on a 32^3 grid with no MISE
+    refinement (ep<epoch>.off); NeRF, nothing.  A failure is warned about
+    and counted (s2/eval_hook_failures), never raised, as in the JAX
+    trainer."""
     domain = trainer.cfg.data.domain
-    if domain not in ("image", "video"):
+    if domain not in ("image", "video", "occupancy"):
         return
     out_dir = os.path.join(trainer.save_dir, "samples")
     try:
@@ -324,10 +351,19 @@ def default_stage2_eval_hook(trainer: Trainer, state, epoch: int) -> None:
                 res = min(trainer.cfg.data.test_resolution, 256)
                 imgs = pipe.sample_images(2, resolution=res, generator=g)
                 trainer._save_images(imgs.cpu().numpy(), os.path.join(out_dir, f"ep{epoch}"))
-            else:
+            elif domain == "video":
                 vids = pipe.sample_videos(1, generator=g)
                 trainer._save_images(vids[0].cpu().numpy(),
                                      os.path.join(out_dir, f"ep{epoch}_video"))
+            else:
+                from ddmi_tpu_torch.geometry.generation import MeshGenerator
+
+                with torch.no_grad():
+                    z = pipe.sample_latents(1, generator=g)
+                verts, tris = MeshGenerator(pipe.decode_logits_fn(z), upsampling_steps=0,
+                                            resolution0=32, device=pipe.device).generate()
+                os.makedirs(out_dir, exist_ok=True)
+                _save_off(os.path.join(out_dir, f"ep{epoch}.off"), verts, tris)
     except Exception as e:  # an eval must never end a training run
         warnings.warn(f"stage2 eval hook failed: {e}\n{traceback.format_exc()}")
         trainer.logger.log(epoch, {"eval_hook_failures": 1.0}, prefix="s2/")

@@ -148,32 +148,37 @@ class Stage2State:
 
 
 class LatentTraining:
-    """The training methods the image and video pipelines share: their
-    parameter sets, both stages' states, stage 2's optimizer and EMA step.
-    A pipeline brings `vae`, `mlp`, `unet`, `mixing_logit`, `gan`, `cfg`,
-    `lc`, `amp`, `device` and its own `stage2_loss`, and says whether its
-    stage-1 rate without lossconfig.lr_scheduler keeps the warm-up
-    (`stage1_warmup_only`) or is constant."""
+    """The training methods the pipelines share: their parameter sets, both
+    stages' states, stage 2's loss, optimizer and EMA step.  A pipeline
+    brings its stage-1 modules (`stage1_modules`: the VAE and the INR, and
+    for the 3D domains the pointnet; `vae` among them), `unet`,
+    `mixing_logit`, `gan`, `cfg`, `lc`, `amp`, `device`, its
+    `encode_latents` and `stage2_latents`, and says whether its stage-1
+    rate without lossconfig.lr_scheduler keeps the warm-up
+    (`stage1_warmup_only`) or is constant, and which frozen stage-1 modules
+    stage 2 runs in bf16 under model.amp (`stage2_bf16_modules`)."""
 
+    stage1_modules: Tuple[str, ...] = ("vae", "mlp")
+    stage2_bf16_modules: Tuple[str, ...] = ("vae",)
     # The KL anneal's length in micro-steps until init_stage1 sets it (the
     # JAX package's default).
     _stage1_total_iters = 100_000
 
     def stage1_params(self) -> Dict[str, torch.Tensor]:
-        """The trainable parameters: the VAE's and the INR's."""
-        params = {f"vae.{k}": p for k, p in self.vae.named_parameters()}
-        params.update({f"mlp.{k}": p for k, p in self.mlp.named_parameters()})
-        return params
+        """The trainable parameters, `<module>.<name>` over stage1_modules."""
+        return {f"{name}.{k}": p for name in self.stage1_modules
+                for k, p in getattr(self, name).named_parameters()}
 
     def init_stage1(self, steps_per_epoch: int = 1000) -> Stage1State:
         """Ready the pipeline for stage-1 training from its current weights:
-        the VAE and the INR train in fp32 (the VAE laid out channels-last on
+        the stage-1 modules train in fp32 (the VAE laid out channels-last on
         the card), and the state starts with a fresh optimizer, spectral-norm
-        vectors drawn from a generator seeded 7 (the JAX package's key) and,
-        for the adversarial configs, the discriminator's optimizer.  The KL
-        anneals over steps_per_epoch x lossconfig.epochs micro-steps."""
-        for module in (self.vae, self.mlp):
-            module.float().requires_grad_(True)
+        vectors of the VAE drawn from a generator seeded 7 (the JAX
+        package's key) and, for the adversarial configs, the
+        discriminator's optimizer.  The KL anneals over steps_per_epoch x
+        lossconfig.epochs micro-steps."""
+        for name in self.stage1_modules:
+            getattr(self, name).float().requires_grad_(True)
         if self.device.type == "cuda":
             self.vae.to(memory_format=torch.channels_last)
         self._stage1_total_iters = steps_per_epoch * self.lc.epochs
@@ -198,22 +203,40 @@ class LatentTraining:
     def init_stage2(self) -> Stage2State:
         """Ready the pipeline for stage-2 training from its current weights:
         the UNet and the mixing logit train in fp32 (on the card laid out
-        channels-last), the VAE and the INR are frozen, and under model.amp
-        the frozen VAE is cast to bf16 once (the bf16 cast JAX takes of it
-        every step).  Returns the state with fp32 EMA copies and a fresh
-        optimizer: AdamW(lr, wd 0, bf16 mu) with gradient accumulation."""
-        for module in (self.vae, self.mlp):
-            module.requires_grad_(False)
+        channels-last), the stage-1 modules are frozen, and under model.amp
+        the frozen `stage2_bf16_modules` are cast to bf16 once (the bf16
+        cast JAX takes of them every step).  Returns the state with fp32
+        EMA copies and a fresh optimizer: AdamW(lr, wd 0, bf16 mu) with
+        gradient accumulation."""
+        for name in self.stage1_modules:
+            getattr(self, name).requires_grad_(False)
         self.unet.float().requires_grad_(True)
         self.mixing_logit.requires_grad_(True)
         if self.device.type == "cuda":
             for module in (self.unet, self.vae):
                 module.to(memory_format=torch.channels_last)
         if self.amp:
-            self.vae.to(torch.bfloat16)
+            for name in self.stage2_bf16_modules:
+                getattr(self, name).to(torch.bfloat16)
         params = self.stage2_params()
         ema = {k: p.detach().clone() for k, p in params.items()}
         return Stage2State(0, params, ema, stage2_adamw(self.cfg, list(params.values())))
+
+    def stage2_latents(self, x, eps=None, generator: Optional[torch.Generator] = None):
+        """The frozen encode of a stage-2 batch (`encode_latents` of the
+        images or clips; the 3D domains encode the batch's point cloud)."""
+        return self.encode_latents(x, eps, generator)
+
+    def stage2_loss(self, x, generator: Optional[torch.Generator] = None, t=None, noise=None,
+                    eps=None):
+        """The stage-2 loss: the frozen encode (`stage2_latents`), then the
+        diffusion loss through the UNet (bf16 compute under model.amp,
+        core/amp.py; the mixing logit stays fp32).  The posterior eps, the
+        timesteps t and the diffusion noise are drawn from `generator`, in
+        that order, where not given.  -> (loss, aux)."""
+        z = self.stage2_latents(x, eps, generator)
+        model_fn = amp_denoiser(self.unet, self.amp)
+        return diffusion_loss(self.gd, model_fn, self.mixing_logit, z, generator, t, noise)
 
     def stage2_apply(self, state: Stage2State) -> None:
         """The optimizer (gradients taken from the parameters' .grad, which
@@ -525,13 +548,3 @@ class ImagePipeline(LatentTraining, nn.Module):
         if eps is None:
             eps = torch.randn(posterior.mean.shape, generator=generator, device=y.device)
         return posterior.sample(eps).float()
-
-    def stage2_loss(self, x, generator: Optional[torch.Generator] = None, t=None, noise=None,
-                    eps=None):
-        """The stage-2 loss: encode, then the diffusion loss through the UNet
-        (bf16 compute under model.amp, core/amp.py).  The posterior eps,
-        the timesteps t and the diffusion noise are drawn from `generator`,
-        in that order, where not given.  -> (loss, aux)."""
-        z = self.encode_latents(x, eps, generator)
-        model_fn = amp_denoiser(self.unet, self.amp)
-        return diffusion_loss(self.gd, model_fn, self.mixing_logit, z, generator, t, noise)

@@ -1,18 +1,28 @@
-"""NeRF domain, sampling half (counterpart of ddmi_tpu/domains/nerf.py::
-NeRFPipeline.sample_nerfs): DDIM over triplane latents with the 2D UNet,
-the triplane decode, and a volume render of a spherical camera path through
-the NeRF MLP.
+"""NeRF domain (counterpart of ddmi_tpu/domains/nerf.py::NeRFPipeline):
+sampling (DDIM over triplane latents with the 2D UNet, the triplane decode,
+and a volume render of a spherical camera path through the NeRF MLP) and
+both training stages (domains/triplane.py).
 
-Rays, stratified samples (perturb 0 at sampling, so the render draws no
-random numbers), the triplane lookup (pts / 3.5, align_corners=True,
-border), the frequency embeddings and the alpha compositing stay fp32; the
-MLP input is cast to the parameters' dtype.  With no gradient recorded and
-wherever the kernel's predicate takes the MLP's width (256) the MLP runs as
-`nerf_mlp_fused`: on the card the hand-written kernel of csrc/nerf_mlp.cu,
-on the CPU its plain version; other widths, and any render under autograd,
-run the INRNeRF module, as the JAX package does.
+Rays, stratified samples, the triplane lookup (pts / 3.5,
+align_corners=True, border), the frequency embeddings and the alpha
+compositing stay fp32; the MLP input is cast to the MLP's compute dtype.
+With no gradient recorded and wherever the kernel's predicate takes the
+MLP's width (256) the MLP runs as `nerf_mlp_fused`: on the card the
+hand-written kernel of csrc/nerf_mlp.cu, on the CPU its plain version;
+other widths, any render under autograd and every training render run the
+INRNeRF module, as the JAX package does, so training launches no kernel.
+Sampling renders without perturbation and draws no random numbers.
 
-The point-cloud encoder and training wait for later slices.
+Stage 1 (`stage1_loss`): the cloud (b, n, 6: xyz and rgb) through the
+pointnet, the encoder and the sampled posteriors, packed [xy | xz | yz],
+then the decode; per scene, N_rand rays of its one view, drawn without
+replacement, rendered with perturbed stratified samples, and 20 x the sum
+of |rgb - target| over them, averaged over the scenes; plus the KL and the
+spectral-norm regulariser.  Under model.amp the VAE and the INRNeRF compute
+in bf16.  The plane samples are blended in fp32 and rounded once to the
+planes' dtype, where the JAX package blends the four corners in the planes'
+bf16; the tests hold the amp loss to JAX's within 1e-2.  Stage 2 trains the
+UNet on the frozen encode of the batch's `points`.
 """
 
 from __future__ import annotations
@@ -24,11 +34,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
-from ddmi_tpu_torch.core.convocc_config import load_convocc_config, nerf_kwargs
+from ddmi_tpu_torch.core.amp import compute_cast, method_call
+from ddmi_tpu_torch.core.convocc_config import (
+    load_convocc_config, nerf_kwargs, pointnet_input_dim, pointnet_kwargs,
+)
 from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
+from ddmi_tpu_torch.domains.triplane import TriplaneDraws, TriplaneTraining
 from ddmi_tpu_torch.nn.inr import FreqEmbedding, INRNeRF
+from ddmi_tpu_torch.nn.pointnet import LocalPoolPointnet
 from ddmi_tpu_torch.nn.triplane_vae import TriplaneAutoencoder
 from ddmi_tpu_torch.nn.unet import UNet
 from ddmi_tpu_torch.ops import nerf_mlp
@@ -109,16 +125,22 @@ def spherical_poses(n_views: int, radius: float = 1.3, elevation: float = -0.3,
     return torch.tensor(np.stack(poses), dtype=torch.float32, device=device)
 
 
-class NeRFPipeline(nn.Module):
-    """The sampling models of one NeRF config: `unet` + `mixing_logit`
-    (1, C, 1, 1) (stage 2), `vae` (triplane decode half) + `mlp` (INRNeRF)
-    (stage 1).  Render settings come from `data.conv_config`'s model.TN
-    block, else from `mlpconfig` extras.
+class NeRFPipeline(TriplaneTraining, nn.Module):
+    """The models of one NeRF config: `unet` + `mixing_logit` (1, C, 1, 1)
+    (stage 2); `pointnet`, `vae` (encoder, posterior convs and decoder) and
+    `mlp` (INRNeRF) (stage 1).  The pointnet's settings and the render's
+    come from `data.conv_config` (its encoder_kwargs, data.dim and model.TN
+    blocks), else from `model.pointnet` (a 6-wide cloud unless it says
+    `dim`) and `mlpconfig` extras.  A batch is a dict: `points` (b, n, 6)
+    the cloud, `image` (b, H, W, 3) one view in [0, 1] and `pose` (b, 4, 4)
+    its camera (data/nerf.py).
 
     Parameters are initialised on `device` (the card unless the caller asks
     for the CPU) from `seed`; `load_state_dicts` replaces them with trained
     ones (reference state_dict layouts, see interop.py).  `cast(dtype)`
     casts every model parameter but `mixing_logit`, which stays fp32."""
+
+    cloud_key = "points"
 
     def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
@@ -128,17 +150,30 @@ class NeRFPipeline(nn.Module):
         if int(m.ddpmconfig.extra.get("encoder_reuse", 1)) != 1:
             raise NotImplementedError("encoder_reuse > 1 is not ported")
         self.cfg = cfg
-        tn = nerf_kwargs(load_convocc_config(cfg.data.conv_config)) \
-            if cfg.data.conv_config else {}
+        dd = m.ddconfig
+        if cfg.data.conv_config:
+            conv_cfg = load_convocc_config(cfg.data.conv_config)
+            tn = nerf_kwargs(conv_cfg)
+            pn_kwargs = dict(pointnet_kwargs(conv_cfg), dim=pointnet_input_dim(conv_cfg))
+        else:
+            tn = {}
+            enc = m.extra.get("pointnet", {})
+            pn_kwargs = dict(c_dim=enc.get("c_dim", dd.in_channels),
+                             hidden_dim=enc.get("hidden_dim", 256),
+                             plane_resolution=enc.get("plane_resolution", dd.resolution),
+                             n_blocks=enc.get("n_blocks", 7), dim=enc.get("dim", 6))
         mc = m.mlpconfig.extra
         multires = tn.get("multires", mc.get("multires", 10))
         multires_views = tn.get("multires_views", mc.get("multires_views", 4))
         self.embed_xyz = FreqEmbedding(multires)
         self.embed_dir = FreqEmbedding(multires_views)
         self.n_samples = int(tn.get("N_samples", mc.get("N_samples", 256)))
+        self.n_rand = int(tn.get("N_rand", mc.get("N_rand", 5000)))
+        self.perturb = float(tn.get("perturb", mc.get("perturb", 1.0)))
         self.white_bkgd = bool(tn.get("white_bkgd", mc.get("white_bkgd", True)))
-        dd = m.ddconfig
         self.latent_res = dd.resolution // 2 ** (len(dd.ch_mult) - 1)
+        self.amp = bool(m.amp)
+        self.lc = m.lossconfig
         device = resolve_device(device)
         cuda = [device.index or 0] if device.type == "cuda" else []
         with torch.random.fork_rng(devices=cuda, device_type="cuda"):
@@ -152,6 +187,10 @@ class NeRFPipeline(nn.Module):
                     in_channels_dir=self.embed_dir.out_dim(),
                     skips=tuple(mc.get("skips", (2, 4))),
                 )
+                # the encode half last: a seed gives the sampling modules the
+                # weights it gave them before the pipeline trained
+                self.vae.add_encoder()
+                self.pointnet = LocalPoolPointnet(**pn_kwargs)
         d = m.ddpmconfig
         self.mixing_logit = nn.Parameter(
             torch.full((1, d.channels, 1, 1), float(d.mixed_init), device=device))
@@ -162,9 +201,16 @@ class NeRFPipeline(nn.Module):
     def device(self) -> torch.device:
         return self.mixing_logit.device
 
-    def load_state_dicts(self, unet=None, vae=None, mlp=None, mixing_logit=None) -> None:
-        """Load port state_dicts (strict); `mixing_logit` has C values."""
-        for module, sd in ((self.unet, unet), (self.vae, vae), (self.mlp, mlp)):
+    def load_state_dicts(self, unet=None, pointnet=None, vae=None, mlp=None,
+                         mixing_logit=None) -> None:
+        """Load port state_dicts (strict); `mixing_logit` has C values.  A
+        `vae` state_dict of the decode half alone (the sampling checkpoints)
+        leaves the encoder and the quant convs as they are."""
+        if vae is not None and not any(k.startswith(("encoder.", "quant_conv")) for k in vae):
+            vae = {**{k: v for k, v in self.vae.state_dict().items()
+                      if k.startswith(("encoder.", "quant_conv"))}, **vae}
+        for module, sd in ((self.unet, unet), (self.pointnet, pointnet), (self.vae, vae),
+                           (self.mlp, mlp)):
             if sd is not None:
                 module.load_state_dict(sd, strict=True)
         if mixing_logit is not None:
@@ -174,10 +220,10 @@ class NeRFPipeline(nn.Module):
 
     def cast(self, dtype: torch.dtype) -> "NeRFPipeline":
         """Cast the models' parameters; on CUDA also lay the UNet and the
-        decoder out channels-last (the attention kernel's NHWC view)."""
-        for module in (self.unet, self.vae, self.mlp):
+        VAE out channels-last (the attention kernel's NHWC view)."""
+        for module in (self.unet, self.pointnet, self.vae, self.mlp):
             module.to(dtype)
-            if self.device.type == "cuda" and module is not self.mlp:
+            if self.device.type == "cuda" and module in (self.unet, self.vae):
                 module.to(memory_format=torch.channels_last)
         return self
 
@@ -192,26 +238,36 @@ class NeRFPipeline(nn.Module):
             return None
         return nerf_mlp.fold_nerf_params(m, dtype=m.sigma.weight.dtype)
 
-    def mlp_input(self, planes, rays_o, rays_d):
-        """-> (x (n, s, in_xyz + in_dir) in the parameters' dtype, z (n, s)):
-        the triplane features and both embeddings at the ray samples."""
+    def mlp_input(self, planes, rays_o, rays_d, uniforms=None, dtype=None):
+        """-> (x (n, s, in_xyz + in_dir) in `dtype` (the MLP parameters' when
+        None), z (n, s)): the triplane features and both embeddings at the
+        ray samples, evenly spaced in [NEAR, FAR] or, given `uniforms` (n,
+        s) in [0, 1), each drawn within its stratum between the midpoints."""
         n, s = rays_o.shape[0], self.n_samples
         t = torch.linspace(0.0, 1.0, s, device=rays_o.device)
         z = (NEAR * (1 - t) + FAR * t).expand(n, s)
+        if uniforms is not None:
+            mids = 0.5 * (z[..., 1:] + z[..., :-1])
+            upper = torch.cat([mids, z[..., -1:]], -1)
+            lower = torch.cat([z[..., :1], mids], -1)
+            z = lower + (upper - lower) * uniforms
         pts = rays_o[:, None] + rays_d[:, None] * z[..., None]
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-        dtype = self.mlp.sigma.weight.dtype
+        dtype = dtype or self.mlp.sigma.weight.dtype
         e_dir = self.embed_dir(viewdirs).to(dtype)[:, None].expand(n, s, -1)
         x = torch.cat([sample_triplane(planes, pts).to(dtype),
                        self.embed_xyz(pts).to(dtype), e_dir], -1)
         return x, z
 
-    def run_mlp(self, x, folded=None) -> torch.Tensor:
-        """x (..., in_xyz + in_dir) -> raw (..., 4) fp32.  Under autograd
+    def run_mlp(self, x, folded=None, params=None) -> torch.Tensor:
+        """x (..., in_xyz + in_dir) -> raw (..., 4) fp32.  With `params`
+        (name -> tensor: training's casts of the masters) or under autograd
         (a gradient recorded for x or the MLP's parameters) through the
         INRNeRF module, whose gradients the fused MLP would drop: the fold
         copies the weights detached, as JAX's `_fused_mlp_gate` takes the
         kernel only in inference traces."""
+        if params is not None:
+            return method_call(self.mlp, params, "forward", x).float()
         if needs_grad(x, *self.mlp.parameters()):
             return self.mlp(x).float()
         if folded is None:
@@ -221,10 +277,13 @@ class NeRFPipeline(nn.Module):
         return nerf_mlp.nerf_mlp_fused(folded, x.reshape(-1, x.shape[-1])).reshape(
             *x.shape[:-1], 4)
 
-    def render_rays(self, planes, rays_o, rays_d, folded=None) -> torch.Tensor:
-        """rays_o / rays_d (n, 3) -> rgb (n, 3) fp32."""
-        x, z = self.mlp_input(planes, rays_o, rays_d)
-        raw = self.run_mlp(x, folded)
+    def render_rays(self, planes, rays_o, rays_d, folded=None, uniforms=None,
+                    params=None) -> torch.Tensor:
+        """rays_o / rays_d (n, 3) -> rgb (n, 3) fp32; `uniforms` perturb the
+        samples (mlp_input) and `params` replace the MLP's (run_mlp)."""
+        dtype = None if params is None else next(iter(params.values())).dtype
+        x, z = self.mlp_input(planes, rays_o, rays_d, uniforms, dtype)
+        raw = self.run_mlp(x, folded, params)
         return raw2outputs(raw, z, rays_d, self.white_bkgd)[0]
 
     def render_image(self, planes, pose, H: int, W: int, folded=None) -> torch.Tensor:
@@ -242,12 +301,65 @@ class NeRFPipeline(nn.Module):
                         elevation: float = -0.3) -> torch.Tensor:
         return spherical_poses(n_views, radius, elevation, device=self.device)
 
-    def decode_planes(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def decode_planes(self, z: torch.Tensor, p_vae: Optional[dict] = None
+                      ) -> Dict[str, torch.Tensor]:
         """z (b, 3 * embed_dim, r, r) -> {"xy", "yz", "xz"}: the first plane
         of each decoded pyramid (srn_cars has no HDBF taps, so each pyramid
-        is the one decoded plane), NCHW."""
-        pyr_xy, pyr_yz, pyr_xz = self.vae.decode(z.to(self.vae.post_quant_conv_xy.weight.dtype))
+        is the one decoded plane), NCHW, in the VAE's dtype (or in that of
+        `p_vae`, which replaces its parameters)."""
+        if p_vae is None:
+            pyr_xy, pyr_yz, pyr_xz = self.vae.decode(z.to(self.vae_dtype))
+        else:
+            z = z.to(next(iter(p_vae.values())).dtype)
+            pyr_xy, pyr_yz, pyr_xz = method_call(self.vae, p_vae, "decode", z)
         return {"xy": pyr_xy[0], "yz": pyr_yz[0], "xz": pyr_xz[0]}
+
+    # ---------------------------------------------------------- stage 1
+
+    def draw_stage1(self, batch, generator: Optional[torch.Generator] = None) -> TriplaneDraws:
+        """One micro-step's draws from `generator`: the three posteriors'
+        eps, then per scene N_rand of the view's H * W pixels without
+        replacement (the first N_rand of a uniform random order) and, with
+        perturbation on, the stratified samples' uniforms."""
+        b, H, W = batch["image"].shape[:3]
+        eps = self.posterior_eps(b, generator)
+        keys = torch.rand((b, H * W), generator=generator, device=self.device)
+        pixels = keys.argsort(dim=1)[:, : self.n_rand]
+        uniforms = (torch.rand((b, self.n_rand, self.n_samples), generator=generator,
+                               device=self.device) if self.perturb > 0 else None)
+        return TriplaneDraws(eps, pixels, uniforms)
+
+    def stage1_loss(self, batch, step: int, draws: TriplaneDraws, sn_state):
+        """The stage-1 loss of a batch (dict of `points`, `image`, `pose`):
+        encode and decode the planes, render each scene's drawn rays and take
+        20 x the sum of |rgb - target| over them, averaged over the scenes,
+        plus the KL (its coefficient reads the micro-step `step`) and the
+        spectral-norm regulariser.  -> (loss, metrics, new sn state)."""
+        image, pose = batch["image"].float(), batch["pose"].float()
+        b, H, W = image.shape[:3]
+        with record_function("stage1/encode"):
+            p_vae = compute_cast(dict(self.vae.named_parameters()), self.amp)
+            z, posts = self.encode(batch["points"], draws.eps, p_vae)
+        with record_function("stage1/decode"):
+            planes = self.decode_planes(z, p_vae)
+        with record_function("stage1/render"):
+            p_mlp = compute_cast(dict(self.mlp.named_parameters()), self.amp)
+            terms = []
+            for i in range(b):
+                rays_o, rays_d = get_rays(H, W, pose[i])
+                idx = draws.pixels[i].to(self.device)
+                u = None if draws.uniforms is None else draws.uniforms[i].to(self.device)
+                rgb = self.render_rays({k: v[i : i + 1] for k, v in planes.items()},
+                                       rays_o.reshape(-1, 3)[idx], rays_d.reshape(-1, 3)[idx],
+                                       uniforms=u, params=p_mlp)
+                terms.append(20.0 * (rgb - image[i].reshape(-1, 3)[idx]).abs().sum())
+            recon = torch.stack(terms).mean()
+        kld, kl_coeff, sn, sn_weight, new_sn = self.regularisers(posts, step, sn_state)
+        loss = recon + kl_coeff * kld
+        if self.lc.sn_reg:
+            loss = loss + sn * sn_weight
+        metrics = {"loss": loss, "recon": recon, "kl": kld, "kl_coeff": kl_coeff, "sn": sn}
+        return loss, metrics, new_sn
 
     # --------------------------------------------------------- sampling
 

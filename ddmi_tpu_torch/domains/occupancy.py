@@ -1,7 +1,8 @@
-"""3D occupancy domain, inference half (counterpart of
-ddmi_tpu/domains/occupancy.py::OccupancyPipeline: `sample_latents`,
-`decode_pyramids`, `logits_from_pyramids`, `decode_logits_fn`,
-`encode_latents`, `occupancy_logits`).
+"""3D occupancy domain (counterpart of
+ddmi_tpu/domains/occupancy.py::OccupancyPipeline): sampling
+(`sample_latents`, `decode_pyramids`, `logits_from_pyramids`,
+`decode_logits_fn`), reconstruction (`encode_latents`,
+`occupancy_logits`), and both training stages (domains/triplane.py).
 
 Generation: DDIM over the channel-concat triplane latents z (b, 3 *
 embed_dim, r, r), channels [xy | xz | yz], with the 2D UNet (the one TPU
@@ -19,7 +20,13 @@ z is cast to it, as the JAX image and NeRF paths cast it before their
 decodes (the JAX occupancy service hands the decoder fp32 z, which flax
 promotes to an fp32 decode on bf16-valued weights).
 
-Training (stage 1 and 2) waits for a later slice.
+Stage 1 (`stage1_loss`): the cloud through the pointnet (fp32), the
+encoder and the sampled posteriors, the decode and INR3D at the 2048 query
+points, then the binary cross-entropy of the fp32 logits against the
+occupancies, summed over the points and averaged over the batch, plus the
+annealed KL and the spectral-norm regulariser.  Under model.amp the VAE
+computes in bf16 and INR3D in fp32 on its bf16 weights and fp32 points.
+Stage 2 trains the UNet on the frozen encode of the batch's `inputs`.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from ddmi_tpu_torch.core.convocc_config import (
     encoder_name,
@@ -35,19 +44,22 @@ from ddmi_tpu_torch.core.convocc_config import (
     load_convocc_config,
     pointnet_kwargs,
 )
-from ddmi_tpu_torch.core.amp import method_call
+from ddmi_tpu_torch.core.amp import compute_cast, method_call
 from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
+from ddmi_tpu_torch.domains.triplane import TriplaneDraws, TriplaneTraining
 from ddmi_tpu_torch.nn.inr import INR3D
 from ddmi_tpu_torch.nn.pointnet import LocalPoolPointnet
 from ddmi_tpu_torch.nn.triplane_vae import TriplaneAutoencoder
 from ddmi_tpu_torch.nn.unet import UNet
 
 
-class OccupancyPipeline(nn.Module):
+class OccupancyPipeline(TriplaneTraining, nn.Module):
     """The models of one occupancy config: `unet` + `mixing_logit` (1, C, 1,
     1) (stage 2); `pointnet`, `vae` (encoder, posterior convs and decoder)
-    and `mlp` (INR3D) (stage 1).  The pointnet's and the mesh extraction's
+    and `mlp` (INR3D) (stage 1).  A batch is a dict: `inputs` (b, n, 3)
+    the surface cloud, `points` (b, m, 3) the query points and `occ` (b,
+    m) their occupancies (data/shapenet.py).  The pointnet's and the mesh extraction's
     settings come from `data.conv_config` (configs/convocc/pointcloud/
     shapenet_3plane.yaml, read from the working directory as the JAX package
     reads it), else the pointnet's from `model.pointnet` and the extraction
@@ -82,6 +94,8 @@ class OccupancyPipeline(nn.Module):
                              plane_resolution=enc.get("plane_resolution", dd.resolution),
                              n_blocks=enc.get("n_blocks", 7))
         self.latent_res = dd.resolution // 2 ** (len(dd.ch_mult) - 1)
+        self.amp = bool(m.amp)
+        self.lc = m.lossconfig
         device = resolve_device(device)
         cuda = [device.index or 0] if device.type == "cuda" else []
         with torch.random.fork_rng(devices=cuda, device_type="cuda"):
@@ -122,35 +136,41 @@ class OccupancyPipeline(nn.Module):
                 module.to(memory_format=torch.channels_last)
         return self
 
-    @property
-    def vae_dtype(self) -> torch.dtype:
-        return self.vae.post_quant_conv_xy.weight.dtype
-
     # ------------------------------------------------------------ stage 1
 
-    @torch.no_grad()
-    def encode_latents(self, cloud: torch.Tensor,
-                       eps: Optional[Sequence[torch.Tensor]] = None,
-                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """z = the channel-concat posterior samples [xy | xz | yz], fp32 (b,
-        3 * embed_dim, r, r).  `eps` holds the three draws' standard-normal
-        noise in plane order (xy, yz, xz), each (b, embed_dim, r, r); without
-        it they are drawn from `generator`.  The pointnet's feature planes
-        enter the encoder in the VAE's dtype."""
-        fea = self.pointnet(cloud.to(self.device))
-        dt = self.vae_dtype
-        posts = self.vae.encode((fea["xy"].to(dt), fea["yz"].to(dt), fea["xz"].to(dt)))
-        if eps is None:
-            eps = [torch.randn(p.mean.shape, generator=generator, device=self.device)
-                   for p in posts]
-        xy, yz, xz = (p.sample(e.to(self.device)).float() for p, e in zip(posts, eps))
-        return torch.cat([xy, xz, yz], dim=1)
+    def draw_stage1(self, batch, generator: Optional[torch.Generator] = None) -> TriplaneDraws:
+        """One micro-step's draws: the three posteriors' eps."""
+        return TriplaneDraws(self.posterior_eps(batch["inputs"].shape[0], generator))
+
+    def stage1_loss(self, batch, step: int, draws: TriplaneDraws, sn_state):
+        """The stage-1 loss of a batch (dict of `inputs`, `points`, `occ`):
+        the binary cross-entropy of INR3D's fp32 logits at the query points,
+        summed over the points and averaged over the batch, plus the KL
+        (its coefficient reads the micro-step `step`) and the spectral-norm
+        regulariser.  -> (loss, metrics, new sn state)."""
+        with record_function("stage1/encode"):
+            p_vae = compute_cast(dict(self.vae.named_parameters()), self.amp)
+            z, posts = self.encode(batch["inputs"], draws.eps, p_vae)
+        with record_function("stage1/decode"):
+            pyramids = method_call(self.vae, p_vae, "decode", z)
+        with record_function("stage1/inr"):
+            p_mlp = compute_cast(dict(self.mlp.named_parameters()), self.amp)
+            logits = method_call(self.mlp, p_mlp, "forward", batch["points"], pyramids).float()
+        bce = F.binary_cross_entropy_with_logits(
+            logits, batch["occ"].float(), reduction="none").sum(-1).mean()
+        kld, kl_coeff, sn, sn_weight, new_sn = self.regularisers(posts, step, sn_state)
+        loss = bce + kl_coeff * kld
+        if self.lc.sn_reg:
+            loss = loss + sn * sn_weight
+        metrics = {"loss": loss, "bce": bce, "kl": kld, "kl_coeff": kl_coeff, "sn": sn}
+        return loss, metrics, new_sn
 
     @torch.no_grad()
     def occupancy_logits(self, cloud: torch.Tensor, query_points: torch.Tensor,
                          eps: Sequence[torch.Tensor]) -> torch.Tensor:
         """Encode a point cloud (a posterior draw per plane from `eps`),
-        decode it and evaluate the logits at query_points (b, n, 3)."""
+        decode it and evaluate the logits at query_points (b, n, 3) (the
+        stage-1 eval hook's IoU)."""
         pyramids = self.decode_pyramids(self.encode_latents(cloud, eps))
         return self.mlp(query_points.to(self.device), pyramids)
 

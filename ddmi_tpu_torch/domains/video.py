@@ -29,11 +29,11 @@ from torch import nn
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from ddmi_tpu_torch.core.amp import amp_denoiser, compute_cast, method_call, rounded_cast
+from ddmi_tpu_torch.core.amp import compute_cast, method_call, rounded_cast
 from ddmi_tpu_torch.core.coords import symmetrize, unsymmetrize
 from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.core.sn_reg import norm_scale_loss, spectral_norm_loss
-from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet, diffusion_loss
+from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.domains.image import (
     LatentTraining, Stage1State, stage1_kl_coeff, stage1_sn_weight,
 )
@@ -333,14 +333,3 @@ class VideoPipeline(LatentTraining, nn.Module):
                    for p in posts]
         xy, yt, xt = (p.sample(e.to(self.device)) for p, e in zip(posts, eps))
         return cat_planes(xy, xt, yt).float()
-
-    def stage2_loss(self, x, generator: Optional[torch.Generator] = None, t=None, noise=None,
-                    eps=None):
-        """The stage-2 loss: encode, then the diffusion loss over the tokens
-        through the TriplaneUNet (bf16 compute under model.amp; the mixing
-        logit stays fp32).  The posterior eps, the timesteps t and the
-        diffusion noise are drawn from `generator`, in that order, where not
-        given.  -> (loss, aux)."""
-        z = self.encode_latents(x, eps, generator)
-        model_fn = amp_denoiser(self.unet, self.amp)
-        return diffusion_loss(self.gd, model_fn, self.mixing_logit, z, generator, t, noise)

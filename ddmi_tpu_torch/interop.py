@@ -4,9 +4,10 @@ The exact inverse of the converters in
 ddmi_tpu/interop/reference_ckpt.py that the ported slices need: for images
 `convert_unet`, `convert_vae` and `convert_mlp_image`; for video
 `convert_unet_triplane`, `convert_video_vae` (whole, or its decoder half)
-and `convert_mlp_video`; for NeRF the decoder half of `convert_triplane_vae` and
-`convert_mlp_nerf` (the UNet is the image one); for occupancy
-`convert_triplane_vae` whole, `convert_mlp_3d` and `convert_pointnet`.  For
+and `convert_mlp_video`; for NeRF and occupancy `convert_triplane_vae`
+(whole, or its decoder half for the sampling checkpoints), `convert_pointnet`
+(any cloud width: srn_cars' `fc_pos` takes 6 values a point) and
+`convert_mlp_nerf` or `convert_mlp_3d` (the UNet is the image one).  For
 stage-1 training: LPIPS into the reference checkpoint layout (the JAX
 package's evals/lpips.py::load_torch_weights reads it back), and the
 PatchGANs (the image one and the video 2D + 3D pair) and the
@@ -34,6 +35,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ddmi_tpu_torch.nn.triplane_vae import jax_layout as triplane_jax_layout
 from ddmi_tpu_torch.nn.unet import qkv_permutation
 from ddmi_tpu_torch.nn.vae import jax_layout
 
@@ -166,18 +168,7 @@ def vae_from_jax(tree, cfg) -> SD:
     Autoencoder (`encoder.*`, `quant_conv.*`, `decoder.*`,
     `post_quant_conv.*`), any attn_type; inverts reference_ckpt.convert_vae
     along the port's `jax_layout`."""
-    sd: SD = {}
-    for key, path, kind in jax_layout(cfg):
-        p = tree
-        for name in path:
-            p = p[name]
-        if kind == "gn":
-            _gn(sd, key, p)
-        elif kind == "conv":
-            _conv(sd, key, p)
-        else:
-            sd[key + ".weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
-    return sd
+    return _from_layout(tree, jax_layout(cfg))
 
 
 # -------------------------------------------------------------- INR (MLP)
@@ -357,13 +348,25 @@ def mlp_video_from_jax(tree) -> SD:
 # ------------------------------------------------------------------ NeRF
 
 
-def _inter_plane(sd: SD, key_a: str, key_attn: str, key_b: str, p) -> None:
-    """JAX InterPlaneBlock {block_a, AttnBlock_0?, block_b} -> the
-    reference's [ResnetBlock(3c), attn(3c), ResnetBlock(3c)] keys."""
-    _vae_resnet(sd, key_a, p["block_a"])
-    if "AttnBlock_0" in p:
-        _vae_attn(sd, key_attn, p["AttnBlock_0"])
-    _vae_resnet(sd, key_b, p["block_b"])
+def _from_layout(tree, layout) -> SD:
+    """A JAX parameter tree -> state_dict along a module's `jax_layout`:
+    "gn" a GroupNorm, "conv" a Conv (kernel and bias), "conv_nobias" its
+    kernel alone, "dense" a Dense layer that the port runs as a 1x1 Conv2d."""
+    sd: SD = {}
+    for key, path, kind in layout:
+        p = tree
+        for name in path:
+            p = p[name]
+        if kind == "gn":
+            _gn(sd, key, p)
+        elif kind == "conv":
+            _conv(sd, key, p)
+        elif kind == "dense":
+            sd[key + ".weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
+            sd[key + ".bias"] = _t(p["bias"])
+        else:
+            sd[key + ".weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    return sd
 
 
 def triplane_decoder_from_jax(tree, cfg) -> SD:
@@ -371,80 +374,17 @@ def triplane_decoder_from_jax(tree, cfg) -> SD:
     the port's decode-only TriplaneAutoencoder (`decoder.*`,
     `post_quant_conv_{xy,yz,xz}.*`).  Inverts the decoder half of
     reference_ckpt.convert_triplane_vae; the encoder is not read."""
-    if cfg.attn_type not in ("vanilla", "vanilla-multihead", "none"):
-        raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
-    dec = tree["decoder"]
-    sd: SD = {}
-    _conv(sd, "decoder.conv_in", dec["conv_in"])
-    ab = 0
-    _vae_resnet(sd, "decoder.mid.block_1", dec["mid_block1"])
-    if cfg.attn_type != "none":
-        _vae_attn(sd, "decoder.mid.attn_1", dec[f"AttnBlock_{ab}"])
-        ab += 1
-    _vae_resnet(sd, "decoder.mid.block_2", dec["mid_block2"])
-    _inter_plane(sd, "decoder.mid.block_3", "decoder.mid_attn", "decoder.mid.block_4",
-                 dec["mid_inter"])
-    n = len(cfg.ch_mult)
-    curr = cfg.resolution // 2 ** (n - 1)
-    for i in reversed(range(n)):
-        for j in range(cfg.num_res_blocks + 1):
-            _vae_resnet(sd, f"decoder.up.{i}.block.{j}", dec[f"up_{i}_{j}"])
-            if curr in cfg.attn_resolutions:
-                _vae_attn(sd, f"decoder.up.{i}.attn.{j}", dec[f"AttnBlock_{ab}"])
-                ab += 1
-        if curr in cfg.inter_attn_resolutions:
-            key = f"decoder.up.{i}.inter_attn"
-            _inter_plane(sd, key + ".0", key + ".1", key + ".2", dec[f"inter_{i}"])
-        if curr in cfg.hdbf_resolutions:
-            _conv(sd, f"decoder.up.{i}.hdbf.0", dec[f"hdbf_{curr}"])
-        if i != 0:
-            _conv(sd, f"decoder.up.{i}.upsample.conv", dec[f"upsample_{i}"]["Conv_0"])
-            curr *= 2
-    _gn(sd, "decoder.norm_out", dec["norm_out"]["GroupNorm_0"])
-    _conv(sd, "decoder.conv_out", dec["conv_out"])
-    for plane in ("xy", "yz", "xz"):
-        p = tree[f"post_{plane}"]
-        sd[f"post_quant_conv_{plane}.weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
-        sd[f"post_quant_conv_{plane}.bias"] = _t(p["bias"])
-    return sd
+    return _from_layout(tree, [e for e in triplane_jax_layout(cfg) if e[0].startswith(
+        ("decoder.", "post_quant_conv"))])
 
 
 def triplane_vae_from_jax(tree, cfg) -> SD:
     """JAX TriplaneAutoencoder params -> state_dict of the port's whole
-    TriplaneAutoencoder (`with_encoder=True`): the decoder half of
-    `triplane_decoder_from_jax`, the encoder (`encoder.*`) and the quant
-    convs `quant_conv_{xy,yz,xz}`.  Inverts reference_ckpt.convert_triplane_vae."""
-    sd = triplane_decoder_from_jax(tree, cfg)
-    enc = tree["encoder"]
-    _conv(sd, "encoder.conv_in", enc["conv_in"])
-    ab = 0
-    n = len(cfg.ch_mult)
-    curr = cfg.resolution
-    for i in range(n):
-        for j in range(cfg.num_res_blocks):
-            _vae_resnet(sd, f"encoder.down.{i}.block.{j}", enc[f"down_{i}_{j}"])
-            if curr in cfg.attn_resolutions:
-                _vae_attn(sd, f"encoder.down.{i}.attn.{j}", enc[f"AttnBlock_{ab}"])
-                ab += 1
-        if curr in cfg.inter_attn_resolutions:
-            key = f"encoder.down.{i}.inter_attn"
-            _inter_plane(sd, key + ".0", key + ".1", key + ".2", enc[f"inter_{i}"])
-        if i != n - 1:
-            _conv(sd, f"encoder.down.{i}.downsample.conv", enc[f"downsample_{i}"]["Conv_0"])
-            curr //= 2
-    _vae_resnet(sd, "encoder.mid.block_1", enc["mid_block1"])
-    if cfg.attn_type != "none":
-        _vae_attn(sd, "encoder.mid.attn_1", enc[f"AttnBlock_{ab}"])
-    _vae_resnet(sd, "encoder.mid.block_2", enc["mid_block2"])
-    _inter_plane(sd, "encoder.mid.block_3", "encoder.mid_attn", "encoder.mid.block_4",
-                 enc["mid_inter"])
-    _gn(sd, "encoder.norm_out", enc["norm_out"]["GroupNorm_0"])
-    _conv(sd, "encoder.conv_out", enc["conv_out"])
-    for plane in ("xy", "yz", "xz"):
-        p = tree[f"quant_{plane}"]
-        sd[f"quant_conv_{plane}.weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
-        sd[f"quant_conv_{plane}.bias"] = _t(p["bias"])
-    return sd
+    TriplaneAutoencoder (`with_encoder=True`): the decoder half, the encoder
+    (`encoder.*`) and the quant convs `quant_conv_{xy,yz,xz}`, along the
+    port's `jax_layout` (nn/triplane_vae.py).  Inverts
+    reference_ckpt.convert_triplane_vae."""
+    return _from_layout(tree, triplane_jax_layout(cfg))
 
 
 def mlp3d_from_jax(tree) -> SD:

@@ -9,10 +9,14 @@ JAX package's semantics: the max starts from -inf and zeroes the cells no
 point reached (so a cell whose features are all negative keeps them), the
 mean divides by max(count, 1).  The planes come out as the mean of `fc_c`'s
 features per cell, NCHW (b, c_dim, res, res), rows indexed by the plane's
-second coordinate.  The layers promote as flax's Dense does: on the fp32
-points, bf16 parameters compute in fp32, so the coordinates and the cell
-indices stay exact.  The max is deterministic; the mean's scatter-add on
-CUDA sums in no fixed order.
+second coordinate.  A point carries `dim` values (3; srn_cars clouds carry
+xyz and rgb, 6): all of them enter `fc_pos`, the first three place it in
+the cells.  The layers promote as flax's Dense does: on the fp32 points,
+bf16 parameters compute in fp32, so the coordinates and the cell indices
+stay exact.  The max is deterministic, and under autograd a tie (ReLU
+features tie at 0 often) splits its gradient evenly between the tied
+points, as JAX's segment_max does; the mean's scatter-add on CUDA sums in
+no fixed order.
 
 State keys follow the reference LocalPoolPointnet: `fc_pos`,
 `blocks.{i}.{fc_0,fc_1,shortcut}`, `fc_c`.  The plane-feature UNet
@@ -58,11 +62,11 @@ def segment_pool(values: torch.Tensor, index: torch.Tensor, num_segments: int,
 
 
 class LocalPoolPointnet(nn.Module):
-    """forward(p (b, n, 3)) -> {"xz", "xy", "yz"} NCHW feature planes."""
+    """forward(p (b, n, dim)) -> {"xz", "xy", "yz"} NCHW feature planes."""
 
     def __init__(self, c_dim: int = 32, hidden_dim: int = 256, plane_resolution: int = 64,
                  n_blocks: int = 7, scatter_type: str = "max", padding: float = 0.1,
-                 unet: bool = False, **unet_kwargs):
+                 unet: bool = False, dim: int = 3, **unet_kwargs):
         super().__init__()
         if unet:
             raise NotImplementedError("the pointnet's plane-feature UNet is not ported")
@@ -70,7 +74,7 @@ class LocalPoolPointnet(nn.Module):
             raise ValueError(f"unknown scatter_type {scatter_type!r}")
         self.c_dim, self.reso = c_dim, plane_resolution
         self.scatter_type, self.padding = scatter_type, padding
-        self.fc_pos = nn.Linear(3, 2 * hidden_dim)
+        self.fc_pos = nn.Linear(dim, 2 * hidden_dim)
         self.blocks = nn.ModuleList(
             [ResnetBlockFC(2 * hidden_dim, hidden_dim) for _ in range(n_blocks)])
         self.fc_c = nn.Linear(hidden_dim, c_dim)

@@ -19,10 +19,14 @@ block_3,block_4}`, `encoder.mid_attn`, `encoder.norm_out`,
 and mid.block_4), `decoder.up.{i}.{block,attn,inter_attn.{0,1,2},hdbf.0,
 upsample.conv}`, `decoder.norm_out`, `decoder.conv_out`; and the 1x1 convs
 `quant_conv_{xy,yz,xz}` and `post_quant_conv_{xy,yz,xz}` (Dense layers in
-the JAX package).
+the JAX package).  `jax_layout` names the JAX package's parameter path of
+every convolution, Dense and GroupNorm, which the weight bridge and the
+spectral-norm regulariser (core/sn_reg.py) read.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -189,15 +193,21 @@ class TriplaneAutoencoder(nn.Module):
 
     def __init__(self, cfg, embed_dim: int = 64, with_encoder: bool = False):
         super().__init__()
+        self.cfg = cfg
         self.embed_dim = embed_dim
         if with_encoder:
-            self.encoder = TriplaneEncoder(cfg)
-            for plane in ("xy", "yz", "xz"):
-                setattr(self, f"quant_conv_{plane}",
-                        nn.Conv2d(2 * cfg.z_channels, 2 * embed_dim, 1))
+            self.add_encoder()
         self.decoder = TriplaneDecoder(cfg)
         for plane in ("xy", "yz", "xz"):
             setattr(self, f"post_quant_conv_{plane}", nn.Conv2d(embed_dim, cfg.z_channels, 1))
+
+    def add_encoder(self) -> None:
+        """Build the encoder and the quant convs (drawing their initial
+        weights from the global generator)."""
+        self.encoder = TriplaneEncoder(self.cfg)
+        for plane in ("xy", "yz", "xz"):
+            setattr(self, f"quant_conv_{plane}",
+                    nn.Conv2d(2 * self.cfg.z_channels, 2 * self.embed_dim, 1))
 
     def encode(self, planes):
         """(xy, yz, xz) NCHW feature planes -> their three DiagonalGaussian
@@ -216,3 +226,116 @@ class TriplaneAutoencoder(nn.Module):
         xz = self.post_quant_conv_xz(z[:, e : 2 * e])
         yz = self.post_quant_conv_yz(z[:, 2 * e :])
         return self.decoder((xy, yz, xz))
+
+    def forward(self, planes, eps: Sequence[torch.Tensor]):
+        """The whole autoencoder (JAX `TriplaneAutoencoder.__call__` with
+        sample_posterior): encode the (xy, yz, xz) feature planes, sample
+        each posterior with its standard-normal fp32 `eps` (plane order),
+        pack [xy | xz | yz] and decode.  -> ((pyr_xy, pyr_yz, pyr_xz),
+        posteriors)."""
+        posts = self.encode(planes)
+        xy, yz, xz = (p.sample(e) for p, e in zip(posts, eps))
+        return self.decode(torch.cat([xy, xz, yz], dim=1)), posts
+
+    def jax_layout(self) -> List[Tuple[str, Tuple[str, ...], str]]:
+        """`jax_layout` of this autoencoder's config (core/sn_reg.py reads
+        it); the encoder's entries only when it has one."""
+        out = jax_layout(self.cfg, self.embed_dim)
+        if not hasattr(self, "encoder"):
+            out = [e for e in out if e[0].startswith(("decoder.", "post_quant_conv"))]
+        return out
+
+
+def jax_layout(cfg, embed_dim: int = 64) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """[(port module key, JAX parameter path, kind)] for every convolution
+    ("conv": a 4-D kernel and a bias), Dense layer ("dense": the quant and
+    post-quant 1x1 convs, (in, out) kernels in the JAX package, which the
+    spectral-norm regulariser does not read) and GroupNorm ("gn") of the
+    TriplaneAutoencoder with its encoder.  The JAX package names the
+    ResnetBlocks (down_{i}_{j}, up_{i}_{j}, mid_block1/2), the inter-plane
+    blocks (inter_{i}, mid_inter: block_a, AttnBlock_0, block_b), the
+    resamplers (downsample_{i}, upsample_{i}) and the HDBF taps
+    (hdbf_{res}); flax numbers the per-plane AttnBlocks of the encoder and
+    of the decoder in creation order (the decoder's bottleneck one first)."""
+    if cfg.attn_type not in ("vanilla", "vanilla-multihead", "none"):
+        raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
+    out: List[Tuple[str, Tuple[str, ...], str]] = []
+    has_attn = cfg.attn_type != "none"
+
+    def resnet(key, path, cin, cout):
+        out.extend([(key + ".norm1", path + ("Norm_0", "GroupNorm_0"), "gn"),
+                    (key + ".conv1", path + ("Conv_0",), "conv"),
+                    (key + ".norm2", path + ("Norm_1", "GroupNorm_0"), "gn"),
+                    (key + ".conv2", path + ("Conv_1",), "conv")])
+        if cin != cout:
+            out.append((key + ".nin_shortcut", path + ("nin_shortcut",), "conv"))
+
+    def attn(key, path):
+        out.append((key + ".norm", path + ("Norm_0", "GroupNorm_0"), "gn"))
+        out.extend((f"{key}.{n}", path + (n,), "conv") for n in ("q", "k", "v", "proj_out"))
+
+    def inter(key_a, key_attn, key_b, path, c):
+        resnet(key_a, path + ("block_a",), 3 * c, 3 * c)
+        if has_attn:
+            attn(key_attn, path + ("AttnBlock_0",))
+        resnet(key_b, path + ("block_b",), 3 * c, 3 * c)
+
+    def mid(owner, path, c, ab):
+        resnet(f"{owner}.mid.block_1", path + ("mid_block1",), c, c)
+        if has_attn:
+            attn(f"{owner}.mid.attn_1", path + (f"AttnBlock_{ab}",))
+        resnet(f"{owner}.mid.block_2", path + ("mid_block2",), c, c)
+        inter(f"{owner}.mid.block_3", f"{owner}.mid_attn", f"{owner}.mid.block_4",
+              path + ("mid_inter",), c)
+
+    n = len(cfg.ch_mult)
+    enc = ("encoder",)
+    out.append(("encoder.conv_in", enc + ("conv_in",), "conv"))
+    ab, curr, block_in = 0, cfg.resolution, cfg.ch
+    for i in range(n):
+        block_out = cfg.ch * cfg.ch_mult[i]
+        for j in range(cfg.num_res_blocks):
+            resnet(f"encoder.down.{i}.block.{j}", enc + (f"down_{i}_{j}",), block_in, block_out)
+            block_in = block_out
+            if curr in cfg.attn_resolutions and has_attn:
+                attn(f"encoder.down.{i}.attn.{j}", enc + (f"AttnBlock_{ab}",))
+                ab += 1
+        if curr in cfg.inter_attn_resolutions:
+            key = f"encoder.down.{i}.inter_attn"
+            inter(key + ".0", key + ".1", key + ".2", enc + (f"inter_{i}",), block_in)
+        if i != n - 1:
+            out.append((f"encoder.down.{i}.downsample.conv",
+                        enc + (f"downsample_{i}", "Conv_0"), "conv"))
+            curr //= 2
+    mid("encoder", enc, block_in, ab)
+    out.append(("encoder.norm_out", enc + ("norm_out", "GroupNorm_0"), "gn"))
+    out.append(("encoder.conv_out", enc + ("conv_out",), "conv"))
+
+    dec = ("decoder",)
+    out.append(("decoder.conv_in", dec + ("conv_in",), "conv"))
+    curr, block_in = cfg.resolution // 2 ** (n - 1), cfg.ch * cfg.ch_mult[-1]
+    mid("decoder", dec, block_in, 0)
+    ab = int(has_attn)
+    for i in reversed(range(n)):
+        block_out = cfg.ch * cfg.ch_mult[i]
+        for j in range(cfg.num_res_blocks + 1):
+            resnet(f"decoder.up.{i}.block.{j}", dec + (f"up_{i}_{j}",), block_in, block_out)
+            block_in = block_out
+            if curr in cfg.attn_resolutions and has_attn:
+                attn(f"decoder.up.{i}.attn.{j}", dec + (f"AttnBlock_{ab}",))
+                ab += 1
+        if curr in cfg.inter_attn_resolutions:
+            key = f"decoder.up.{i}.inter_attn"
+            inter(key + ".0", key + ".1", key + ".2", dec + (f"inter_{i}",), block_in)
+        if curr in cfg.hdbf_resolutions:
+            out.append((f"decoder.up.{i}.hdbf.0", dec + (f"hdbf_{curr}",), "conv"))
+        if i != 0:
+            out.append((f"decoder.up.{i}.upsample.conv", dec + (f"upsample_{i}", "Conv_0"),
+                        "conv"))
+            curr *= 2
+    out.append(("decoder.norm_out", dec + ("norm_out", "GroupNorm_0"), "gn"))
+    out.append(("decoder.conv_out", dec + ("conv_out",), "conv"))
+    for plane in ("xy", "yz", "xz"):
+        out.append((f"quant_conv_{plane}", (f"quant_{plane}",), "dense"))
+        out.append((f"post_quant_conv_{plane}", (f"post_{plane}",), "dense"))
+    return out

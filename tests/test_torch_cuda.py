@@ -865,3 +865,115 @@ def test_video_stage1_micro_step_on_the_card(cuda_device):
     assert all(np.isfinite(float(v)) for v in m.values()), m
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in st.params.values())
+
+
+def _threed_cfg(domain):
+    """A small fp32 stage-1 config of the NeRF or occupancy domain."""
+    dd = dict(double_z=True, z_channels=32, in_channels=8, out_ch=8, ch=32, num_res_blocks=1,
+              attn_resolutions=[], attn_type="vanilla")
+    if domain == "nerf":
+        dd.update(resolution=16, ch_mult=[1, 2], hdbf_resolutions=[], inter_attn_resolutions=[16])
+        mlp = dict(in_ch=3, out_ch=4, ch=64, latent_dim=8, D=6, W=256, skips=[2, 4],
+                   multires=4, multires_views=2, N_samples=32, N_rand=256)
+        pn = {"c_dim": 8, "hidden_dim": 32, "plane_resolution": 16, "n_blocks": 3}
+    else:
+        dd.update(resolution=32, ch_mult=[1, 2, 4], hdbf_resolutions=[8, 16],
+                  inter_attn_resolutions=[32, 16])
+        mlp = dict(in_ch=3, out_ch=1, ch=64, latent_dim=8)
+        pn = {"c_dim": 8, "hidden_dim": 32, "plane_resolution": 32, "n_blocks": 3}
+    return config_from_dict({"seed": 3, "model": {
+        "amp": False, "use_fp16": False, "lr": 1e-3, "embed_dim": 8, "pointnet": pn, "params": {
+            "lossconfig": dict(gradient_accumulate_every=1, epochs=2, warmup_epochs=1,
+                               lr_scheduler=False, sn_reg=True),
+            "ddconfig": dd, "mlpconfig": mlp,
+            "unetconfig": dict(image_size=8, in_channels=24, model_channels=64, out_channels=24,
+                               num_res_blocks=1, attention_resolutions=[2], channel_mult=[1, 2],
+                               num_head_channels=32),
+            "ddpmconfig": dict(timesteps=20, image_size=8, channels=24, sampling_timesteps=3)}},
+        "data": {"domain": domain}})
+
+
+@pytest.mark.parametrize("domain", ["nerf", "occupancy"])
+def test_3d_stage1_micro_step_on_the_card_matches_the_cpu(cuda_device, domain):
+    """One stage1_train_step of the NeRF (a width-256 INRNeRF, the kernel's
+    width) and the occupancy domain at a small fp32 config, on the card
+    against the CPU on the same weights, SN vectors, batch and draws: each
+    loss term within 1e-3 relative, the float64 cosine of the gradients
+    (taken before the update) >= 0.9999 (F.grid_sample's backward sums
+    with atomics on the card, TF32 off), the updated parameters within
+    1e-4 x max|p| + 2 lr; and no kernel launched: the render trains
+    through the INRNeRF module (nerf_mlp 0) and the UNet is not on the
+    path (attn_block 0)."""
+    from ddmi_tpu_torch.data.nerf import SyntheticNeRF
+    from ddmi_tpu_torch.data.shapenet import SyntheticOccupancy
+    from ddmi_tpu_torch.domains.nerf import NeRFPipeline
+    from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
+
+    Pipe = NeRFPipeline if domain == "nerf" else OccupancyPipeline
+    batch = next(iter(SyntheticNeRF(2, 300, 24, length=1) if domain == "nerf"
+                      else SyntheticOccupancy(2, 512, 600, length=1)))
+    cpu = Pipe(_threed_cfg(domain), device="cpu", seed=3)
+    gpu = Pipe(_threed_cfg(domain), device=cuda_device, seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    sc, sg = cpu.init_stage1(4), gpu.init_stage1(4)
+    sg.sn = {k: (u.to(cuda_device), v.to(cuda_device)) for k, (u, v) in sc.sn.items()}
+    draws = cpu.draw_stage1({k: torch.from_numpy(v) for k, v in batch.items()},
+                            torch.Generator().manual_seed(5))
+    kernels = (attn_block.fused_attention_block, nerf_mlp.nerf_mlp_fused,
+               flash_attention.flash_attention, flash_attention.flash_attention_bwd,
+               attention.mha_vmem, inr_decode.inr_decode_fused)
+    before = [k.launches for k in kernels]
+    out = {}
+    for dev, pipe, st in (("cpu", cpu, sc), ("cuda", gpu, sg)):
+        d = type(draws)(*(None if t is None else (tuple(e.to(pipe.device) for e in t)
+                                                  if isinstance(t, tuple) else t.to(pipe.device))
+                          for t in (draws.eps, draws.pixels, draws.uniforms)))
+        x = {k: torch.from_numpy(v).to(pipe.device) for k, v in batch.items()}
+        loss, m, _ = pipe.stage1_loss(x, 0, d, st.sn)
+        loss.backward()
+        g = torch.cat([p.grad.double().cpu().flatten() for p in st.params.values()])
+        for p in st.params.values():
+            p.grad = None
+        pipe.stage1_train_step(st, x, draws=d)
+        out[dev] = ({k: float(v) for k, v in m.items()}, g,
+                    {k: p.detach().cpu() for k, p in st.params.items()})
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    (mc, gc, pc), (mg, gg, pg) = out["cpu"], out["cuda"]
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-3 * max(abs(mc[k]), 1e-6), (k, mg[k], mc[k])
+    assert torch.nn.functional.cosine_similarity(gg, gc, dim=0).item() >= 0.9999
+    for k, p in pc.items():
+        assert (pg[k] - p).abs().max().item() <= 1e-4 * p.abs().max().item() + 2e-3, k
+
+
+def test_occupancy_stage2_eval_hook_counts_attn_block(cuda_device, tmp_path):
+    """default_stage2_eval_hook's occupancy branch on the card: one EMA
+    latent through the fused attention block exactly (blocks per forward)
+    x NFE times and no other kernel, then a 32^3 mesh written as ep0.off;
+    no failure logged."""
+    import json
+
+    from ddmi_tpu_torch.core.trainer import Trainer, default_stage2_eval_hook
+    from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
+    from ddmi_tpu_torch.nn.unet import AttentionBlock
+
+    cfg = _threed_cfg("occupancy")
+    pipe = OccupancyPipeline(cfg, device=cuda_device, seed=3)
+    state = pipe.init_stage2()
+    trainer = Trainer(cfg, pipe, [], save_dir=str(tmp_path))
+    blocks = sum(isinstance(m, AttentionBlock) for m in pipe.unet.modules())
+    kernels = (nerf_mlp.nerf_mlp_fused, flash_attention.flash_attention,
+               flash_attention.flash_attention_bwd, attention.mha_vmem, inr_decode.inr_decode_fused)
+    before = [k.launches for k in kernels]
+    b0 = attn_block.fused_attention_block.launches
+    default_stage2_eval_hook(trainer, state, 0)
+    torch.cuda.synchronize()
+    assert blocks == 4
+    assert attn_block.fused_attention_block.launches - b0 == blocks * 3
+    assert [k.launches for k in kernels] == before
+    with open(tmp_path / "samples" / "ep0.off") as f:
+        assert f.readline().strip() == "OFF"
+    log = tmp_path / "train.jsonl"
+    assert not log.exists() or not [r for r in map(json.loads, open(log))
+                                     if "s2/eval_hook_failures" in r]

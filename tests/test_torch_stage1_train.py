@@ -444,11 +444,15 @@ def test_checkpoint_manager_keeps_three_and_replaces_whole_files(tmp_path):
 def test_train_stage1_on_a_tiny_dataset_with_its_eval_hook(tmp_path):
     """Trainer.train_stage1 over 2 epochs of 2 batches (the adversarial
     config): finite losses in the log, a checkpoint per epoch (the last
-    three kept), and the default eval hook's PSNR records and saved
+    three kept), and the default eval hook's PSNR records (finite: the test
+    set is at the anchor resolution, the reconstructions' size) and saved
     reconstructions."""
     import json
 
+    from ddmi_tpu_torch.data.synthetic import SyntheticImages
+
     t = _trainer(tmp_path, adversarial=True)
+    t.test_data = SyntheticImages(B, ANCHOR, length=1, seed=5)
     state = t.train_stage1(epochs=2)
     assert state.step == 4
     recs = [json.loads(line) for line in open(tmp_path / "train.jsonl")]
@@ -461,6 +465,47 @@ def test_train_stage1_on_a_tiny_dataset_with_its_eval_hook(tmp_path):
     assert sorted(os.listdir(tmp_path / "stage1")) == ["2.pt", "4.pt"]
     saved = os.listdir(tmp_path / "recon")
     assert any(f.startswith("ep0") for f in saved) and any(f.startswith("ep1") for f in saved)
+
+
+@pytest.mark.parametrize("res", [ANCHOR, RES])
+def test_image_stage1_eval_hook_psnr_matches_jax(tmp_path, res):
+    """default_stage1_eval_hook's image branch against the JAX trainer's on
+    the same test batch and the same reconstruction: where the batch is at
+    the reconstruction's size both log the same PSNR; where it is not (a
+    test batch at RES, the reconstruction at the anchor) both log NaN."""
+    import collections
+    import types
+
+    from ddmi_tpu.core.trainer import default_stage1_eval_hook as jax_hook
+    from ddmi_tpu_torch.core.trainer import default_stage1_eval_hook
+
+    class Log:
+        def __init__(self):
+            self.recs = []
+
+        def log(self, step, metrics, prefix=""):
+            self.recs.append({prefix + k: v for k, v in metrics.items()})
+
+    rng = np.random.default_rng(res)
+    batch = rng.random((4, res, res, 3)).astype(np.float32)
+    recon = rng.random((4, ANCHOR, ANCHOR, 3)).astype(np.float32)
+    jpipe = types.SimpleNamespace(reconstruct=lambda params, x: jnp.asarray(recon))
+    pipe = types.SimpleNamespace(device=torch.device("cpu"),
+                                 reconstruct=lambda x, generator=None: torch.from_numpy(recon))
+    cfg = types.SimpleNamespace(data=types.SimpleNamespace(domain="image"))
+    State = collections.namedtuple("State", "params step")
+    hooks = []
+    for hook, p, state in ((jax_hook, jpipe, State({}, jnp.int32(0))),
+                           (default_stage1_eval_hook, pipe, State({}, 0))):
+        tr = types.SimpleNamespace(cfg=cfg, pipe=p, test_data=[batch], data=None, logger=Log(),
+                                   save_dir=str(tmp_path), _save_images=lambda *a: None)
+        hook(tr, state, 0)
+        hooks.append(tr.logger.recs)
+    (ref,), (got,) = hooks
+    if res == ANCHOR:
+        assert np.isfinite(got["eval/psnr"]) and abs(got["eval/psnr"] - ref["eval/psnr"]) <= 1e-4
+    else:
+        assert np.isnan(got["eval/psnr"]) and np.isnan(ref["eval/psnr"])
 
 
 def test_port_stage1_never_imports_jax(tmp_path):
