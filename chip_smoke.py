@@ -185,7 +185,31 @@ Phases, each of which ends the run with a non-zero exit on failure:
      mesh written as ep0.off;
  34. 3D reference: one stage-1 loss and its gradients of each domain at a
      small config, amp on the GPU against fp32 on the CPU (each term within
-     5%, float64 gradient cosine >= 0.99, no launch).
+     5%, float64 gradient cosine >= 0.99, no launch);
+ 35. metric networks: InceptionV3 (FID) and I3D (FVD) on random He-normal
+     weights against the same networks on the CPU (rel err <= 1e-3), their
+     images/s at 299^2 and clips/s at 16 x 224^2, and the Chamfer matrix of
+     64 x 64 clouds of 2048 points timed (against the CPU on a corner), the
+     protocol's 1355 x 1355 extrapolated;
+ 36. FID-n at full width: configs/ldm/celebahq.yaml (bf16) samples 16
+     images at 256^2 through evals/fid.py::test_fid_n, attn_block and
+     inr_decode at exact counts, sampling, features and the host's
+     statistics timed apart; seconds per 1000 samples, FID-10k
+     extrapolated;
+ 37. the CLI at full width on srn_cars: `ddmi_tpu_torch.cli.main` trains
+     both stages for an epoch of 4 micro-steps (the checkpoints written by
+     the trainer), then gen (attn_block 2200, nerf_mlp 32), eval --exp ldm
+     (generate(n=1), the same) and eval --exp d2c-vae (PSNR of 4 scenes,
+     nerf_mlp 16), exact; and on celebahq with its stage 1 at full width
+     and the UNet cut to 2 levels of 64 channels: gen, eval --exp ldm
+     (FID-n at eval_samples 16) and eval --exp d2c-vae (rFID), attn_block
+     and inr_decode exact; views, images and eval.json on disk, finite
+     metrics;
+ 38. small configs through the CLI on the card, train -> gen -> eval in
+     both exps: video (FVD through the full I3D; attn_block, mha_vmem and
+     flash launch), occupancy (MMD / COV / 1-NNA of 3 meshes on 32^3 grids
+     in lockstep groups of 2; attn_block), NeRF (PSNR, generate; attn_block
+     and nerf_mlp).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -311,6 +335,16 @@ O2_HOOK_LAUNCHES = {"attn_block": 11 * OCC_NFE}
 # a 3D stage-1 micro-step at a small config, amp on the card against fp32 on
 # the CPU: each loss term, the float64 gradient cosine
 T3_REF_TERM_REL, T3_REF_MIN_COS = 0.05, 0.99
+# the metric networks on the card against the CPU (fp32 both, TF32 off):
+# max|err| / max|ref| of InceptionV3's pool features and logits and I3D's
+# logits (convolution algorithms sum in other orders)
+METRIC_REL_ERR = 1e-3
+# the Chamfer matrix timed at 64 x 64 clouds of 2048 points; the 3D
+# protocol's is 1355 x 1355
+CHAMFER_CLOUDS, CHAMFER_POINTS, CHAMFER_PROTOCOL = 64, 2048, 1355
+# FID-n at full width (celebahq): generated samples, in batches of the
+# config's test_batch_size; the CLI's eval_samples at celebahq
+FID_SAMPLES, CLI_EVAL_SAMPLES = 16, 16
 # the kernels of one attention block call (csrc/attn_block.cu), by profiler name
 ATTN_BLOCK_KERNELS = ("::group_norm_kernel", "::gemm_kernel<", "flash_fwd_kernel")
 KERNELS = {
@@ -3559,6 +3593,459 @@ def threed_reference_phase(torch, dev):
             raise AssertionError(f"the {domain} stage-1 step on the card disagrees with the CPU")
 
 
+# ----------------------------------------------- the CLI, generation, evals
+
+
+def cli_yaml(tmp, src, name, data=None, params=None, model=None):
+    """configs/<src> with its data block, model block and model.params
+    blocks updated (each a dict merged into the block), data.conv_config
+    made absolute and save_pth set to tmp, written as tmp/<name>; -> the
+    path.  `src` may also be a dict (a whole config)."""
+    import yaml
+
+    if isinstance(src, dict):
+        raw = json.loads(json.dumps(src))
+    else:
+        with open(os.path.join(ROOT, src)) as f:
+            raw = yaml.safe_load(f)
+    d = raw.setdefault("data", {})
+    if d.get("conv_config") and not os.path.isabs(d["conv_config"]):
+        d["conv_config"] = os.path.join(ROOT, d["conv_config"])
+    d.update({"save_pth": tmp, **(data or {})})
+    raw.setdefault("model", {}).update(model or {})
+    for block, kw in (params or {}).items():
+        raw["model"].setdefault("params", {}).setdefault(block, {}).update(kw)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def run_cli(torch, tag, exp, path, dev):
+    """ddmi_tpu_torch.cli.main on `path` with the counters at 0 just before;
+    -> (launches, seconds)."""
+    from ddmi_tpu_torch.cli.main import main as cli
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    cli(["--exp", exp, "--configs", path, "--device", str(dev)])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: v for k, v in read().items() if v}
+    log(f"[{tag}] cli --exp {exp} ({os.path.basename(path)}): {sec:.2f} s, launches {launches}")
+    return launches, sec
+
+
+def write_bytes() -> str:
+    """The bytes this process has passed to write() so far (/proc/self/io's
+    wchar: checkpoints, logs and images), for the call's write limit."""
+    try:
+        with open("/proc/self/io") as f:
+            io = dict(line.split(": ") for line in f.read().splitlines())
+        return f"{int(io['wchar']) / 2**30:.2f} GiB"
+    except (OSError, KeyError, ValueError):
+        return "not readable"
+
+
+def generated(tmp, prefix):
+    """The files under tmp whose names start with prefix (PNGs, or .npy
+    without PIL)."""
+    out = []
+    for dp, _, fs in os.walk(tmp):
+        out += [os.path.relpath(os.path.join(dp, f), tmp) for f in fs
+                if os.path.relpath(os.path.join(dp, f), tmp).startswith(prefix)]
+    return sorted(out)
+
+
+def eval_json(tmp):
+    with open(os.path.join(tmp, "eval.json")) as f:
+        return json.load(f)
+
+
+def metric_nets_phase(torch, dev):
+    """InceptionV3 and I3D (random He-normal weights, seed 0; no weight file
+    is in the repository) on the card against the same networks on the
+    CPU, fp32 both, TF32 off; their throughput; the Chamfer matrix of 64 x
+    64 clouds of 2048 points on the card against the CPU's on a corner,
+    timed, with the protocol's 1355 x 1355 extrapolated.  -> a dict of the
+    numbers."""
+    from ddmi_tpu_torch.evals.i3d import I3D
+    from ddmi_tpu_torch.evals.inception import InceptionV3
+    from ddmi_tpu_torch.evals.metrics_3d import chamfer_matrix
+
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-12))
+    out = {}
+    g = torch.Generator().manual_seed(35)
+    with torch.random.fork_rng(devices=[]), torch.inference_mode():
+        torch.manual_seed(0)
+        net = InceptionV3()
+        x = torch.rand((2, 256, 256, 3), generator=g)
+        ref = net(x)
+        net.to(dev)
+        got = net(x.to(dev))
+        errs = [rel(a, b) for a, b in zip(got, ref)]
+        xb = torch.rand((64, 299, 299, 3), generator=g).to(dev)
+        ms = cuda_ms(lambda: net(xb), 5)
+        x256 = torch.rand((64, 256, 256, 3), generator=g).to(dev)
+        ms256 = cuda_ms(lambda: net(x256), 5)
+    log(f"[metrics] InceptionV3 (FID) on the card against the CPU: pool rel err {errs[0]:.2e}, "
+        f"logits {errs[1]:.2e} (bar {METRIC_REL_ERR}); {64e3 / ms:.1f} images/s at 299^2 "
+        f"(batch 64, {ms:.2f} ms), {64e3 / ms256:.1f} images/s from 256^2 with the resize on the "
+        f"card; fp32, TF32 off, on {nvidia_smi()}")
+    if max(errs) > METRIC_REL_ERR:
+        raise AssertionError(f"InceptionV3 on the card disagrees with the CPU: {errs}")
+    out["inception_images_per_s"], out["inception_images_per_s_256"] = 64e3 / ms, 64e3 / ms256
+    del net, xb, x256
+    with torch.random.fork_rng(devices=[]), torch.inference_mode():
+        torch.manual_seed(0)
+        net = I3D()
+        v = torch.rand((1, 16, 224, 224, 3), generator=g) * 2 - 1
+        ref = net(v)
+        net.to(dev)
+        err = rel(net(v.to(dev)), ref)
+        vb = (torch.rand((8, 16, 224, 224, 3), generator=g) * 2 - 1).to(dev)
+        ms = cuda_ms(lambda: net(vb), 5)
+    log(f"[metrics] I3D (FVD) on the card against the CPU: logits rel err {err:.2e} (bar "
+        f"{METRIC_REL_ERR}); {8e3 / ms:.2f} clips/s at 16 x 224^2 (batch 8, {ms:.2f} ms); fp32, "
+        f"TF32 off")
+    if err > METRIC_REL_ERR:
+        raise AssertionError(f"I3D on the card disagrees with the CPU: {err}")
+    out["i3d_clips_per_s"] = 8e3 / ms
+    del net, vb
+    rng = torch.Generator().manual_seed(36)
+    a = torch.rand((CHAMFER_CLOUDS, CHAMFER_POINTS, 3), generator=rng).numpy()
+    b = torch.rand((CHAMFER_CLOUDS, CHAMFER_POINTS, 3), generator=rng).numpy()
+    chamfer_matrix(a[:2], b[:2], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = chamfer_matrix(a, b, device=dev)
+    sec = time.perf_counter() - t0
+    ref = chamfer_matrix(a[:3, :512], b[:3, :512], device="cpu")
+    err = float(abs(chamfer_matrix(a[:3, :512], b[:3, :512], device=dev) - ref).max()
+                / abs(ref).max())
+    scale = (CHAMFER_PROTOCOL / CHAMFER_CLOUDS) ** 2
+    log(f"[metrics] chamfer_matrix {CHAMFER_CLOUDS} x {CHAMFER_CLOUDS} clouds of "
+        f"{CHAMFER_POINTS} points on the card: {sec:.3f} s ({1e3 * sec / d.size:.3f} ms a pair); "
+        f"the protocol's {CHAMFER_PROTOCOL} x {CHAMFER_PROTOCOL} extrapolated {sec * scale:.1f} s "
+        f"a matrix, {3 * sec * scale:.1f} s for MMD / COV / 1-NNA's three; against the CPU on a "
+        f"3 x 3 corner of 512 points: rel err {err:.2e}")
+    if not np_finite(d) or err > 1e-5:
+        raise AssertionError(f"chamfer_matrix on the card: finite {np_finite(d)}, err {err}")
+    out["chamfer_s"], out["chamfer_protocol_s"] = sec, 3 * sec * scale
+    return out
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+
+    return bool(np.isfinite(a).all())
+
+
+def fid_timing_phase(torch, dev, nets):
+    """FID-n at full width: configs/ldm/celebahq.yaml's pipeline (bf16 on the
+    card, seeded weights, zero-init layers perturbed) samples
+    FID_SAMPLES images at 256^2 through evals/fid.py::test_fid_n, batches of
+    test_batch_size, with the counters exact (attn_block 16 per forward at
+    the config's NFE, inr_decode one per batch); sampling, features and the
+    statistics with the square root timed apart; seconds per 1000 samples
+    and FID-10k extrapolated.  -> the launches."""
+    import numpy as np
+
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+    from ddmi_tpu_torch.evals import fid as fid_mod
+    from ddmi_tpu_torch.evals.inception import InceptionV3
+
+    cfg = load_config(os.path.join(ROOT, "configs/ldm/celebahq.yaml"))
+    nfe, bs = cfg.model.ddpmconfig.sampling_timesteps, cfg.data.test_batch_size
+    pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
+    perturb_zero_init(pipe, 37)
+    pipe.cast(torch.bfloat16)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        scorer = fid_mod.FIDScorer(InceptionV3(), device=dev)
+    t = {"sample": 0.0, "features": 0.0}
+
+    def timed(key, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            t[key] += time.perf_counter() - t0
+            return r
+        return run
+
+    scorer.features = timed("features", scorer.features)
+    reals = [np.random.default_rng(i).random((bs, 256, 256, 3), np.float32) for i in range(3)]
+    read = reset_launches()
+    t0 = time.perf_counter()
+    fid = fid_mod.test_fid_n(
+        scorer, timed("sample", lambda g: pipe.sample_images(bs, resolution=256, generator=g)),
+        reals, n_samples=FID_SAMPLES, batch=bs,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    total = time.perf_counter() - t0
+    launches = {k: v for k, v in read().items() if v}
+    calls = -(-FID_SAMPLES // bs)
+    expect = {"attn_block": 16 * nfe * calls, "inr_decode": calls}
+    n = calls * bs
+    stats = total - t["sample"] - t["features"]
+    per_k = {"sampling": 1e3 * t["sample"] / n,
+             "features": 1e3 * t["features"] / (n + 3 * bs)}
+    log(f"[fid] FID-{n} at full width (celebahq, NFE {nfe}, batches of {bs} at 256^2): FID "
+        f"{fid:.4g} (random weights); {total:.2f} s = sampling {t['sample']:.2f} + features "
+        f"{t['features']:.2f} (of {n} generated and {3 * bs} real) + statistics and the 2048^2 "
+        f"square root on the host {stats:.2f}; per 1000 samples: sampling "
+        f"{per_k['sampling']:.1f} s, features {per_k['features']:.2f} s; FID-10k extrapolated "
+        f"{10 * (per_k['sampling'] + per_k['features']) + stats:.0f} s (the real set's features "
+        f"and a precomputed-statistics file not counted); launches {launches} (expected "
+        f"{expect}); on {nvidia_smi()}")
+    if launches != expect or not math.isfinite(fid):
+        raise AssertionError(f"FID-n at full width: launches {launches}, FID {fid}")
+    nets.update(fid_sampling_s_per_1000=per_k["sampling"],
+                fid_features_s_per_1000=per_k["features"], fid_host_s=stats)
+    return launches
+
+
+def cli_nerf_phase(torch, dev, tmp):
+    """The CLI at full width on srn_cars (configs/ldm/srn_cars.yaml for
+    every mode; synthetic scenes with 128^2 views; random weights): stage
+    1 and stage 2 trained for one epoch of 4 micro-steps each through
+    `cli.main` (their checkpoints written by the trainer, the stage-2
+    state 3.36 GiB), then gen (one scene, 8 views at 128^2: attn_block
+    11 x NFE 200 and nerf_mlp 8 x 4 chunks, exact), eval --exp ldm
+    (generate(n=1): the same counts) and eval --exp d2c-vae (PSNR of one
+    view of each of 4 scenes: nerf_mlp 4 x 4); views on disk, a finite
+    PSNR.  -> the gen and eval launches."""
+    src = "configs/ldm/srn_cars.yaml"
+    data = {"dataset": "synthetic", "test_resolution": 128, "mode": "train"}
+    lc = {"epochs": 1, "warmup_epochs": 0, "save_and_sample_every": 1}
+    total = collections.Counter()
+    for exp in ("d2c-vae", "ldm"):
+        run_cli(torch, "cli-nerf", exp, cli_yaml(tmp, src, f"train_{exp}.yaml", data,
+                                                 {"lossconfig": lc}), dev)
+        torch.cuda.empty_cache()
+    sizes = {p: os.path.getsize(os.path.join(tmp, p, f)) / 2**30
+             for p in ("stage1", "stage2") for f in os.listdir(os.path.join(tmp, p))}
+    log(f"[cli-nerf] checkpoints written by the trainer: {', '.join(f'{k} {v:.2f} GiB' for k, v in sizes.items())}; "
+        f"this process has written {write_bytes()} so far")
+    per_scene = {"attn_block": NERF_LAUNCHES["attn_block"], "nerf_mlp": NERF_VIEWS * (NERF_RES ** 2 // 4096)}
+    for mode, exp, expect in (("gen", "ldm", per_scene), ("eval", "ldm", per_scene),
+                              ("eval", "d2c-vae", {"nerf_mlp": 4 * (128 ** 2 // 4096)})):
+        path = cli_yaml(tmp, src, f"{mode}_{exp}.yaml", {**data, "mode": mode},
+                        {"lossconfig": lc})
+        launches, _ = run_cli(torch, "cli-nerf", exp, path, dev)
+        if launches != expect:
+            raise AssertionError(f"cli {mode} --exp {exp} on srn_cars: launches {launches}, "
+                                 f"expected {expect}")
+        total.update(launches)
+        torch.cuda.empty_cache()
+        if mode == "eval":
+            res = eval_json(tmp)
+            log(f"[cli-nerf] eval --exp {exp}: {res}")
+            key = "generated" if exp == "ldm" else "psnr"
+            if not math.isfinite(res.get(key, float("nan"))):
+                raise AssertionError(f"eval --exp {exp} on srn_cars wrote {res}")
+    views = generated(tmp, os.path.join("generation", "nerf_0"))
+    log(f"[cli-nerf] gen wrote {len(views)} file(s): {views[:3]}...")
+    if len(views) not in (1, NERF_VIEWS):  # one .npy without PIL, else a PNG a view
+        raise AssertionError(f"gen on srn_cars wrote {views}")
+    return dict(total)
+
+
+def cli_image_phase(torch, dev, tmp):
+    """The CLI on celebahq with its stage 1 (VAE and INR) at full width and
+    the UNet cut to 2 levels of 64 channels (the full state is 18 GB a
+    checkpoint, which the call's disk budget leaves no room to write
+    twice): a stage-1 and a stage-2 checkpoint written by the trainer (one
+    micro-step each on synthetic images), then gen (test_batch_size 6 at
+    test_resolution 512^2), eval --exp ldm (FID-n at eval_samples 16) and
+    eval --exp d2c-vae (rFID of reconstructions), each with exact counts:
+    attn_block once per fused block per forward, inr_decode once per
+    sample or reconstruct call.  -> the launches."""
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.data.synthetic import SyntheticImages
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+
+    cut = {"model_channels": 64, "channel_mult": [1, 2], "attention_resolutions": [2],
+           "num_res_blocks": 1}
+    extra = {"eval_samples": CLI_EVAL_SAMPLES, "steps_per_epoch": 1}
+    data = {"dataset": "synthetic", "mode": "train", "extra": extra}
+    params = {"unetconfig": cut,
+              "lossconfig": {"epochs": 1, "warmup_epochs": 0, "save_and_sample_every": 1}}
+    path = cli_yaml(tmp, "configs/ldm/celebahq.yaml", "train.yaml", data, params)
+    cfg = load_config(path, exp="ldm")
+    pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
+    perturb_zero_init(pipe, 38)
+    Trainer(cfg, pipe, Items(SyntheticImages(2, 512, length=1, seed=3))).train_stage1()
+    Trainer(cfg, pipe, Items(SyntheticImages(2, 256, length=1, seed=4))).train_stage2()
+    nfe, bs = cfg.model.ddpmconfig.sampling_timesteps, cfg.data.test_batch_size
+    r, c = cfg.model.unetconfig.image_size, cfg.model.ddpmconfig.channels
+    x = torch.zeros((1, c, r, r), device=dev)
+    _, fused, blocks = count_attention_blocks(torch, pipe.unet.to(torch.bfloat16), x,
+                                              torch.zeros((1,), device=dev, dtype=torch.long))
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"[cli-image] celebahq, UNet cut to {cut}: {fused} fused attention blocks a forward "
+        f"({blocks} in the tree); stage-1 and stage-2 checkpoints written; this process has "
+        f"written {write_bytes()} so far")
+    if not fused or fused != blocks:
+        raise AssertionError(f"the cut UNet has {blocks} attention blocks, {fused} fused")
+    fid_calls = -(-CLI_EVAL_SAMPLES // bs)
+    rfid_calls = max(1, CLI_EVAL_SAMPLES // cfg.data.batch_size)
+    total = collections.Counter()
+    for mode, exp, expect in (
+            ("gen", "ldm", {"attn_block": fused * nfe, "inr_decode": 1}),
+            ("eval", "ldm", {"attn_block": fused * nfe * fid_calls, "inr_decode": fid_calls}),
+            ("eval", "d2c-vae", {"inr_decode": rfid_calls})):
+        path = cli_yaml(tmp, "configs/ldm/celebahq.yaml", f"{mode}_{exp}.yaml",
+                        {**data, "mode": mode}, params)
+        launches, _ = run_cli(torch, "cli-image", exp, path, dev)
+        if launches != expect:
+            raise AssertionError(f"cli {mode} --exp {exp} on celebahq: launches {launches}, "
+                                 f"expected {expect}")
+        total.update(launches)
+        torch.cuda.empty_cache()
+        if mode == "eval":
+            res = eval_json(tmp)
+            key = "fid" if exp == "ldm" else "rfid"
+            log(f"[cli-image] eval --exp {exp}: {res}")
+            if not math.isfinite(res.get(key, float("nan"))):
+                raise AssertionError(f"eval --exp {exp} on celebahq wrote {res}")
+    imgs = generated(tmp, "generation")
+    log(f"[cli-image] gen wrote {imgs}")
+    if not (imgs == ["generation.npy"] or len(imgs) == bs):
+        raise AssertionError(f"gen on celebahq wrote {imgs}")
+    return dict(total)
+
+
+def cli_small_configs():
+    """Small configs of video (16 frames at 64^2, so that the I3D takes the
+    clips), occupancy (a 32^3 grid without MISE refinement, through a
+    convocc file written beside it) and NeRF (a width-256 MLP, which the
+    kernel takes), amp on, synthetic data."""
+    lc = {"epochs": 1, "warmup_epochs": 0, "save_and_sample_every": 1,
+          "gradient_accumulate_every": 1, "multiscale": False}
+    ddpm = {"timesteps": 20, "sampling_timesteps": 4, "mixed_init": -6.0}
+    # 128 channels at the attention level: the fused block's predicate
+    unet = {"model_channels": 64, "num_res_blocks": 1, "attention_resolutions": [2],
+            "channel_mult": [1, 2], "num_head_channels": 16}
+    base = {"amp": True, "use_fp16": True, "lr": 1e-4, "embed_dim": 8}
+    # the video reference's widths (phase 9: attn_block, mha_vmem and flash
+    # all on the sampling path) at 16 frames of 64^2
+    video = {"model": {**base, "embed_dim": 16, "params": {
+        "lossconfig": lc, "ddpmconfig": {**ddpm, "channels": 16},
+        "unetconfig": dict(triplane=True, in_channels=16, model_channels=256, out_channels=16,
+                           num_res_blocks=1, attention_resolutions=[2], channel_mult=[1, 2],
+                           num_head_channels=64),
+        "ddconfig": dict(double_z=True, timesformer_channels=64, patch_size=8, splits=1,
+                         resolution=64, z_channels=32, in_channels=3, out_ch=16, ch=32,
+                         ch_mult=[1, 1, 2, 2], num_res_blocks=1, attn_resolutions=[],
+                         hdbf_resolutions=[16, 32], inter_attn_resolutions=[8, 32, 64],
+                         attn_type="vanilla-multihead"),
+        "mlpconfig": dict(in_ch=3, out_ch=3, ch=256, latent_dim=16)}},
+        "data": {"domain": "video", "frames": 16, "batch_size": 1, "test_batch_size": 1,
+                 "test_resolution": 64}}
+    dd3 = dict(double_z=True, z_channels=32, in_channels=8, out_ch=8, ch=32, num_res_blocks=1,
+               attn_resolutions=[], attn_type="vanilla")
+    threed = lambda domain, dd, mlp, pn: {"model": {**base, "pointnet": pn, "params": {
+        "lossconfig": lc, "ddconfig": {**dd3, **dd}, "mlpconfig": mlp,
+        "unetconfig": {**unet, "image_size": 8, "in_channels": 24, "out_channels": 24},
+        "ddpmconfig": {**ddpm, "image_size": 8, "channels": 24}}},
+        "data": {"domain": domain, "batch_size": 2, "test_batch_size": 2, "test_resolution": 32}}
+    occ = threed("occupancy", dict(resolution=32, ch_mult=[1, 2, 4], hdbf_resolutions=[8, 16],
+                                   inter_attn_resolutions=[32, 16]),
+                 dict(in_ch=3, out_ch=1, ch=64, latent_dim=8),
+                 {"c_dim": 8, "hidden_dim": 32, "plane_resolution": 32, "n_blocks": 3})
+    nerf = threed("nerf", dict(resolution=16, ch_mult=[1, 2], hdbf_resolutions=[],
+                               inter_attn_resolutions=[16]),
+                  dict(in_ch=3, out_ch=4, ch=64, latent_dim=8, D=6, W=256, skips=[2, 4],
+                       multires=4, multires_views=2, N_samples=32, N_rand=256),
+                  {"c_dim": 8, "hidden_dim": 32, "plane_resolution": 16, "n_blocks": 3})
+    nerf["data"].update(batch_size=1, test_batch_size=1)
+    return {"video": video, "occupancy": occ, "nerf": nerf}
+
+
+SMALL_CONVOCC = {"model": {"c_dim": 8, "encoder_kwargs": {
+    "hidden_dim": 32, "plane_resolution": 32, "n_blocks": 3}},
+    "generation": {"resolution_0": 32, "upsampling_steps": 0}, "test": {"threshold": 0.2}}
+
+
+def cli_small_phase(torch, dev, tmp):
+    """Video, occupancy and NeRF at small configs through `cli.main` on the
+    card: train (both stages), gen, eval --exp d2c-vae, eval --exp ldm.
+    Video: PSNR, then FVD through the full I3D (2 generated clips against
+    2 real ones); occupancy: the IoU, then MMD / COV / 1-NNA of 3 meshes
+    on 32^3 grids in lockstep groups of 2 (the last padded; INR3D's
+    output bias is shifted once, in the stage-1 checkpoint, so that 5% of
+    a sampled field lies inside); NeRF: PSNR, then generate.  Each path's
+    kernels must launch: attn_block in every domain's UNet, mha_vmem and
+    flash_attention in video's, nerf_mlp in NeRF's render.  -> the
+    launches of gen and eval."""
+    import yaml
+
+    from ddmi_tpu_torch.cli.main import build_dataset, build_pipeline
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.core.trainer import Trainer, sampling_weights
+
+    cfgs = cli_small_configs()
+    conv = os.path.join(tmp, "convocc_small.yaml")
+    with open(conv, "w") as f:
+        yaml.safe_dump(SMALL_CONVOCC, f)
+    cfgs["occupancy"]["data"]["conv_config"] = conv
+    needs = {"video": {"attn_block", "mha_vmem", "flash_attention"},
+             "occupancy": {"attn_block"}, "nerf": {"attn_block", "nerf_mlp"}}
+    evals = {"video": ({"eval_samples": 8, "fvd_samples": 2}, "psnr", "fvd"),
+             "occupancy": ({"eval_samples": 3, "mesh_batch": 2}, "iou", "mmd"),
+             "nerf": ({"eval_samples": 2}, "psnr", "generated")}
+    total = collections.Counter()
+    for domain, src in cfgs.items():
+        sub = os.path.join(tmp, domain)
+        os.makedirs(sub)
+        extra, key1, key2 = evals[domain]
+        t0 = time.perf_counter()
+        for exp in ("d2c-vae", "ldm"):
+            run_cli(torch, f"cli-{domain}", exp, cli_yaml(
+                sub, src, f"train_{exp}.yaml", {"dataset": "synthetic", "mode": "train"}), dev)
+        if domain == "occupancy":
+            path = cli_yaml(sub, src, "shift.yaml", {"dataset": "synthetic", "mode": "gen"})
+            cfg = load_config(path, exp="ldm")
+            tr = Trainer(cfg, build_pipeline(cfg, dev), build_dataset(cfg, train=False))
+            tr.load_stage1()
+            with sampling_weights(tr.pipe, tr.load_stage2()), torch.no_grad():
+                z = tr.pipe.sample_latents(1, generator=torch.Generator(device=dev).manual_seed(0))
+                shift = recentre_field(torch, tr.pipe, z)
+            ck = os.path.join(sub, "stage1", os.listdir(os.path.join(sub, "stage1"))[0])
+            saved = torch.load(ck, map_location="cpu", weights_only=True)
+            params = saved["state"]["params"]
+            params["mlp.net_out.bias"] = params["mlp.net_out.bias"].detach() + shift
+            torch.save(saved, ck)
+            log(f"[cli-occupancy] INR3D's output bias shifted by {shift:.3f} in {ck}")
+            del tr
+        for mode, exp in (("gen", "ldm"), ("eval", "d2c-vae"), ("eval", "ldm")):
+            path = cli_yaml(sub, src, f"{mode}_{exp}.yaml",
+                            {"dataset": "synthetic", "mode": mode, "extra": extra})
+            launches, _ = run_cli(torch, f"cli-{domain}", exp, path, dev)
+            total.update(launches)
+            if exp == "ldm" and not needs[domain] <= set(launches):
+                raise AssertionError(f"cli {mode} --exp ldm on {domain} launched {launches}, "
+                                     f"not all of {sorted(needs[domain])}")
+            if mode == "eval":
+                res = eval_json(sub)
+                key = key1 if exp == "d2c-vae" else key2
+                log(f"[cli-{domain}] eval --exp {exp}: {res}")
+                if not math.isfinite(res.get(key, float("nan"))):
+                    raise AssertionError(f"eval --exp {exp} on {domain} wrote {res}")
+        out = generated(sub, "generation")
+        log(f"[cli-{domain}] gen wrote {len(out)} file(s) ({out[:2]}...); train -> gen -> eval "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not out:
+            raise AssertionError(f"gen on {domain} wrote nothing")
+        torch.cuda.empty_cache()
+    return dict(total)
+
+
 def build_report(name, ptxas) -> None:
     """Registers, spills and dynamic shared memory of each kernel of a
     library built in this run, from the ptxas report and the libraries' own
@@ -3727,9 +4214,28 @@ def main() -> int:
     finally:
         shutil.rmtree(ttmp, ignore_errors=True)
 
+    nets = metric_nets_phase(torch, dev)
+    torch.cuda.empty_cache()
+    fid_n = fid_timing_phase(torch, dev, nets)
+    torch.cuda.empty_cache()
+    ctmp = tempfile.mkdtemp(prefix="cli_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        cli = collections.Counter(fid_n)
+        for fn in (cli_nerf_phase, cli_image_phase, cli_small_phase):
+            sub = os.path.join(ctmp, fn.__name__)
+            os.makedirs(sub)
+            cli.update(fn(torch, dev, sub))
+            shutil.rmtree(sub, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ctmp, ignore_errors=True)
+    log(f"[cli] launches of FID-n at full width and the CLI's gen and eval runs: {dict(cli)}; "
+        f"metric networks {json.dumps(nets)}; this process wrote {write_bytes()} in all")
+
     kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]
                             + occ[name] + recon[name] + vtrain1[name] + vrecon[name]
-                            + vtrain2[name] + o2_hook.get(name, 0)) for name in KERNELS]
+                            + vtrain2[name] + o2_hook.get(name, 0) + cli.get(name, 0))
+               for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -144,6 +144,7 @@ class DDPMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     DiT: bool = False
+    resume: bool = False  # the CLI's train mode continues from the newest checkpoint
     amp: bool = True   # stage-2 training: bf16 compute, fp32 master parameters
     lr: float = 1e-4
     embed_dim: int = 64
@@ -157,12 +158,18 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    domain: str = "image"
+    domain: str = "image"  # image | video | occupancy | nerf
+    mode: str = "train"  # the CLI's mode: train | eval | gen
+    data_dir: str = "./train_data"
+    test_data_dir: str = "./test_data"
+    save_pth: str = "./save"  # checkpoints, logs and eval images
     batch_size: int = 8
+    test_batch_size: int = 8
     test_resolution: int = 256
     frames: int = 16
     conv_config: Optional[str] = None  # nested convocc YAML (NeRF render kwargs)
-    save_pth: str = "./save"  # checkpoints, logs and eval images
+    dataset: str = "folder"  # folder | synthetic | shapenet | srncars | sky | ucf101
+    num_workers: int = 4
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -179,6 +186,7 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class Config:
+    exp: str = "d2c-vae"  # d2c-vae (stage 1) | ldm (stage 2)
     seed: int = 42
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -207,8 +215,12 @@ def config_from_dict(d: Dict[str, Any]) -> Config:
     return Config(**out)
 
 
-def load_config(path: str) -> Config:
-    """Load a YAML config (the JAX package's schema) into a Config."""
+def load_config(path: str, **overrides: Any) -> Config:
+    """Load a YAML config (the JAX package's schema) into a Config; the
+    top-level keys in `overrides` (the CLI's `exp` and `seed`) replace the
+    file's."""
     with open(path) as f:
-        return config_from_dict(yaml.safe_load(f))
+        raw = yaml.safe_load(f)
+    raw.update(overrides)
+    return config_from_dict(raw)
 

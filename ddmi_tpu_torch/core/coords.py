@@ -32,9 +32,9 @@ def _triangle_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     antialias (jax/_src/image/scale.py::compute_weight_mat): a triangle
     kernel widened by the downscale factor, each output's weights
     normalised to sum 1."""
-    scale = n_out / n_in
-    kernel_scale = max(1.0 / scale, 1.0)
-    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) / scale - 0.5
+    inv_scale = 1.0 / (n_out / n_in)  # in jax's order: the sample positions by a product
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
     x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None])
     w = torch.clamp(1.0 - x.abs() / kernel_scale, min=0.0)
     total = w.sum(0, keepdim=True)
@@ -45,16 +45,27 @@ def _triangle_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     return (w * inside[None, :]).t()
 
 
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """Resize channels-last images (..., H, W, C) to size = (h, w), the
+    function of jax.image.resize(x, (..., h, w, C), "bilinear"): a triangle
+    kernel, widened by the ratio where an axis shrinks (jax's antialias,
+    which torch's interpolate does not compute), each axis contracted on
+    its own, in H then W order; an axis already at its size is left as it
+    is."""
+    h, w = size
+    *lead, H, W, C = x.shape
+    if H != h:
+        x = torch.einsum("oh,...hwc->...owc", _triangle_weights(H, h, x.device).to(x.dtype), x)
+    if W != w:
+        x = torch.einsum("pw,...hwc->...hpc", _triangle_weights(W, w, x.device).to(x.dtype), x)
+    return x
+
+
 def resize_antialias(x: torch.Tensor, size: int) -> torch.Tensor:
     """Area-correct antialiased resize of NHWC images to (size, size), the
     function of jax.image.resize(..., "linear", antialias=True); the
     identity at that size."""
-    B, H, W, C = x.shape
-    if H == size and W == size:
-        return x
-    wh = _triangle_weights(H, size, x.device).to(x.dtype)
-    ww = _triangle_weights(W, size, x.device).to(x.dtype)
-    return torch.einsum("oh,bhwc,pw->bopc", wh, x, ww)
+    return resize_bilinear(x, (size, size))
 
 
 def pixel_center_grid(n: int, device=None) -> torch.Tensor:

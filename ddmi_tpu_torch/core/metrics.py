@@ -1,7 +1,8 @@
-"""Metrics logging (counterpart of ddmi_tpu/core/metrics.py::MetricsLogger):
-a JSONL stream and stdout lines.  Device values are deferred and read back
-once per flushed chunk, so the training loop does not wait on the card
-every step."""
+"""Metrics logging and the profiler hook (counterpart of
+ddmi_tpu/core/metrics.py): a JSONL stream and stdout lines, whose device
+values are deferred and read back once per flushed chunk, so the training
+loop does not wait on the card every step; and a torch.profiler trace of a
+window of steps, written as a Chrome trace."""
 
 from __future__ import annotations
 
@@ -65,3 +66,47 @@ class MetricsLogger:
 
     def close(self):
         self._f.close()
+
+
+class ProfilerHook:
+    """A torch.profiler trace of the steps after `start_step` up to
+    `start_step + num_steps`: `step(n)` after micro-step n starts the
+    profile at n = start_step and stops it at n >= start_step + num_steps,
+    then writes `<logdir>/trace_<start>_<stop>.json` (a Chrome trace, which
+    chrome://tracing and Perfetto read) and keeps its path in `path`.  The
+    profile records the host and, where a card is present, the card's
+    kernels; `close()` stops and writes a profile the run ended inside."""
+
+    def __init__(self, logdir: str, start_step: int = 10, num_steps: int = 3):
+        self.logdir = logdir
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self.path: Optional[str] = None
+        self._prof = None
+        self._started = 0
+
+    def step(self, step: int) -> None:
+        if step == self.start_step and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self._started = step
+        elif step >= self.stop_step and self._prof is not None:
+            self._stop(step)
+
+    def _stop(self, step: int) -> None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._prof.stop()
+        os.makedirs(self.logdir, exist_ok=True)
+        self.path = os.path.join(self.logdir, f"trace_{self._started}_{step}.json")
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
+
+    def close(self, step: int) -> None:
+        if self._prof is not None:
+            self._stop(step)

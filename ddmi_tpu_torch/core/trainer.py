@@ -1,5 +1,6 @@
-"""Training loop on one device (counterpart of ddmi_tpu/core/trainer.py:
-stage 1, stage 2, checkpoints, resume and the stage-1 eval hook).
+"""Training, generation and evaluation on one device (counterpart of
+ddmi_tpu/core/trainer.py: stage 1, stage 2, checkpoints, resume, the eval
+hooks, `generate`, `evaluate` and the profiler window).
 
 Feeds host batches through a prefetch thread, runs the pipeline's train
 step, logs metrics deferred (one device read per chunk), and guards against
@@ -15,12 +16,19 @@ The eval hooks run after each save: stage 1 reconstructs and logs PSNR
 (image and video) or the IoU of one shape's query points (occupancy); stage
 2 samples with the EMA weights and saves the samples (image and video) or
 one mesh as `.off` (occupancy).  The NeRF branches do nothing, as in the
-JAX trainer.
+JAX trainer.  `generate` (the CLI's gen mode) samples with the EMA weights
+of the newest checkpoints and writes the samples under
+<save_dir>/generation; `evaluate` (its eval mode) runs each domain's
+protocol (rFID, PSNR, IoU; FID, FVD, MMD / COV / 1-NNA), writes
+<save_dir>/eval.json and checks the quality gates.  On the card both run
+every model of the pipeline in bf16, as the sampling service does, so
+that the sampling paths go through the port's kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import math
 import os
 import queue
@@ -33,7 +41,7 @@ import numpy as np
 import torch
 
 from ddmi_tpu_torch.core.checkpoint import CheckpointManager
-from ddmi_tpu_torch.core.metrics import MetricsLogger
+from ddmi_tpu_torch.core.metrics import MetricsLogger, ProfilerHook
 
 
 class NaNLossError(RuntimeError):
@@ -69,6 +77,8 @@ class Trainer:
         self.logger = MetricsLogger(self.save_dir)
         # checking every step would wait on the card every step
         self.nan_check_every = int(cfg.data.extra.get("nan_check_every", 50))
+        self.profile_steps = int(cfg.data.extra.get("profile_steps", 0))
+        self._profiler: Optional[ProfilerHook] = None
         mesh = cfg.mesh
         if mesh.data not in (-1, 1) or mesh.fsdp != 1 or mesh.model != 1:
             warnings.warn(
@@ -135,6 +145,20 @@ class Trainer:
             if loss is not None and not math.isfinite(loss):
                 raise NaNLossError(f"non-finite loss at step {step}: {loss}")
 
+    def _maybe_profile(self, step: int) -> None:
+        """With data.extra.profile_steps > 0, a torch.profiler trace of the
+        micro-steps after step 2 up to step 2 + profile_steps, written
+        under <save_dir>/profile (core/metrics.py::ProfilerHook); once per
+        trainer."""
+        if self.profile_steps <= 0:
+            return
+        if self._profiler is None:
+            self._profiler = ProfilerHook(os.path.join(self.save_dir, "profile"), 2,
+                                          self.profile_steps)
+        self._profiler.step(step)
+        if step >= 2 + self.profile_steps:
+            self.profile_steps = 0
+
     def _maybe_resume(self, ckpt: CheckpointManager, resumable: _Resumable, resume: bool,
                       tag: str) -> None:
         if resume and ckpt.latest_step() is not None:
@@ -152,11 +176,14 @@ class Trainer:
                 state, metrics = step_fn(state, self._put_batch(batch))
                 step += 1
                 self._log_step(step, metrics, prefix)
+                self._maybe_profile(step)
             self.logger.flush()
             if save and (epoch % save_every == 0 or epoch == epochs - 1):
                 ckpt.save(state.step, resumable, overwrite=True)
                 if eval_hook is not None:
                     eval_hook(self, state, epoch)
+        if self._profiler is not None:
+            self._profiler.close(step)
         return state
 
     def train_stage1(self, epochs: Optional[int] = None, eval_hook: Optional[Callable] = None,
@@ -225,6 +252,326 @@ class Trainer:
         step_fn = lambda s, x: self.pipe.stage2_train_step(s, x, generator=gen)
         return self._epochs(state, resumable, ckpt, step_fn, epochs, "s2/",
                             default_stage2_eval_hook if eval_hook is None else eval_hook, save)
+
+    def load_stage1_params(self) -> dict:
+        """The stage-1 modules of the newest stage-1 checkpoint, loaded into
+        the pipeline; -> their parameters by name (`pipe.stage1_params()`),
+        the frozen weights alone: no optimizer or spectral-norm state stays
+        on the card."""
+        self.load_stage1()
+        return self.pipe.stage1_params()
+
+    def load_stage2(self):
+        """The newest stage-2 checkpoint restored whole into a fresh state
+        (`pipe.init_stage2()`: the UNet and mixing logit, their EMA and the
+        optimizer), as the JAX trainer restores it; -> the Stage2State."""
+        state = self.pipe.init_stage2()
+        saved = CheckpointManager(self.save_dir, prefix="stage2").restore()
+        state.load_state_dict(saved["state"])
+        return state
+
+    @torch.no_grad()
+    def generate(self, n: Optional[int] = None, resolution: Optional[int] = None):
+        """The CLI's gen mode: sample n (data.test_batch_size when None) with
+        the EMA weights of the newest stage-2 checkpoint and the stage-1
+        modules of the newest stage-1 one, from a generator on the
+        pipeline's device seeded cfg.seed, and save under <save_dir>:
+        image, `generation_<i>.png` at `resolution` (data.test_resolution
+        when None); video, each clip's frames as `generation/video_<i>_<f>`;
+        occupancy, `generation/mesh_<i>.off`, the meshes extracted in one
+        lockstep group (refined when the convocc config asks for it);
+        NeRF, each scene's 8 views on the spherical path at `resolution`^2
+        (128 when None) as `generation/nerf_<i>_<v>`.  Images are PNGs, or
+        one `.npy` per prefix without PIL.  -> the samples (numpy), or the
+        meshes."""
+        self.load_stage1()
+        state = self.load_stage2()
+        pipe, cfg = self.pipe, self.cfg
+        n = n or cfg.data.test_batch_size
+        g = torch.Generator(device=pipe.device).manual_seed(cfg.seed)
+        out_dir = os.path.join(self.save_dir, "generation")
+        domain = cfg.data.domain
+        with sampling_weights(pipe, state):
+            if domain == "image":
+                res = resolution or cfg.data.test_resolution
+                out = pipe.sample_images(n, resolution=res, generator=g).cpu().numpy()
+                self._save_images(out, out_dir)
+                return out
+            if domain == "video":
+                out = pipe.sample_videos(n, generator=g).cpu().numpy()
+                for i, vid in enumerate(out):
+                    self._save_images(vid, os.path.join(out_dir, f"video_{i}"))
+                return out
+            if domain == "occupancy":
+                meshes = pipe.extract_meshes(pipe.sample_latents(n, generator=g))
+                os.makedirs(out_dir, exist_ok=True)
+                for i, (verts, tris) in enumerate(meshes):
+                    _save_off(os.path.join(out_dir, f"mesh_{i}.off"), verts, tris)
+                return meshes
+            if domain == "nerf":
+                res = resolution or 128
+                out = pipe.sample_nerfs(n, H=res, W=res, generator=g).cpu().numpy()
+                for i, views in enumerate(out):
+                    self._save_images(views, os.path.join(out_dir, f"nerf_{i}"))
+                return out
+        raise NotImplementedError(domain)
+
+    def _metric_net(self, cls, key: str, from_jax, what: str):
+        """A metric network on the pipeline's device: its weights from
+        data.extra.<key>, an `.npz` of JAX parameters under "params" (the
+        JAX package's format, mapped by interop.py), else drawn from a
+        generator seeded 0 with a loud warning."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = cls()
+        pth = self.cfg.data.extra.get(key)
+        if pth and os.path.exists(pth):
+            model.load_state_dict(from_jax(np.load(pth, allow_pickle=True)["params"].item()))
+        else:
+            warnings.warn(f"no converted {cls.__name__} weights (data.extra.{key}); {what} "
+                          f"computed with a random-init network (seed 0), NOT comparable to "
+                          f"published numbers", stacklevel=3)
+        return model
+
+    def _image_scorer(self):
+        """The InceptionV3 FIDScorer (data.extra.inception_pth)."""
+        from ddmi_tpu_torch.evals.fid import FIDScorer
+        from ddmi_tpu_torch.evals.inception import InceptionV3
+        from ddmi_tpu_torch.interop import inception_from_jax
+
+        model = self._metric_net(InceptionV3, "inception_pth", inception_from_jax, "rFID/FID")
+        return FIDScorer(model, device=self.pipe.device)
+
+    def _video_scorer(self):
+        """The I3D FVDScorer (data.extra.i3d_pth)."""
+        from ddmi_tpu_torch.evals.fvd import FVDScorer
+        from ddmi_tpu_torch.evals.i3d import I3D
+        from ddmi_tpu_torch.interop import i3d_from_jax
+
+        return FVDScorer(self._metric_net(I3D, "i3d_pth", i3d_from_jax, "FVD"),
+                         device=self.pipe.device)
+
+    def evaluate(self, exp: str) -> dict:
+        """The CLI's eval mode: each domain's protocol on the test loader (the
+        training one without a test set), with data.extra.eval_samples
+        (default 64) samples, loudly below the reference protocol's count.
+        d2c-vae (the stage-1 modules of the newest checkpoint): image rFID
+        of reconstructions, video PSNR, occupancy IoU of the query points
+        (and `iou_voxels` where the batches carry binvox grids), NeRF PSNR
+        of one view of each of 4 scenes.  ldm (with the EMA weights of the
+        newest stage-2 checkpoint as well): image FID over eval_samples
+        samples, video FVD over data.extra.fvd_samples clips, occupancy
+        MMD / COV / 1-NNA of eval_samples meshes extracted in lockstep
+        groups of data.extra.mesh_batch (8; the last group padded), NeRF
+        one `generate(n=1)`.  Each posterior, render and sampling draw
+        comes from a generator on the device seeded as the JAX trainer
+        keys it (0, or the batch's index).  The results are logged (eval/),
+        checked against data.extra.quality_gates (evals/gates.py) and
+        written to <save_dir>/eval.json; a failed gate then raises
+        SystemExit.  -> the results."""
+        cfg, pipe = self.cfg, self.pipe
+        dev = pipe.device
+        domain = cfg.data.domain
+        data = self.test_data if self.test_data is not None else self.data
+        n_eval = int(cfg.data.extra.get("eval_samples", 64))
+        protocol = {"image": 10000, "video": 2048, "occupancy": 5000, "nerf": 64}.get(domain,
+                                                                                     n_eval)
+        if n_eval < protocol:
+            print(f"eval: data.extra.eval_samples={n_eval} — REFERENCE PROTOCOL IS {protocol} "
+                  f"for domain '{domain}'; results are not comparable to published numbers "
+                  f"until raised")
+        gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+        results = {}
+        self.load_stage1()
+        if exp == "d2c-vae":
+            max_batches = max(1, n_eval // cfg.data.batch_size)
+            if domain in ("image", "video"):
+                def recon(x):
+                    with torch.no_grad():
+                        x = torch.as_tensor(np.asarray(x)).to(dev)
+                        return pipe.reconstruct(x, generator=gen(0)).cpu().numpy()
+            if domain == "image":
+                from ddmi_tpu_torch.evals.fid import test_rfid
+
+                results["rfid"] = test_rfid(self._image_scorer(), recon, data,
+                                            max_batches=max_batches)
+            elif domain == "video":
+                from ddmi_tpu_torch.evals.fvd import psnr
+
+                results["psnr"] = psnr(recon, data, max_batches=max_batches)
+            elif domain == "occupancy":
+                results.update(self._occupancy_iou(data, n_eval))
+            elif domain == "nerf":
+                results["psnr"] = self._nerf_psnr(data)
+        else:
+            if domain == "nerf":
+                self.generate(n=1)
+                results["generated"] = 1.0
+            else:
+                state = self.load_stage2()
+                with sampling_weights(pipe, state):
+                    results.update(self._sample_metrics(data, n_eval, protocol))
+        self.logger.log(0, results, prefix="eval/")
+
+        gates = cfg.data.extra.get("quality_gates") or {}
+        if gates:
+            from ddmi_tpu_torch.evals.gates import check_gates
+
+            passed, detail = check_gates(results, gates)
+            results["gates"] = detail
+            results["gates_passed"] = passed
+            print(f"quality gates: {'PASS' if passed else 'FAIL'}")
+            for name, d in detail.items():
+                if d["value"] is None:
+                    print(f"  {name}: FAIL — {d['reason']}")
+                    continue
+                print(f"  {name}: {d['value']:.6g} vs published {d['published']:.6g} "
+                      f"(±{d['tol_pct']}%, {d['direction']}) -> "
+                      f"{'pass' if d['passed'] else 'FAIL'}")
+        with open(os.path.join(self.save_dir, "eval.json"), "w") as f:
+            json.dump(results, f)
+        print("eval results:", results)
+        if gates and not results["gates_passed"]:
+            raise SystemExit("quality gates FAILED — see eval.json for detail")
+        return results
+
+    @torch.no_grad()
+    def _occupancy_iou(self, data, n_eval: int) -> dict:
+        """Stage-1 occupancy: the IoU of logits > 0 against occ > 0.5 at each
+        batch's query points, the posterior drawn from a generator seeded by
+        the batch's index; with binvox grids in the batches, the voxel IoU
+        of each shape (its posterior from a generator seeded 0)."""
+        from ddmi_tpu_torch.evals.metrics_3d import voxel_iou
+
+        pipe, dev = self.pipe, self.pipe.device
+        ious, voxel_ious = [], []
+        for i, b in enumerate(data):
+            if i * self.cfg.data.batch_size >= n_eval:
+                break
+            inputs = torch.as_tensor(np.asarray(b["inputs"])).to(dev)
+            eps = pipe.posterior_eps(inputs.shape[0], torch.Generator(device=dev).manual_seed(i))
+            logits = pipe.occupancy_logits(inputs, torch.as_tensor(np.asarray(b["points"])), eps)
+            pred = logits.float().cpu().numpy() > 0
+            occ = np.asarray(b["occ"]) > 0.5
+            ious.append(np.logical_and(pred, occ).sum() / max(np.logical_or(pred, occ).sum(), 1))
+            if "voxels" in b:
+                for j in range(inputs.shape[0]):
+                    def fn(pts, j=j):
+                        eps = pipe.posterior_eps(1, torch.Generator(device=dev).manual_seed(0))
+                        return pipe.occupancy_logits(inputs[j : j + 1],
+                                                     torch.as_tensor(pts)[None], eps)[0]
+                    voxel_ious.append(voxel_iou(fn, np.asarray(b["voxels"][j])))
+        out = {"iou": float(np.mean(ious))}
+        if voxel_ious:
+            out["iou_voxels"] = float(np.mean(voxel_ious))
+        return out
+
+    @torch.no_grad()
+    def _nerf_psnr(self, data) -> float:
+        """Stage-1 NeRF: encode the first cloud of each of 4 test batches
+        (its posterior from a generator seeded by the batch's index),
+        decode, render its view at the view's size without perturbation,
+        and average the PSNRs.  On the card the models run in bf16, the
+        render through the NeRF MLP kernel."""
+        pipe, dev = self.pipe, self.pipe.device
+        vals = []
+        with card_dtype(pipe, pipe.stage1_modules):
+            for i, b in enumerate(data):
+                if i >= 4:
+                    break
+                eps = pipe.posterior_eps(1, torch.Generator(device=dev).manual_seed(i))
+                z, _ = pipe.encode(torch.as_tensor(np.asarray(b["points"])[:1]), eps)
+                img = np.asarray(b["image"])[0]
+                H, W = img.shape[:2]
+                pose = torch.as_tensor(np.asarray(b["pose"])[0]).float().to(dev)
+                rgb = pipe.render_image(pipe.decode_planes(z), pose, H, W).cpu().numpy()
+                mse = float(np.mean((rgb - img) ** 2))
+                vals.append(-10 * np.log10(max(mse, 1e-12)))
+        return float(np.mean(vals))
+
+    def _sample_metrics(self, data, n_eval: int, protocol: int) -> dict:
+        """Stage 2's sample metrics, inside sampling_weights: image FID,
+        video FVD, occupancy MMD / COV / 1-NNA."""
+        cfg, pipe = self.cfg, self.pipe
+        dev = pipe.device
+        domain = cfg.data.domain
+        if domain == "image":
+            from ddmi_tpu_torch.evals.fid import test_fid_n
+
+            bs = cfg.data.test_batch_size
+            res = min(cfg.data.test_resolution, 256)
+            reals = []
+            for i, b in enumerate(data):
+                if i * cfg.data.batch_size >= n_eval:
+                    break
+                reals.append(np.asarray(b))
+            return {"fid": test_fid_n(
+                self._image_scorer(),
+                lambda g: pipe.sample_images(bs, resolution=res, generator=g),
+                reals, n_samples=n_eval, batch=bs,
+                generator=torch.Generator(device=dev).manual_seed(0), protocol_n=protocol)}
+        if domain == "video":
+            from ddmi_tpu_torch.evals.fvd import test_fvd_sample
+
+            scorer = self._video_scorer()
+            reals = []
+            for i, b in enumerate(data):
+                if i >= max(1, n_eval // 4):
+                    break
+                reals.append(np.asarray(b))
+            n_fvd = int(cfg.data.extra.get("fvd_samples", n_eval))
+            print(f"FVD: {n_fvd} generated clips vs {len(reals)} real batches (reference "
+                  f"runs the full test loader, evals/eval.py:254-345)")
+
+            def sample(g):
+                with torch.no_grad():
+                    return pipe.sample_videos(1, generator=g)
+
+            return {"fvd": test_fvd_sample(scorer, sample, reals, n_samples=n_fvd,
+                                           generator=torch.Generator(device=dev).manual_seed(0))}
+        if domain == "occupancy":
+            return self._occupancy_mmd(data, n_eval)
+        raise NotImplementedError(domain)
+
+    def _occupancy_mmd(self, data, k: int) -> dict:
+        """k latents sampled at once (a generator seeded 0), their meshes
+        extracted in lockstep groups of data.extra.mesh_batch, the last
+        group padded to the group's size with inactive slots, 2048 surface
+        points of each non-empty mesh against the first 2048 points of k
+        test clouds: MMD, COV and 1-NNA (evals/metrics_3d.py) on the
+        pipeline's device.  Skipped, with a message, when either side is
+        empty."""
+        from ddmi_tpu_torch.evals.metrics_3d import mmd_cov_1nna
+        from ddmi_tpu_torch.geometry.generation import sample_surface_points
+
+        pipe = self.pipe
+        print(f"occupancy eval: generating {k} meshes (reference protocol: 5000 generated, "
+              f"1355x1355 MMD pairs — tools/ldm/occupancy.py:204-219)")
+        with torch.no_grad():
+            z = pipe.sample_latents(k, generator=torch.Generator(device=pipe.device).manual_seed(0))
+        group = max(1, min(k, int(self.cfg.data.extra.get("mesh_batch", 8))))
+        gen_pts = []
+        for g0 in range(0, k, group):
+            zg = z[g0 : g0 + group]
+            real = int(zg.shape[0])
+            if real < group:  # the last group: pad to the group's size
+                zg = torch.cat([zg] + [zg[-1:]] * (group - real), 0)
+            for verts, tris in pipe.extract_meshes(zg, real):
+                if len(tris):
+                    gen_pts.append(sample_surface_points(verts, tris, 2048))
+            print(f"occupancy eval: mesh {min(g0 + group, k)}/{k}")
+        ref_pts = []
+        for b in data:
+            if len(ref_pts) >= k:
+                break
+            inputs = np.asarray(b["inputs"])
+            ref_pts.extend(inputs[j, :2048] for j in range(inputs.shape[0]))
+        if gen_pts and ref_pts:
+            m = mmd_cov_1nna(np.stack(ref_pts[:k]), np.stack(gen_pts), device=pipe.device)
+            return {key: float(v) for key, v in m.items()}
+        print(f"occupancy eval: MMD/COV skipped — {len(gen_pts)} non-empty generated meshes, "
+              f"{len(ref_pts)} reference clouds")
+        return {}
 
     @staticmethod
     def _save_images(imgs: np.ndarray, prefix: str) -> None:
@@ -317,6 +664,35 @@ def ema_weights(pipe, state):
         with torch.no_grad():
             for k, p in state.params.items():
                 p.copy_(saved[k])
+
+
+@contextlib.contextmanager
+def card_dtype(pipe, names):
+    """On the card, the pipeline's modules `names` in bf16 inside the block
+    (the dtype the sampling kernels take, as the sampling service casts
+    them); after it each of their parameters and buffers holds the very
+    tensor it held before.  On the CPU nothing changes."""
+    if pipe.device.type != "cuda":
+        yield pipe
+        return
+    modules = [getattr(pipe, name) for name in names]
+    saved = [(t, t.data) for m in modules for t in (*m.parameters(), *m.buffers())]
+    try:
+        for m in modules:
+            m.to(torch.bfloat16)
+        yield pipe
+    finally:
+        for t, data in saved:
+            t.data = data
+
+
+@contextlib.contextmanager
+def sampling_weights(pipe, state):
+    """`ema_weights`, and on the card the stage-1 modules in bf16
+    (`card_dtype`): the weights `generate` and stage 2's `evaluate` sample
+    with."""
+    with ema_weights(pipe, state), card_dtype(pipe, pipe.stage1_modules):
+        yield pipe
 
 
 def _save_off(path: str, verts: np.ndarray, tris: np.ndarray) -> None:

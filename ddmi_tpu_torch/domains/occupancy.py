@@ -31,8 +31,10 @@ Stage 2 trains the UNet on the frozen encode of the batch's `inputs`.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import dataclasses
+from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -48,6 +50,7 @@ from ddmi_tpu_torch.core.amp import compute_cast, method_call
 from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.domains.triplane import TriplaneDraws, TriplaneTraining
+from ddmi_tpu_torch.geometry.generation import generate_meshes_batched, refine_mesh
 from ddmi_tpu_torch.nn.inr import INR3D
 from ddmi_tpu_torch.nn.pointnet import LocalPoolPointnet
 from ddmi_tpu_torch.nn.triplane_vae import TriplaneAutoencoder
@@ -104,7 +107,10 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
                 self.unet = UNet(m.unetconfig)
                 self.pointnet = LocalPoolPointnet(**pn_kwargs)
                 self.vae = TriplaneAutoencoder(dd, embed_dim=m.embed_dim, with_encoder=True)
-                self.mlp = INR3D(m.mlpconfig)
+                # its plane features are the decoder's out_ch wide (flax
+                # infers the width from its input; the repo configs set
+                # latent_dim to the same)
+                self.mlp = INR3D(dataclasses.replace(m.mlpconfig, latent_dim=dd.out_ch))
         d = m.ddpmconfig
         self.mixing_logit = nn.Parameter(
             torch.full((1, d.channels, 1, 1), float(d.mixed_init), device=device))
@@ -211,3 +217,39 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
         z."""
         pyramids = self.decode_pyramids(z)
         return lambda points: self.logits_from_pyramids(points, pyramids)
+
+    def extract_meshes(self, z: torch.Tensor, count: Optional[int] = None,
+                       **mesh_kwargs) -> List:
+        """Latents z (g, C, r, r) -> [(verts, faces)] of the first `count`
+        (all when None): the pyramids decoded once, then every mesh
+        extracted in lockstep, one INR3D call per round for the group
+        (geometry/generation.py::generate_meshes_batched); the slots past
+        `count` are padding and get no octree.  `mesh_kwargs` (threshold,
+        resolution0, upsampling_steps, simplify_nfaces, refinement_step,
+        points_batch_size, workers, ...) default to `generation_kwargs`.
+        With refinement_step > 0 each mesh is refined on its own pyramids,
+        its Dirichlet draws from a generator seeded 0, as the JAX package
+        keys every mesh's refinement with PRNGKey(0)."""
+        g = z.shape[0]
+        count = g if count is None else count
+        mk = {**self.generation_kwargs, **mesh_kwargs}
+        steps = int(mk.pop("refinement_step", 0) or 0)
+        pyr = self.decode_pyramids(z)
+
+        def eval_group(pts: np.ndarray) -> np.ndarray:
+            with torch.no_grad():
+                logits = self.logits_from_pyramids(torch.from_numpy(pts).to(self.device), pyr)
+            return logits.float().cpu().numpy()
+
+        meshes = generate_meshes_batched(eval_group, g, active=[i < count for i in range(g)],
+                                         **mk)[:count]
+        for i, (verts, tris) in enumerate(meshes):
+            if steps > 0 and len(tris):
+                pyr_i = tuple([p[i : i + 1] for p in levels] for levels in pyr)
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                verts = refine_mesh(
+                    verts, tris, lambda p, pyr_i=pyr_i: self.logits_from_pyramids(p, pyr_i),
+                    threshold=mk.get("threshold", 0.2), steps=steps, generator=gen,
+                    device=self.device)
+                meshes[i] = (verts, tris)
+        return meshes

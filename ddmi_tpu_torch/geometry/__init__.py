@@ -1,6 +1,7 @@
 """Host geometry for the occupancy path (the port's own copy of
-ddmi_tpu/geometry: MISE octree refinement, marching cubes and quadric mesh
-simplification, bound through ctypes).
+ddmi_tpu/geometry: MISE octree refinement, marching cubes, quadric mesh
+simplification, and for the 3D metrics a kd-tree, point-in-mesh tests and
+voxelisation, bound through ctypes).
 
 `src/geometry.cpp` is the JAX package's C++ core, copied unchanged.  On first
 use it is compiled with `g++ -O3` into a shared library under
@@ -78,6 +79,15 @@ def lib() -> ctypes.CDLL:
                                         i64p, i64p]
         L.mesh_simplify_get.restype = i64
         L.mesh_simplify_get.argtypes = [i64, f64p, i64p]
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        L.kdtree_build.restype = i64
+        L.kdtree_build.argtypes = [f64p, i64]
+        L.kdtree_query.argtypes = [i64, f64p, i64, f64p, i64p]
+        L.kdtree_destroy.argtypes = [i64]
+        L.points_in_mesh.restype = i64
+        L.points_in_mesh.argtypes = [f64p, i64, i64p, i64, f64p, i64, u8p]
+        L.voxelize_mesh.restype = i64
+        L.voxelize_mesh.argtypes = [f64p, i64, i64p, i64, i64, u8p]
         _lib = L
         return L
 
@@ -159,3 +169,53 @@ def simplify_mesh(vertices: np.ndarray, faces: np.ndarray, f_target: int,
     tris = np.empty((max(nt.value, 1), 3), np.int64)
     L.mesh_simplify_get(handle, _fp(verts), _ip(tris))
     return verts[: nv.value], tris[: nt.value]
+
+
+def _u8p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+class KDTree:
+    """3D nearest neighbours: `query(q)` -> (Euclidean distances, indices
+    into the tree's points) of each query point's nearest point."""
+
+    def __init__(self, points: np.ndarray):
+        self._L = lib()
+        self._pts = _f64(points)
+        self._h = self._L.kdtree_build(_fp(self._pts), self._pts.shape[0])
+
+    def query(self, q: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        q = _f64(q)
+        dist = np.empty(q.shape[0], np.float64)
+        idx = np.empty(q.shape[0], np.int64)
+        self._L.kdtree_query(self._h, _fp(q), q.shape[0], _fp(dist), _ip(idx))
+        return dist, idx
+
+    def close(self) -> None:
+        if getattr(self, "_h", None) is not None:
+            self._L.kdtree_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+def check_mesh_contains(vertices: np.ndarray, faces: np.ndarray,
+                        points: np.ndarray) -> np.ndarray:
+    """Whether each point lies inside the triangle mesh (the parity of a z
+    ray's crossings) -> (n,) bool."""
+    L = lib()
+    v, t, q = _f64(vertices), _i64(faces), _f64(points)
+    out = np.empty(q.shape[0], np.uint8)
+    L.points_in_mesh(_fp(v), v.shape[0], _ip(t), t.shape[0], _fp(q), q.shape[0], _u8p(out))
+    return out.astype(bool)
+
+
+def voxelize_mesh(vertices: np.ndarray, faces: np.ndarray, resolution: int) -> np.ndarray:
+    """A mesh with vertices in [0, 1]^3 -> its (res, res, res) bool
+    occupancy at the cell centres, x-major."""
+    L = lib()
+    v, t = _f64(vertices), _i64(faces)
+    out = np.empty(resolution**3, np.uint8)
+    L.voxelize_mesh(_fp(v), v.shape[0], _ip(t), t.shape[0], resolution, _u8p(out))
+    return out.reshape(resolution, resolution, resolution).astype(bool)

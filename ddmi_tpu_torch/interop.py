@@ -11,12 +11,18 @@ and `convert_mlp_video`; for NeRF and occupancy `convert_triplane_vae`
 stage-1 training: LPIPS into the reference checkpoint layout (the JAX
 package's evals/lpips.py::load_torch_weights reads it back), and the
 PatchGANs (the image one and the video 2D + 3D pair) and the
-spectral-norm state, which the JAX package has no converter for (`*_to_jax` give the inverses).  The port's modules use the
+spectral-norm state, which the JAX package has no converter for (`*_to_jax` give the inverses).  For the
+evals: the FID InceptionV3 and the FVD I3D into pytorch-fid's and
+pytorch_i3d's layouts, the inverses of the JAX package's
+evals/inception.py::load_torch_inception and evals/i3d.py::load_torch_i3d
+(also the readers of its `.npz` weight files).  The port's modules use the
 reference PyTorch layouts, so every map here is a transpose, reshape or channel
 permutation and the round trip is bit-exact:
 
   * Flax Conv (kh, kw, I, O)   -> Conv2d (O, I, kh, kw)
-  * Flax Conv (kt, kh, kw, I, O) -> Conv3d (O, I, kt, kh, kw) [3D PatchGAN]
+  * Flax Conv (kt, kh, kw, I, O) -> Conv3d (O, I, kt, kh, kw) [3D PatchGAN, I3D]
+  * frozen BatchNorm bn_scale / bn_bias / bn_mean / bn_var -> weight / bias /
+    running_mean / running_var                      [InceptionV3, I3D]
   * LayerNorm scale / bias     -> weight / bias
   * Flax 1x1 Conv (1, 1, I, O) -> Conv1d (O, I, 1)        [ADM attention]
   * Flax Dense (I, O)          -> Linear (O, I)
@@ -532,3 +538,59 @@ def sn_state_from_jax(state) -> Dict[str, tuple]:
 
 def sn_state_to_jax(state) -> Dict[str, tuple]:
     return {k: (u.detach().cpu().numpy(), v.detach().cpu().numpy()) for k, (u, v) in state.items()}
+
+
+# --------------------------------------------------------- metric networks
+
+
+def _frozen_bn(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(p["bn_scale"])
+    sd[key + ".bias"] = _t(p["bn_bias"])
+    sd[key + ".running_mean"] = _t(p["bn_mean"])
+    sd[key + ".running_var"] = _t(p["bn_var"])
+    sd[key + ".num_batches_tracked"] = torch.tensor(0)
+
+
+def inception_from_jax(tree) -> SD:
+    """JAX InceptionV3 params (ddmi_tpu/evals/inception.py) -> the port's
+    InceptionV3 state_dict (pytorch-fid's names)."""
+    sd: SD = {}
+
+    def walk(node, path):
+        if "conv" in node:
+            sd[path + ".conv.weight"] = _t(np.transpose(node["conv"]["kernel"], (3, 2, 0, 1)))
+            _frozen_bn(sd, path + ".bn", node)
+            return
+        for name, child in node.items():
+            walk(child, f"{path}.{name}" if path else name)
+
+    walk({k: v for k, v in tree.items() if k != "fc"}, "")
+    _dense(sd, "fc", tree["fc"])
+    return sd
+
+
+_I3D_BRANCHES = {"Branch_0/Conv3d_0a_1x1": "b0", "Branch_1/Conv3d_0a_1x1": "b1a",
+                 "Branch_1/Conv3d_0b_3x3": "b1b", "Branch_2/Conv3d_0a_1x1": "b2a",
+                 "Branch_2/Conv3d_0b_3x3": "b2b", "Branch_3/Conv3d_0b_1x1": "b3b"}
+
+
+def i3d_from_jax(tree) -> SD:
+    """JAX I3D params (ddmi_tpu/evals/i3d.py) -> the port's I3D state_dict
+    (pytorch_i3d's names: a Mixed block's `Branch_1/Conv3d_0b_3x3` is its
+    `b1b`)."""
+    sd: SD = {}
+
+    def unit(key, p):
+        sd[key + ".conv3d.weight"] = _t(np.transpose(p["conv3d"]["kernel"], (4, 3, 0, 1, 2)))
+        if "bias" in p["conv3d"]:
+            sd[key + ".conv3d.bias"] = _t(p["conv3d"]["bias"])
+        if "bn_scale" in p:
+            _frozen_bn(sd, key + ".bn", p)
+
+    for name, node in tree.items():
+        if name.startswith("Mixed"):
+            for branch, p in node.items():
+                unit(f"{name}.{_I3D_BRANCHES[branch]}", p)
+        else:
+            unit(name, node)
+    return sd

@@ -30,7 +30,6 @@ from ddmi_tpu_torch.domains.image import ImagePipeline
 from ddmi_tpu_torch.domains.nerf import NeRFPipeline
 from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
 from ddmi_tpu_torch.domains.video import VideoPipeline
-from ddmi_tpu_torch.geometry.generation import generate_meshes_batched, refine_mesh
 
 
 class _Request:
@@ -240,31 +239,7 @@ class SamplerService:
 
     def _extract_meshes(self, z: torch.Tensor, count: int) -> list:
         """Latents (batch, C, r, r) -> [(verts, faces)] for the first `count`
-        slots: the pyramids decoded once, then every mesh extracted in
-        lockstep, one INR3D call per round on the card for the whole batch;
-        the padding slots are inactive (no octree).  With refinement_step > 0
-        each mesh is refined on its own pyramids, its Dirichlet draws from a
-        generator seeded 0, as the JAX service keys every mesh's refinement
-        with PRNGKey(0)."""
-        mk = dict(self.mesh_kwargs)
-        steps = int(mk.pop("refinement_step", 0) or 0)
-        pipe = self.pipe
-        pyr = pipe.decode_pyramids(z)
-
-        def eval_group(pts: np.ndarray) -> np.ndarray:
-            with torch.no_grad():
-                logits = pipe.logits_from_pyramids(torch.from_numpy(pts).to(pipe.device), pyr)
-            return logits.float().cpu().numpy()
-
-        meshes = generate_meshes_batched(eval_group, self.batch,
-                                         active=[i < count for i in range(self.batch)], **mk)
-        for i, (verts, tris) in enumerate(meshes[:count]):
-            if steps > 0 and len(tris):
-                pyr_i = tuple([p[i : i + 1] for p in levels] for levels in pyr)
-                gen = torch.Generator(device=pipe.device).manual_seed(0)
-                verts = refine_mesh(
-                    verts, tris, lambda p, pyr_i=pyr_i: pipe.logits_from_pyramids(p, pyr_i),
-                    threshold=mk.get("threshold", 0.2), steps=steps, generator=gen,
-                    device=pipe.device)
-                meshes[i] = (verts, tris)
-        return meshes[:count]
+        slots (OccupancyPipeline.extract_meshes: every mesh in lockstep, one
+        INR3D call per round on the card for the whole batch; the padding
+        slots get no octree)."""
+        return self.pipe.extract_meshes(z, count, **self.mesh_kwargs)
