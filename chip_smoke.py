@@ -136,14 +136,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
      launch, every loss term finite, the parameters bit-unchanged through
      micro-step 9 and all changed at 10, the SN state changed at every
      micro-step, the flash shapes recorded; the eval hook's PSNR of 2
-     reconstructed clips (2 flash launches); then a timed run of 6
+     reconstructed clips (2 flash launches); then a timed run of 5
      micro-steps (micro-steps/s, clips/s, peak memory), a split by the
      stage1/* ranges, host against device time and a profile;
  27. video checkpoint and reconstruction: the state restored bit for bit
      into a scrambled one and a resumed run of 2 micro-steps; reconstruct
      of 2 clips (2 flash launches, pixels in [0, 1], PSNR);
  28. adversarial video stage 1 (configs/d2c-vae/skytimelapse_gan.yaml, 5
-     checked micro-steps after 3 timed): the 2D and 3D discriminators
+     checked micro-steps after 2 timed): the 2D and 3D discriminators
      change at every micro-step, the VAE and INR at none;
  29. video stage 2: Trainer.train_stage2 on configs/ldm/skytimelapse.yaml
      at full width on the stage-1 checkpoint (batch 2, 10 micro-steps): the
@@ -209,7 +209,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
      both exps: video (FVD through the full I3D; attn_block, mha_vmem and
      flash launch), occupancy (MMD / COV / 1-NNA of 3 meshes on 32^3 grids
      in lockstep groups of 2; attn_block), NeRF (PSNR, generate; attn_block
-     and nerf_mlp).
+     and nerf_mlp);
+ 39. HTTP serving at full width on celebahq (inside phase 4, on its
+     service): /healthz and a 404; 8 concurrent POST /generate (npy, n 1,
+     distinct seeds) coalesce into one batch (attn_block 1600, inr_decode
+     1, exact) and each body equals in-process `generate` of its seed in
+     the same batch, bit for bit; png (when PIL imports) and a gif refused
+     with 400; then a --turbo 2 service of the same weights (attn_block
+     50 x 16 + 50 x 10 = 1300, inr_decode 1), its samples' mean difference
+     from the exact ones; request latency, batch wall times and the HTTP
+     path's overhead over in-process generate;
+ 40. cli/serve.py's service restored from disk (inside phase 37, from the
+     checkpoints its trainer wrote; no new checkpoint): srn_cars at full
+     width, one scene a batch, gif (when PIL imports) and npy over HTTP with
+     attn_block 2200 and nerf_mlp 32 per batch exactly, the npy body equal
+     to that of a service given the files' weights; restore seconds and
+     scenes/s;
+ 41. the converter, then serving: for each domain at a small config (image:
+     celebahq with a cut UNet; video, occupancy, NeRF: phase 38's) a
+     synthetic reference ldm file, cli/convert_reference_ckpt.py, then
+     cli/serve.py --turbo 2 over HTTP: the reference step, the file's EMA,
+     each request's launches exactly an exact batch's less 2 x (a full
+     forward's - a cached forward's), every format of the domain
+     (occupancy obj and npz, npy refused with 400).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -311,13 +333,13 @@ S1_BATCH, S1_RES, S1_STEPS, S1_GAN_STEPS = 10, 512, 10, 5
 S1_REF_LOSS_REL, S1_REF_TERM_REL, S1_REF_MIN_COS = 0.02, 0.05, 0.999
 # video training (configs/d2c-vae/skytimelapse.yaml, then configs/ldm/
 # skytimelapse.yaml on its checkpoint): batches of 2 synthetic clips of 16 x
-# 256^2; stage 1 accumulates over 5, 10 micro-steps checked and 6 timed (the
-# steady window, micro-steps 2-6, holds the update at 5), the adversarial
+# 256^2; stage 1 accumulates over 5, 10 micro-steps checked and 5 timed (the
+# steady window, micro-steps 2-5, holds the update at 5), the adversarial
 # config 5; per stage-1 micro-step one flash forward with LSE and
 # one backward (the decoder's n = 20,480 cross-plane attention at hd 128; the
 # n = 73,728 one trains through the MEA above FLASH_TRAIN_MAX_TOKENS); stage 2
 # steps every micro-step, 10 of them
-V_BATCH, V1_STEPS, V1_TIMED, V1_GAN_STEPS, V2_STEPS = 2, 10, 6, 5, 10
+V_BATCH, V1_STEPS, V1_TIMED, V1_GAN_STEPS, V2_STEPS = 2, 10, 5, 5, 10
 V1_LAUNCHES = {"flash_attention": V1_STEPS, "flash_attention_bwd": V1_STEPS}
 # reconstructing 2 clips (the stage-1 eval hook, reconstruct): the decoder's
 # n = 20,480 and n = 73,728 cross-plane attentions through the flash forward
@@ -371,7 +393,7 @@ def nvidia_smi() -> str:
 
 def cuda_ms(fn, reps: int = 0) -> float:
     """Mean device time of fn() over `reps` calls (0: enough calls for
-    about 0.3 s), after two warm-up calls."""
+    about 0.15 s), after two warm-up calls."""
     import torch
 
     fn()
@@ -382,7 +404,7 @@ def cuda_ms(fn, reps: int = 0) -> float:
         fn()
         end.record()
         end.synchronize()
-        reps = int(min(50, max(2, 300.0 / max(start.elapsed_time(end), 1e-3))))
+        reps = int(min(50, max(2, 150.0 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -833,6 +855,7 @@ def image_slice_phase(torch, dev):
         svc.warmup()
         log(f"[slice] warm-up batch {time.perf_counter() - t0:.3f} s")
         results, t_batch, t_repeat, launches, peak = serve(torch, dev, svc, requests, "slice")
+        http = http_image_phase(torch, dev, svc, cfg)
     finally:
         svc.close()
     for n, seed in requests:
@@ -848,7 +871,236 @@ def image_slice_phase(torch, dev):
     log(f"[slice] coalesced batch of {BATCH} at {RESOLUTION}^2, NFE {NFE}: "
         f"{t_batch:.3f} s = {BATCH / t_batch:.4f} samples/s; repeat request "
         f"{t_repeat:.3f} s; peak allocated {peak / 2**30:.2f} GiB")
-    return launches
+    return {k: launches[k] + http.get(k, 0) for k in launches}
+
+
+def start_http(svc):
+    """The service's HTTP front end on a free local port, served by a
+    thread; -> (server, base url)."""
+    from ddmi_tpu_torch.serve.server import make_http_server
+
+    httpd = make_http_server(svc, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_http(httpd) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def http_call(url, path, payload=None):
+    """A GET (payload None) or a POST of JSON -> (status, content type,
+    body, seconds to the last byte)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url + path, data=data),
+                                    timeout=900) as r:
+            out = r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        out = e.code, e.headers["Content-Type"], e.read()
+    return (*out, time.perf_counter() - t0)
+
+
+def have_pil() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def npy(body):
+    import io
+
+    import numpy as np
+
+    return np.load(io.BytesIO(body))
+
+
+def timed_batches(svc):
+    """Wrap svc._run_batch to record each batch's (request seeds in batch
+    order, seconds from its start to the results on the host); -> the
+    record and a function restoring _run_batch."""
+    record, run = [], svc._run_batch
+
+    def timed(take, count):
+        t0 = time.perf_counter()
+        run(take, count)
+        record.append(([r.seed for r in take], time.perf_counter() - t0))
+
+    svc._run_batch = timed
+    return record, lambda: setattr(svc, "_run_batch", run)
+
+
+def staggered(fn, seeds, gap=0.1):
+    """fn(seed) for each seed from its own thread, started `gap` s apart so
+    that the requests reach the service in this order; -> {seed: (result,
+    seconds)} once all have returned."""
+    out, errors = {}, []
+
+    def one(seed):
+        t0 = time.perf_counter()
+        try:
+            out[seed] = (fn(seed), time.perf_counter() - t0)
+        except Exception as e:  # raised again below, in the calling thread
+            errors.append(e)
+
+    threads = []
+    for seed in seeds:
+        threads.append(threading.Thread(target=one, args=(seed,)))
+        threads[-1].start()
+        time.sleep(gap)
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError("requests did not finish")
+    return out
+
+
+HEALTH_KEYS = ["domain", "initialized", "ok", "resolution", "service_batch", "step"]
+
+
+def http_image_phase(torch, dev, svc, cfg):
+    """Phase 39: the full-width celebahq service of phase 4 behind its HTTP
+    front end.  /healthz's keys, 404 for an unknown path; 8 concurrent
+    POST /generate (n 1, distinct seeds, npy) coalesce into one batch
+    (attn_block 16 x NFE, inr_decode 1, exact) and each body equals the
+    in-process `generate` of its seed in the same batch, bit for bit; PNG
+    (when PIL imports) beside a GIF request refused with 400 in one batch;
+    then a --turbo 2 service of the same weights: 8 requests, attn_block
+    16 x NFE/2 + 10 x NFE/2 exact, finite samples, their mean absolute
+    difference from the exact ones and the batch times.  -> launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from ddmi_tpu_torch.serve.server import SamplerService
+
+    total = collections.Counter()
+    seeds = list(range(401, 401 + BATCH))
+    svc._linger = 5.0  # the staggered requests all reach the batch
+    batches, restore = timed_batches(svc)
+    httpd, url = start_http(svc)
+    try:
+        status, _, body, _ = http_call(url, "/healthz")
+        health = json.loads(body)
+        log(f"[http] GET /healthz: {status} {health}")
+        if status != 200 or sorted(health) != HEALTH_KEYS or health["service_batch"] != BATCH:
+            raise AssertionError(f"/healthz answered {status} {health}")
+        for payload in (None, {}):
+            status, _, body, _ = http_call(url, "/nope", payload)
+            if status != 404 or json.loads(body) != {"error": "not found"}:
+                raise AssertionError(f"an unknown path answered {status} {body[:200]}")
+        read = reset_launches()
+        got = staggered(lambda s: http_call(url, "/generate",
+                                            {"n": 1, "seed": s, "format": "npy"}), seeds)
+        launches = read()
+        total.update(launches)
+        expect = {k: 0 for k in KERNELS}
+        expect.update(attn_block=16 * NFE, inr_decode=1)
+        bad = [s for s, (r, _) in got.items() if r[:2] != (200, "application/octet-stream")]
+        log(f"[http] 8 concurrent POST /generate (npy): batches {[b for b, _ in batches]}, "
+            f"launches {launches} (expected {expect}); statuses {[got[s][0][0] for s in seeds]}")
+        if bad or launches != expect or [b for b, _ in batches] != [seeds]:
+            raise AssertionError("the HTTP requests did not coalesce into one batch through "
+                                 "both kernels")
+        t_http_batch = batches[-1][1]
+        read = reset_launches()  # the in-process batch and the format batch
+        inproc = staggered(lambda s: svc.generate(1, seed=s, timeout=900), seeds)
+        if [b for b, _ in batches] != [seeds] * 2:
+            raise AssertionError(f"the in-process requests ran as batches {batches}")
+        same = all(np.array_equal(npy(got[s][0][2]), inproc[s][0]) for s in seeds)
+        lat_http = [got[s][1] for s in seeds]
+        lat_in = [inproc[s][1] for s in seeds]
+        t_in_batch = batches[-1][1]
+        # outside the batch: the last request's latency less the batch it triggered
+        over_http, over_in = lat_http[-1] - t_http_batch, lat_in[-1] - t_in_batch
+        log(f"[http] bodies equal to in-process generate, bit for bit: {same}; request latency "
+            f"(s, in send order, 0.1 s apart): HTTP {[round(x, 4) for x in lat_http]}, "
+            f"in-process {[round(x, 4) for x in lat_in]}; batch wall {t_http_batch:.4f} s "
+            f"(HTTP) = {BATCH / t_http_batch:.4f} samples/s, {t_in_batch:.4f} s (in-process); "
+            f"the last request (the batch's trigger) spends {over_http:.4f} s outside its batch "
+            f"over HTTP and {over_in:.4f} s in-process: HTTP overhead {over_http - over_in:.4f} "
+            f"s a request ({len(got[seeds[0]][0][2])} bytes of npy a sample)")
+        if not same:
+            raise AssertionError("an HTTP body differs from in-process generate")
+        fmts = ["png", "gif"] if have_pil() else ["gif"]
+        answers = staggered(lambda f: http_call(url, "/generate",
+                                                {"n": 1, "seed": 7, "format": f}), fmts)
+        refused = json.loads(answers["gif"][0][2])
+        log(f"[http] formats run: npy, {', '.join(fmts)} (PIL "
+            f"{'imports' if have_pil() else 'does not import'}): "
+            f"{ {f: answers[f][0][:2] for f in fmts} }; gif refused with {refused}")
+        if answers["gif"][0][0] != 400 or refused != {"error": (
+                "format 'gif' not valid for domain 'image' (image: png|npy, video: gif|npy, "
+                "nerf: gif|npy)")}:
+            raise AssertionError("a bad format was not refused with 400")
+        if "png" in fmts and (answers["png"][0][:2] != (200, "image/png")
+                              or not answers["png"][0][2].startswith(b"\x89PNG")):
+            raise AssertionError(f"png answered {answers['png'][0][:2]}")
+        total.update(read())
+    finally:
+        stop_http(httpd)
+        restore()
+    exact = {s: npy(got[s][0][2]) for s in seeds}
+
+    # --turbo 2: a second service of the same weights
+    ddpm = dataclasses.replace(cfg.model.ddpmconfig,
+                               extra={**cfg.model.ddpmconfig.extra, "encoder_reuse": 2})
+    tcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, ddpmconfig=ddpm))
+    p = svc.pipe
+    sds = {"unet": p.unet.state_dict(), "vae": p.vae.state_dict(), "mlp": p.mlp.state_dict(),
+           "mixing_logit": p.mixing_logit.detach()}
+    t0 = time.perf_counter()
+    turbo = SamplerService(tcfg, service_batch=BATCH, resolution=RESOLUTION, linger_ms=5000,
+                           device=dev, state_dicts=sds)
+    t_setup = time.perf_counter() - t0
+    tbatches, _ = timed_batches(turbo)
+    httpd, url = start_http(turbo)
+    try:
+        read = reset_launches()
+        tgot = staggered(lambda s: http_call(url, "/generate",
+                                             {"n": 1, "seed": s, "format": "npy"}), seeds)
+        tl = read()
+        read = reset_launches()
+        timing = turbo_timing(torch, dev, svc, turbo)
+        total.update(read())
+    finally:
+        stop_http(httpd)
+        turbo.close()
+    total.update(tl)
+    half = NFE // 2
+    texpect = {k: 0 for k in KERNELS}
+    texpect.update(attn_block=16 * half + 10 * (NFE - half), inr_decode=1)
+    ok = all(tgot[s][0][:2] == (200, "application/octet-stream") for s in seeds)
+    samples = {s: npy(tgot[s][0][2]) for s in seeds} if ok else {}
+    diff = (np.mean([np.abs(samples[s].astype(np.float64) - exact[s]).mean() for s in seeds])
+            / 255.0 if ok else float("nan"))
+    t_turbo = tbatches[-1][1] if tbatches else float("nan")
+    med = {k: sorted(v)[1] for k, v in timing.items() if k.endswith("_batch_s")}
+    log(f"[http-turbo] in turns, one initial latent: exact batches "
+        f"{[round(x, 4) for x in timing['exact_batch_s']]} s, turbo "
+        f"{[round(x, 4) for x in timing['turbo_batch_s']]} s: medians {med['exact_batch_s']:.4f} "
+        f"and {med['turbo_batch_s']:.4f} s ({med['turbo_batch_s'] / med['exact_batch_s']:.4f}x; "
+        f"{BATCH / med['exact_batch_s']:.4f} and {BATCH / med['turbo_batch_s']:.4f} "
+        f"samples/s); one UNet forward at batch {BATCH}: full {timing['full_forward_host_ms']:.3f} "
+        f"ms host / {timing['full_forward_device_ms']:.3f} ms device, on the cache "
+        f"{timing['cached_forward_host_ms']:.3f} / {timing['cached_forward_device_ms']:.3f} ms")
+    log(f"[http-turbo] --turbo 2 service of the same weights set up in {t_setup:.2f} s: "
+        f"batches {[b for b, _ in tbatches]}, launches {tl} (expected {texpect}); batch wall "
+        f"{t_turbo:.4f} s against the exact {t_http_batch:.4f} s ({t_turbo / t_http_batch:.4f}x) "
+        f"= {BATCH / t_turbo:.4f} samples/s; the last request {tgot[seeds[-1]][1]:.4f} s; mean "
+        f"|turbo - exact| {diff:.5f} of the pixel range; on {nvidia_smi()}")
+    if not ok or tl != texpect or [b for b, _ in tbatches] != [seeds] or not diff > 0:
+        raise AssertionError("the turbo service failed its checks")
+    return dict(total)
 
 
 def profile_top(torch, fn, tag, ours, what="the port's kernels", inference=True):
@@ -2706,7 +2958,7 @@ def video_reconstruct_phase(torch, dev, pipe):
 
 
 def video_stage1_gan_phase(torch, dev, tmp, plain_ms):
-    """configs/d2c-vae/skytimelapse_gan.yaml: 3 micro-steps timed, then 5
+    """configs/d2c-vae/skytimelapse_gan.yaml: 2 micro-steps timed, then 5
     from a fresh state checked: the 2D and 3D discriminators change at
     every micro-step, the VAE and INR at none (the first window's update
     has rate 0), finite losses, flash launches as the plain config's."""
@@ -2722,8 +2974,8 @@ def video_stage1_gan_phase(torch, dev, tmp, plain_ms):
     for i, module in enumerate((pipe.vae, pipe.mlp, pipe.gan)):
         perturb_zero_init(module, 96 + i)
     timed_dir = os.path.join(tmp, "timed")
-    timer = StepTimer(torch, pipe, "stage1_train_step", 3)
-    Trainer(cfg, pipe, Clips(3, 4), save_dir=timed_dir).train_stage1(
+    timer = StepTimer(torch, pipe, "stage1_train_step", 2)
+    Trainer(cfg, pipe, Clips(2, 4), save_dir=timed_dir).train_stage1(
         epochs=1, eval_hook=lambda *a: None)
     steady = timer.finish()
     shutil.rmtree(timed_dir)
@@ -2745,7 +2997,7 @@ def video_stage1_gan_phase(torch, dev, tmp, plain_ms):
         f"{[round(r['metrics']['g_gan'], 4) for r in rows]}; the discriminators' "
         f"{len(state.disc)} tensors ({n3d} of the 3D one) changed at every micro-step {disc_ok}; "
         f"VAE and INR unchanged; flash launches as the plain run's {not bad}; steady "
-        f"{1e3 * steady:.1f} ms per micro-step (micro-steps 2-3), {1e3 * steady - plain_ms:.1f} "
+        f"{1e3 * steady:.1f} ms per micro-step (micro-step 2), {1e3 * steady - plain_ms:.1f} "
         f"ms more than the plain run's ({plain_ms:.1f} ms) on {nvidia_smi()}")
     if not disc_ok or bad:
         raise AssertionError(f"video GAN: discriminators changed {disc_ok}, launches {bad[:2]}")
@@ -3850,6 +4102,75 @@ def cli_nerf_phase(torch, dev, tmp):
     log(f"[cli-nerf] gen wrote {len(views)} file(s): {views[:3]}...")
     if len(views) not in (1, NERF_VIEWS):  # one .npy without PIL, else a PNG a view
         raise AssertionError(f"gen on srn_cars wrote {views}")
+    total.update(serve_from_disk_phase(torch, dev, tmp,
+                                       os.path.join(tmp, "gen_ldm.yaml"), per_scene))
+    return dict(total)
+
+
+def serve_from_disk_phase(torch, dev, tmp, path, per_scene):
+    """Phase 40: `cli/serve.py`'s service (its build_service) restored
+    from the checkpoints phase 37's trainer wrote under `tmp` (EMA on; no
+    new checkpoint), one scene a batch (8 views at 128^2) over HTTP: a gif
+    (when PIL imports) and an npy body, each batch's launches exactly
+    `per_scene`; the npy body equals, bit for bit, that of a service given
+    the same weights as state_dicts read from the files; restore seconds
+    and scenes/s.  -> launches."""
+    import glob
+
+    from ddmi_tpu_torch.cli.serve import build_service, parse_args
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.serve.server import SamplerService
+
+    args = ["--configs", path, "--batch", "1", "--resolution", str(NERF_RES), "--n-views",
+            str(NERF_VIEWS), "--linger-ms", "0", "--device", str(dev)]
+    t0 = time.perf_counter()
+    svc = build_service(parse_args(args))
+    t_restore = time.perf_counter() - t0
+    total = collections.Counter()
+    fmts = (["gif"] if have_pil() else []) + ["npy"]
+    batches, _ = timed_batches(svc)
+    httpd, url = start_http(svc)
+    try:
+        health = json.loads(http_call(url, "/healthz")[2])
+        answers = {}
+        for fmt in fmts:
+            read = reset_launches()
+            answers[fmt] = http_call(url, "/generate", {"n": 1, "seed": 7, "format": fmt})
+            launches = {k: v for k, v in read().items() if v}
+            total.update(launches)
+            log(f"[serve-disk] POST /generate {fmt}: {answers[fmt][:2]}, "
+                f"{len(answers[fmt][2])} bytes in {answers[fmt][3]:.3f} s, launches {launches} "
+                f"(expected {per_scene})")
+            if answers[fmt][0] != 200 or launches != per_scene:
+                raise AssertionError(f"the restored srn_cars service answered {fmt} with "
+                                     f"{answers[fmt][:2]}, launches {launches}")
+    finally:
+        stop_http(httpd)
+        svc.close()
+    body = npy(answers["npy"][2])
+    t_batch = batches[-1][1]
+    s1, s2 = (torch.load(sorted(glob.glob(os.path.join(tmp, prefix, "*.pt")))[-1],
+                         map_location="cpu", weights_only=True)["state"]
+              for prefix in ("stage1", "stage2"))
+    sds = {name: {k[len(name) + 1:]: v for k, v in s1["params"].items()
+                  if k.startswith(name + ".")} for name in ("pointnet", "vae", "mlp")}
+    sds["unet"] = {k[len("unet."):]: v for k, v in s2["ema"].items() if k.startswith("unet.")}
+    sds["mixing_logit"] = s2["ema"]["mixing_logit"]
+    ref = SamplerService(load_config(path), service_batch=1, resolution=NERF_RES,
+                         n_views=NERF_VIEWS, linger_ms=0, device=dev, state_dicts=sds)
+    try:
+        read = reset_launches()
+        want = ref.generate(1, seed=7, timeout=900)
+        total.update({k: v for k, v in read().items() if v})
+    finally:
+        ref.close()
+    same = body.shape == want.shape and bool((body == want).all())
+    log(f"[serve-disk] srn_cars restored by cli/serve.py's build_service in {t_restore:.2f} s "
+        f"(step {health['step']}, EMA; /healthz {health}); formats run: {', '.join(fmts)}; "
+        f"npy {body.shape} equal to a service given the files' weights as state_dicts: {same}; "
+        f"the npy batch {t_batch:.3f} s = {1 / t_batch:.4f} scenes/s on {nvidia_smi()}")
+    if not same or health["step"] != s2["step"] or health["initialized"]:
+        raise AssertionError("the service restored from disk failed its checks")
     return dict(total)
 
 
@@ -4046,6 +4367,234 @@ def cli_small_phase(torch, dev, tmp):
     return dict(total)
 
 
+REFERENCE_STEP = 123
+# Phase 41's launches per domain at its configs and NFE 4, for one full
+# UNet forward, one on its cache, one exact sampling batch and one
+# --turbo 2 request (two full forwards and two on the cache)
+CONVERT_SERVE_LAUNCHES = {
+    "image": {"full": {"attn_block": 4}, "cached": {"attn_block": 3},
+              "exact": {"attn_block": 16, "inr_decode": 1},
+              "turbo": {"attn_block": 14, "inr_decode": 1}},
+    "video": {"full": {"attn_block": 8, "mha_vmem": 8}, "cached": {"attn_block": 6, "mha_vmem": 5},
+              "exact": {"attn_block": 32, "mha_vmem": 34, "flash_attention": 2},
+              "turbo": {"attn_block": 28, "mha_vmem": 28, "flash_attention": 2}},
+    "occupancy": {"full": {"attn_block": 4}, "cached": {"attn_block": 3},
+                  "exact": {"attn_block": 16}, "turbo": {"attn_block": 14}},
+    "nerf": {"full": {"attn_block": 4}, "cached": {"attn_block": 3},
+             "exact": {"attn_block": 16, "nerf_mlp": 4},
+             "turbo": {"attn_block": 14, "nerf_mlp": 4}},
+}
+
+
+def reference_file(torch, pipe, path, video: bool) -> None:
+    """The pipeline's weights as the original repository saves an
+    `ldm-last.pt`: the stage-1 modules under 'vaemodel', 'mlp' (and
+    'pointnet'), the DDPM under 'diffusion' ('model.*', its mixing logit
+    (1, C, 1, 1), or (1, C, 1) for video, and a schedule buffer), and an
+    EMA under 'ema' ('ema_model.*') 1% off the weights; fp32 on the CPU."""
+    g = torch.Generator().manual_seed(41)
+    sd = lambda m: {k: v.detach().float().cpu() for k, v in m.state_dict().items()}
+    c = pipe.mixing_logit.numel()
+    diffusion = {f"model.{k}": v for k, v in sd(pipe.unet).items()}
+    diffusion["mixing_logit"] = pipe.mixing_logit.detach().float().cpu().reshape(
+        (1, c, 1) if video else (1, c, 1, 1))
+    diffusion["betas"] = pipe.gd.schedule.betas.detach().float().cpu()
+    ema = {f"ema_model.{k}": v * (1 + 0.01 * torch.randn(v.shape, generator=g))
+           for k, v in diffusion.items()}
+    data = {"step": REFERENCE_STEP, "vaemodel": sd(pipe.vae), "mlp": sd(pipe.mlp),
+            "diffusion": diffusion, "ema": ema}
+    if "pointnet" in pipe.stage1_modules:
+        data["pointnet"] = sd(pipe.pointnet)
+    torch.save(data, path)
+
+
+def turbo_timing(torch, dev, exact, turbo, reps=20):
+    """The exact and the --turbo 2 service's batches in turns (exact,
+    turbo, turbo, exact, exact, turbo; seconds to the card's end, from one
+    initial latent), and one UNet forward in full and on its cache (host ms
+    to enqueue and device ms by CUDA events, `reps` each).  -> a dict."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    noise = torch.randn((exact.batch,) + exact._noise_shape, device=dev, generator=g)
+    walls = {"exact": [], "turbo": []}
+    for name in ("exact", "turbo", "turbo", "exact", "exact", "turbo"):
+        svc = exact if name == "exact" else turbo
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc._sample(noise, 0)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    unet = exact.pipe.unet
+    x = noise.permute(0, 3, 1, 2).contiguous()
+    t = torch.full((x.shape[0],), 500, device=dev, dtype=torch.long)
+    out = {f"{k}_batch_s": v for k, v in walls.items()}
+    with torch.inference_mode():
+        _, cache = unet(x, t, return_cache=True)
+        for name, fn in (("full", lambda: unet(x, t, return_cache=True)),
+                         ("cached", lambda: unet(x, t, cache=cache))):
+            fn()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            out[f"{name}_forward_host_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+            end.synchronize()
+            out[f"{name}_forward_device_ms"] = start.elapsed_time(end) / reps
+    return out
+
+
+def forward_launches(torch, unet, x, t):
+    """The launches of one full UNet forward and of one on its cache."""
+    with torch.inference_mode():
+        read = reset_launches()
+        _, cache = unet(x, t, return_cache=True)
+        full = read()
+        read = reset_launches()
+        unet(x, t, cache=cache)
+        return full, read()
+
+
+def convert_serve_phase(torch, dev, tmp):
+    """Phase 41: for each domain at a small config (image: celebahq with
+    the VAE cut to 32 channels and 1 block a level and the UNet to 2
+    levels of 64 channels, the INR at full width, which inr_decode takes;
+    video, occupancy, NeRF: phase 38's), a synthetic reference ldm file
+    from seeded weights, converted by cli/convert_reference_ckpt.py into
+    the port's checkpoints, then served by cli/serve.py's build_service
+    with --turbo 2 over HTTP (NFE 4: two full forwards and two on the
+    cache).  Checks: /healthz reports the reference step; the served UNet
+    holds the file's EMA; the launches of a full forward, a cached one,
+    an exact sampling batch and each --turbo 2 request are exactly
+    CONVERT_SERVE_LAUNCHES's, and a request's are also an exact batch's
+    less 2 x (a full forward's - a cached forward's); every domain's formats
+    (image npy and png, video and NeRF npy and gif when PIL imports;
+    occupancy obj and npz, and npy refused with 400).  -> launches."""
+    import dataclasses
+
+    import numpy as np
+    import yaml
+
+    from ddmi_tpu_torch.cli.convert_reference_ckpt import convert
+    from ddmi_tpu_torch.cli.main import pipeline_class
+    from ddmi_tpu_torch.cli.serve import build_service, parse_args
+    from ddmi_tpu_torch.core.config import load_config
+
+    cfgs = cli_small_configs()
+    conv = os.path.join(tmp, "convocc_small.yaml")
+    with open(conv, "w") as f:
+        yaml.safe_dump(SMALL_CONVOCC, f)
+    cfgs["occupancy"]["data"]["conv_config"] = conv
+    cut = {"model_channels": 64, "channel_mult": [1, 2], "attention_resolutions": [2],
+           "num_res_blocks": 1}
+    image = ("configs/ldm/celebahq.yaml", {"unetconfig": cut,
+                                          "ddconfig": {"ch": 32, "num_res_blocks": 1},
+                                          "ddpmconfig": {"sampling_timesteps": 4}})
+    pil = have_pil()
+    formats = {"image": ["npy"] + (["png"] if pil else []),
+               "video": ["npy"] + (["gif"] if pil else []),
+               "nerf": ["npy"] + (["gif"] if pil else []), "occupancy": ["obj", "npz", "npy"]}
+    serve_args = {"image": ["--resolution", "256"], "video": [],
+                  "nerf": ["--resolution", "64", "--n-views", "2"],
+                  "occupancy": ["--mesh-resolution0", "32", "--mesh-upsampling", "0"]}
+    total = collections.Counter()
+    for domain in ("image", "video", "occupancy", "nerf"):
+        sub = os.path.join(tmp, domain)
+        os.makedirs(sub)
+        t0 = time.perf_counter()
+        src, params = image if domain == "image" else (cfgs[domain], None)
+        path = cli_yaml(sub, src, "serve.yaml", {"dataset": "synthetic", "mode": "gen"}, params)
+        cfg = load_config(path, exp="ldm")
+        pipe = pipeline_class(domain)(cfg, device=dev, seed=cfg.seed)
+        perturb_zero_init(pipe, 41)
+        if domain == "occupancy":  # a field with a surface, as phase 38 shifts it
+            pipe.cast(torch.bfloat16)
+            with torch.no_grad():
+                z = pipe.sample_latents(1, generator=torch.Generator(device=dev).manual_seed(0))
+            recentre_field(torch, pipe, z)
+        pt = os.path.join(sub, "ldm-last.pt")
+        reference_file(torch, pipe, pt, domain == "video")
+        del pipe
+        convert("ldm", path, pt, device=dev)
+        svc = build_service(parse_args(["--configs", path, "--batch", "2", "--turbo", "2",
+                                        "--linger-ms", "0", "--device", str(dev)]
+                                       + serve_args[domain]))
+        httpd, url = start_http(svc)
+        try:
+            health = json.loads(http_call(url, "/healthz")[2])
+            ema = torch.load(pt, map_location="cpu", weights_only=True)["ema"]
+            w = svc.pipe.unet.out[2].weight
+            held = torch.equal(w.float().cpu(), ema["ema_model.model.out.2.weight"].to(w.dtype).float())
+            # the per-forward launches at the service's latent shape
+            shape = svc._noise_shape
+            x = torch.zeros((svc.batch,) + shape, device=dev)
+            if domain != "video":
+                x = x.permute(0, 3, 1, 2).contiguous()
+            t = torch.full((svc.batch,), 5, device=dev, dtype=torch.long)
+            full, cached = forward_launches(torch, svc.pipe.unet, x, t)
+            gd = svc.pipe.gd
+            svc.pipe.gd = dataclasses.replace(gd, encoder_reuse=1)
+            read = reset_launches()
+            try:
+                exact = http_call(url, "/generate", {"n": 1, "seed": 3, "format": formats[domain][0]})
+            finally:
+                svc.pipe.gd = gd
+            exact_l = read()
+            nonzero = lambda c: {k: v for k, v in c.items() if v}
+            want = CONVERT_SERVE_LAUNCHES[domain]
+            seen = {"full": full, "cached": cached, "exact": exact_l}
+            for what, got in seen.items():
+                if nonzero(got) != want[what]:
+                    raise AssertionError(f"{domain}: {what} launches {nonzero(got)}, expected "
+                                         f"{want[what]}")
+            expect = {k: exact_l[k] - 2 * (full[k] - cached[k]) for k in KERNELS}
+            if nonzero(expect) != want["turbo"]:
+                raise AssertionError(f"{domain}: an exact batch less 2 x (full - cached) is "
+                                     f"{nonzero(expect)}, not {want['turbo']}")
+            answers = {}
+            for fmt in formats[domain]:
+                read = reset_launches()
+                answers[fmt] = http_call(url, "/generate", {"n": 1, "seed": 3, "format": fmt})
+                got = read()
+                total.update(got)
+                if got != expect:
+                    raise AssertionError(f"{domain} --turbo 2 {fmt}: launches {got}, expected "
+                                         f"{expect}")
+        finally:
+            stop_http(httpd)
+            svc.close()
+        total.update(exact_l)
+        status = {f: a[:2] for f, a in answers.items()}
+        log(f"[convert-serve] {domain}: converted and served in {time.perf_counter() - t0:.1f} "
+            f"s; /healthz {health}; the UNet holds the file's EMA: {held}; a full forward "
+            f"{ {k: v for k, v in full.items() if v} }, a cached one "
+            f"{ {k: v for k, v in cached.items() if v} }; an exact batch "
+            f"{ {k: v for k, v in exact_l.items() if v} }, each --turbo 2 request "
+            f"{ {k: v for k, v in expect.items() if v} }; formats {status}")
+        ok = {"image": "application/octet-stream", "png": "image/png", "gif": "image/gif",
+              "obj": "text/plain", "npz": "application/octet-stream"}
+        for fmt, (code, ctype, body, _) in answers.items():
+            if domain == "occupancy" and fmt == "npy":
+                if code != 400 or "not valid for domain 'occupancy'" not in body.decode():
+                    raise AssertionError(f"occupancy answered npy with {code} {body[:200]}")
+            elif code != 200 or ctype != ok.get(fmt, ok["image"]):
+                raise AssertionError(f"{domain} answered {fmt} with {code} {ctype}")
+        if domain == "occupancy":
+            obj, arch = answers["obj"][2].decode(), npy(answers["npz"][2])
+            log(f"[convert-serve] occupancy: OBJ {obj.count(chr(10) + 'v ')} vertices, "
+                f"{obj.count(chr(10) + 'f ')} faces; npz {sorted(arch.files)}")
+            if not obj.startswith("o mesh_0") or sorted(arch.files) != ["faces_0", "verts_0"]:
+                raise AssertionError("the occupancy bodies are malformed")
+        elif npy(answers["npy"][2]).dtype != np.uint8:
+            raise AssertionError(f"{domain}'s npy body is not uint8")
+        if (health["step"] != REFERENCE_STEP or health["initialized"] or not held
+                or exact[0] != 200):
+            raise AssertionError(f"{domain}: the converted service failed its checks")
+        torch.cuda.empty_cache()
+    return dict(total)
+
+
 def build_report(name, ptxas) -> None:
     """Registers, spills and dynamic shared memory of each kernel of a
     library built in this run, from the ptxas report and the libraries' own
@@ -4221,7 +4770,7 @@ def main() -> int:
     ctmp = tempfile.mkdtemp(prefix="cli_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         cli = collections.Counter(fid_n)
-        for fn in (cli_nerf_phase, cli_image_phase, cli_small_phase):
+        for fn in (cli_nerf_phase, cli_image_phase, cli_small_phase, convert_serve_phase):
             sub = os.path.join(ctmp, fn.__name__)
             os.makedirs(sub)
             cli.update(fn(torch, dev, sub))
@@ -4229,7 +4778,8 @@ def main() -> int:
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ctmp, ignore_errors=True)
-    log(f"[cli] launches of FID-n at full width and the CLI's gen and eval runs: {dict(cli)}; "
+    log(f"[cli] launches of FID-n at full width, the CLI's gen and eval runs and phases 40-41's "
+        f"serving: {dict(cli)}; "
         f"metric networks {json.dumps(nets)}; this process wrote {write_bytes()} in all")
 
     kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]

@@ -79,11 +79,8 @@ def build_dataset(cfg, train: bool = True):
     raise NotImplementedError(d.domain)
 
 
-def build_pipeline(cfg, device="cuda"):
-    """The domain's pipeline on `device`, its weights drawn from cfg.seed;
-    stage-1 image and video training gets LPIPS
-    (evals/lpips.py::build_perceptual), which the other modes never call."""
-    domain = cfg.data.domain
+def pipeline_class(domain: str):
+    """The pipeline class of a domain."""
     if domain == "image":
         from ddmi_tpu_torch.domains.image import ImagePipeline as Pipeline
     elif domain == "video":
@@ -94,6 +91,15 @@ def build_pipeline(cfg, device="cuda"):
         from ddmi_tpu_torch.domains.nerf import NeRFPipeline as Pipeline
     else:
         raise NotImplementedError(domain)
+    return Pipeline
+
+
+def build_pipeline(cfg, device="cuda"):
+    """The domain's pipeline on `device`, its weights drawn from cfg.seed;
+    stage-1 image and video training gets LPIPS
+    (evals/lpips.py::build_perceptual), which the other modes never call."""
+    domain = cfg.data.domain
+    Pipeline = pipeline_class(domain)
     if cfg.exp == "d2c-vae" and domain in ("image", "video") and cfg.data.mode == "train":
         from ddmi_tpu_torch.evals.lpips import build_perceptual
 

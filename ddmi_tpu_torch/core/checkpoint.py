@@ -9,13 +9,20 @@ place, so a crash never leaves a torn file or loses the last complete
 copy.  What is saved is a state's `state_dict()` (or a plain dict) of
 tensors and Python scalars; `restore` loads the newest (or a given) step
 and copies it into a state of the same layout, in place.
+
+The trainer saves `{"state": ..., "generators": [...]}` under the prefixes
+`stage1` (state["params"]: `<module>.<name>` of the stage-1 modules) and
+`stage2` (state["params"] and state["ema"]: `unet.<name>` and
+`mixing_logit`).  `stage1_weights` and `stage2_weights` read the weights
+alone out of the newest of them, on the CPU, for the trainer and the
+sampling service.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -26,12 +33,13 @@ class CheckpointManager:
         self.prefix = prefix
         self.max_to_keep = max_to_keep
         self.root = os.path.join(self.directory, prefix)
-        os.makedirs(self.root, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.root, f"{int(step)}.pt")
 
     def all_steps(self) -> List[int]:
+        if not os.path.isdir(self.root):
+            return []
         return sorted(int(m.group(1)) for m in
                       (re.fullmatch(r"(\d+)\.pt", f) for f in os.listdir(self.root)) if m)
 
@@ -46,6 +54,7 @@ class CheckpointManager:
         of this step is replaced only with `overwrite`, after the new one is
         complete."""
         del force
+        os.makedirs(self.root, exist_ok=True)
         path = self._path(step)
         if os.path.exists(path) and not overwrite:
             raise FileExistsError(f"checkpoint {path} exists (pass overwrite=True)")
@@ -57,15 +66,42 @@ class CheckpointManager:
             os.remove(self._path(old))
 
     def restore(self, state_like: Any = None, step: Optional[int] = None,
-                map_location: Any = "cpu") -> Any:
+                map_location: Any = "cpu", mmap: bool = False) -> Any:
         """The saved object of `step` (the newest when None).  With a
         `state_like` that has load_state_dict, the object is copied into it
-        and the state returned."""
+        and the state returned.  `mmap` maps the file instead of reading
+        it: a tensor's bytes are read when it is used."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
-        obj = torch.load(self._path(step), map_location=map_location, weights_only=True)
+        obj = torch.load(self._path(step), map_location=map_location, weights_only=True,
+                         mmap=mmap)
         if state_like is not None and hasattr(state_like, "load_state_dict"):
             state_like.load_state_dict(obj)
             return state_like
         return obj
+
+
+def stage1_weights(directory: str, modules) -> Tuple[int, Dict[str, dict]]:
+    """The state_dicts of the stage-1 `modules` (e.g. ("vae", "mlp")) in
+    the newest `<directory>/stage1` checkpoint, on the CPU; -> (its step,
+    {module: state_dict}).  FileNotFoundError when there is none.  The
+    file is mapped, so only the weights are read, not the optimizer's
+    moments."""
+    ckpt = CheckpointManager(directory, prefix="stage1")
+    step = ckpt.latest_step()
+    params = ckpt.restore(step=step, mmap=True)["state"]["params"]
+    return step, {name: {k[len(name) + 1:]: v for k, v in params.items()
+                         if k.startswith(name + ".")} for name in modules}
+
+
+def stage2_weights(directory: str, use_ema: bool = True) -> Tuple[int, Dict[str, Any]]:
+    """The UNet's state_dict and the mixing logit of the newest
+    `<directory>/stage2` checkpoint, its EMA copy unless `use_ema` is off,
+    on the CPU; -> (the state's step, {"unet": state_dict, "mixing_logit":
+    tensor}).  FileNotFoundError when there is none.  The file is mapped,
+    so of celebahq's 18 GB train state only the served copy is read."""
+    state = CheckpointManager(directory, prefix="stage2").restore(mmap=True)["state"]
+    weights = state["ema"] if use_ema else state["params"]
+    unet = {k[len("unet."):]: v for k, v in weights.items() if k.startswith("unet.")}
+    return int(state["step"]), {"unet": unet, "mixing_logit": weights["mixing_logit"]}

@@ -40,8 +40,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ddmi_tpu_torch.core.checkpoint import CheckpointManager
+from ddmi_tpu_torch.core.checkpoint import CheckpointManager, stage1_weights
 from ddmi_tpu_torch.core.metrics import MetricsLogger, ProfilerHook
+from ddmi_tpu_torch.utils.mesh_io import write_off
 
 
 class NaNLossError(RuntimeError):
@@ -215,12 +216,9 @@ class Trainer:
         """Load the stage-1 modules (`pipe.stage1_modules`: the VAE and the
         INR, and the pointnet of the 3D domains) of the newest stage-1
         checkpoint in the save directory into the pipeline; -> its step."""
-        ckpt = CheckpointManager(self.save_dir, prefix="stage1")
-        step = ckpt.latest_step()
-        params = ckpt.restore(step=step)["state"]["params"]
-        for name in self.pipe.stage1_modules:
-            getattr(self.pipe, name).load_state_dict(
-                {k[len(name) + 1:]: v for k, v in params.items() if k.startswith(name + ".")})
+        step, weights = stage1_weights(self.save_dir, self.pipe.stage1_modules)
+        for name, sd in weights.items():
+            getattr(self.pipe, name).load_state_dict(sd)
         return step
 
     def train_stage2(self, epochs: Optional[int] = None, resume: bool = False,
@@ -306,7 +304,7 @@ class Trainer:
                 meshes = pipe.extract_meshes(pipe.sample_latents(n, generator=g))
                 os.makedirs(out_dir, exist_ok=True)
                 for i, (verts, tris) in enumerate(meshes):
-                    _save_off(os.path.join(out_dir, f"mesh_{i}.off"), verts, tris)
+                    write_off(os.path.join(out_dir, f"mesh_{i}.off"), verts, tris)
                 return meshes
             if domain == "nerf":
                 res = resolution or 128
@@ -695,17 +693,6 @@ def sampling_weights(pipe, state):
         yield pipe
 
 
-def _save_off(path: str, verts: np.ndarray, tris: np.ndarray) -> None:
-    """A triangle mesh as an OFF file."""
-    with open(path, "w") as f:
-        f.write("OFF\n")
-        f.write(f"{len(verts)} {len(tris)} 0\n")
-        for v in verts:
-            f.write(f"{v[0]} {v[1]} {v[2]}\n")
-        for t in tris:
-            f.write(f"3 {t[0]} {t[1]} {t[2]}\n")
-
-
 def default_stage2_eval_hook(trainer: Trainer, state, epoch: int) -> None:
     """The stage-2 eval after each save: sample with the EMA weights from a
     generator seeded cfg.seed + 100 + epoch and save the samples under
@@ -739,7 +726,7 @@ def default_stage2_eval_hook(trainer: Trainer, state, epoch: int) -> None:
                 verts, tris = MeshGenerator(pipe.decode_logits_fn(z), upsampling_steps=0,
                                             resolution0=32, device=pipe.device).generate()
                 os.makedirs(out_dir, exist_ok=True)
-                _save_off(os.path.join(out_dir, f"ep{epoch}.off"), verts, tris)
+                write_off(os.path.join(out_dir, f"ep{epoch}.off"), verts, tris)
     except Exception as e:  # an eval must never end a training run
         warnings.warn(f"stage2 eval hook failed: {e}\n{traceback.format_exc()}")
         trainer.logger.log(epoch, {"eval_hook_failures": 1.0}, prefix="s2/")

@@ -75,6 +75,9 @@ class GaussianDiffusion:
     original_elbo_weight: float = 0.0
     l_simple_weight: float = 1.0
     clip_denoised: bool = False
+    # ddpmconfig.extra["encoder_reuse"]: > 1 samples with encoder
+    # propagation (ddim_sample_unet; the serving CLI's --turbo)
+    encoder_reuse: int = 1
 
     @classmethod
     def from_config(cls, c) -> "GaussianDiffusion":
@@ -92,6 +95,7 @@ class GaussianDiffusion:
             original_elbo_weight=c.original_elbo_weight,
             l_simple_weight=c.l_simple_weight,
             clip_denoised=c.clip_denoised,
+            encoder_reuse=int(c.extra.get("encoder_reuse", 1)),
         )
 
     @property
@@ -185,6 +189,18 @@ def _ddim_update(sched: DiffusionSchedule, eta: float, img, pred_noise, x_start,
     return img_next
 
 
+def _ddim_step(gd: GaussianDiffusion, sched: DiffusionSchedule, model_fn: ModelFn,
+               mixing_logit, img, time: int, time_next: int,
+               generator: Optional[torch.Generator]):
+    """The model's predictions at `time`, then the DDIM update to `time_next`."""
+    t_vec = torch.full((img.shape[0],), time, dtype=torch.long, device=img.device)
+    pred_noise, x_start = model_predictions(
+        gd, model_fn, mixing_logit, img, t_vec, clip_x_start=gd.clip_denoised
+    )
+    return _ddim_update(sched, gd.ddim_sampling_eta, img, pred_noise, x_start, time,
+                        time_next, generator)
+
+
 @torch.inference_mode()
 def ddim_sample(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit,
                 shape: Tuple[int, ...], *, noise: Optional[torch.Tensor] = None,
@@ -196,23 +212,65 @@ def ddim_sample(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit,
         noise = torch.randn(shape, generator=generator, device=device)
     img = noise.float()
     sched = gd.schedule.to(img.device)
-    batch = shape[0]
     for time, time_next in ddim_times(gd.num_timesteps, gd.sampling_timesteps).tolist():
-        t_vec = torch.full((batch,), time, dtype=torch.long, device=img.device)
-        pred_noise, x_start = model_predictions(
-            gd, model_fn, mixing_logit, img, t_vec, clip_x_start=gd.clip_denoised
-        )
-        img = _ddim_update(
-            sched, gd.ddim_sampling_eta, img, pred_noise, x_start, time, time_next,
-            generator,
-        )
+        img = _ddim_step(gd, sched, model_fn, mixing_logit, img, time, time_next, generator)
+    return img
+
+
+@torch.inference_mode()
+def ddim_sample_encoder_reuse(gd: GaussianDiffusion, full_fn, reuse_fn, mixing_logit,
+                              shape: Tuple[int, ...], reuse: int, *,
+                              noise: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None,
+                              device=None) -> torch.Tensor:
+    """DDIM with encoder propagation (arXiv:2312.09608, "Faster Diffusion"):
+    the first step of every group of `reuse` steps runs the full denoiser
+    and caches its down-path features, and the group's other reuse - 1
+    steps run only the middle and up paths on that cache under their own
+    timestep.  Each update still reads the current x_t, so the trajectory
+    follows the sample; the cache stands in for slowly varying encoder
+    features.  The NFE % reuse steps left over at the end run in full.
+
+    `full_fn(x, t) -> (model_out, cache)`, `reuse_fn(x, t, cache) ->
+    model_out`.  reuse = 1 is `ddim_sample` exactly; a larger reuse changes
+    the samples (turbo sampling is opt-in, never the default)."""
+    if reuse < 1:
+        raise ValueError(f"reuse must be >= 1, got {reuse}")
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=device)
+    img = noise.float()
+    sched = gd.schedule.to(img.device)
+    pairs = ddim_times(gd.num_timesteps, gd.sampling_timesteps).tolist()
+    grouped = len(pairs) // reuse * reuse
+    cache = None
+
+    def caching(x, t):
+        nonlocal cache
+        out, cache = full_fn(x, t)
+        return out
+
+    for i, (time, time_next) in enumerate(pairs):
+        if i >= grouped:
+            fn = lambda x, t: full_fn(x, t)[0]
+        elif i % reuse == 0:
+            fn = caching
+        else:
+            fn = lambda x, t: reuse_fn(x, t, cache)
+        img = _ddim_step(gd, sched, fn, mixing_logit, img, time, time_next, generator)
     return img
 
 
 def ddim_sample_unet(gd: GaussianDiffusion, unet, mixing_logit, shape, *,
                      noise=None, generator=None, device=None) -> torch.Tensor:
     """DDIM with a UNet (nn/unet.py, or the TriplaneUNet of
-    nn/unet_triplane.py over tokens) as the denoiser (encoder reuse = 1)."""
+    nn/unet_triplane.py over tokens) as the denoiser; gd.encoder_reuse > 1
+    samples with encoder propagation through the UNet's cache split."""
+    if gd.encoder_reuse > 1:
+        return ddim_sample_encoder_reuse(
+            gd, lambda x, t: unet(x, t, return_cache=True),
+            lambda x, t, c: unet(x, t, cache=c), mixing_logit, shape, gd.encoder_reuse,
+            noise=noise, generator=generator, device=device,
+        )
     return ddim_sample(
         gd, lambda x, t: unet(x, t), mixing_logit, shape, noise=noise,
         generator=generator, device=device,

@@ -280,8 +280,6 @@ class ImagePipeline(LatentTraining, nn.Module):
         m = cfg.model
         if m.DiT:
             raise NotImplementedError("the MDTv2 denoiser is not ported")
-        if int(m.ddpmconfig.extra.get("encoder_reuse", 1)) != 1:
-            raise NotImplementedError("encoder_reuse > 1 is not ported")
         self.cfg = cfg
         device = resolve_device(device)
         cuda = [device.index or 0] if device.type == "cuda" else []

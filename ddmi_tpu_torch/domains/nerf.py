@@ -147,8 +147,6 @@ class NeRFPipeline(TriplaneTraining, nn.Module):
         m = cfg.model
         if m.DiT:
             raise NotImplementedError("the MDTv2 denoiser is not ported")
-        if int(m.ddpmconfig.extra.get("encoder_reuse", 1)) != 1:
-            raise NotImplementedError("encoder_reuse > 1 is not ported")
         self.cfg = cfg
         dd = m.ddconfig
         if cfg.data.conv_config:

@@ -78,8 +78,6 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
         m = cfg.model
         if m.DiT:
             raise NotImplementedError("the MDTv2 denoiser is not ported")
-        if int(m.ddpmconfig.extra.get("encoder_reuse", 1)) != 1:
-            raise NotImplementedError("encoder_reuse > 1 is not ported")
         self.cfg = cfg
         dd = m.ddconfig
         self.generation_kwargs = generation_kwargs({})

@@ -84,8 +84,6 @@ class VideoPipeline(LatentTraining, nn.Module):
         m = cfg.model
         if m.DiT:
             raise NotImplementedError("the MDTv2 denoiser is not ported")
-        if int(m.ddpmconfig.extra.get("encoder_reuse", 1)) != 1:
-            raise NotImplementedError("encoder_reuse > 1 is not ported")
         self.cfg = cfg
         self.frames = cfg.data.frames
         self.res = m.ddconfig.resolution
@@ -147,16 +145,22 @@ class VideoPipeline(LatentTraining, nn.Module):
         ts, ys, xs = video_axes(self.frames, self.res, self.res, self.device)
         return self.mlp(hdbf, (ts[frame : frame + 1], ys, xs))
 
+    def sample_latents(self, batch: int, noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """DDIM -> z (batch, n_latent_tokens, C) fp32, the DDIM of
+        `sample_videos`; `noise` is the initial latent, else it is drawn
+        from `generator`."""
+        shape = (batch, self.n_latent_tokens, self.cfg.model.ddpmconfig.channels)
+        return ddim_sample_unet(self.gd, self.unet, self.mixing_logit, shape, noise=noise,
+                                generator=generator, device=self.device)
+
     @torch.inference_mode()
     def sample_videos(self, batch: int, noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """DDIM + triplane decode + INR render -> (batch, frames, res, res,
         out_ch) in [0, 1], fp32.  `noise` (batch, n_latent_tokens, C) is the
         initial latent; without it the latent is drawn from `generator`."""
-        d = self.cfg.model.ddpmconfig
-        shape = (batch, self.n_latent_tokens, d.channels)
-        z = ddim_sample_unet(self.gd, self.unet, self.mixing_logit, shape, noise=noise,
-                             generator=generator, device=self.device)
+        z = self.sample_latents(batch, noise, generator)
         hdbf = self.vae.decode(z.to(self.vae.post_xy.weight.dtype))
         # one frame at a time, as the JAX package's lax.map: the whole voxel
         # grid (16 x 256^2 tokens at batch 2) would hold every MLP

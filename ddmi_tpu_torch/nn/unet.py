@@ -160,7 +160,15 @@ def _num_heads(ch: int, cfg) -> int:
 
 
 class UNet(nn.Module):
-    """The denoiser: x (b, c_in, h, w), t (b,) -> (b, c_out, h, w) fp32."""
+    """The denoiser: x (b, c_in, h, w), t (b,) -> (b, c_out, h, w) fp32.
+
+    Encoder propagation (turbo sampling, arXiv:2312.09608), as the JAX
+    UNet's: `return_cache=True` also returns the down path's features (the
+    bottleneck input and the skip stack); a later call with `cache=` skips
+    `input_blocks` (the stem and the down path) and runs the middle and up
+    paths on the cached features under the current timestep embedding.
+    Exact when x and t are the caching call's; across DDIM steps an
+    approximation (diffusion/process.py::ddim_sample_encoder_reuse)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -213,19 +221,24 @@ class UNet(nn.Module):
         nn.init.zeros_(self.out[2].weight)
         nn.init.zeros_(self.out[2].bias)
 
-    def forward(self, x, t):
+    def forward(self, x, t, *, cache=None, return_cache: bool = False):
         dtype = self.time_embed[0].weight.dtype
         emb = self.time_embed(timestep_embedding(t, self.cfg.model_channels).to(dtype))
-        h = x.to(dtype)
-        if h.is_cuda:
-            h = h.contiguous(memory_format=torch.channels_last)
-        hs = []
-        for module in self.input_blocks:
-            h = module(h, emb)
-            hs.append(h)
+        if cache is not None:
+            h, hs = cache[0], list(cache[1])
+        else:
+            h = x.to(dtype)
+            if h.is_cuda:
+                h = h.contiguous(memory_format=torch.channels_last)
+            hs = []
+            for module in self.input_blocks:
+                h = module(h, emb)
+                hs.append(h)
+        out_cache = (h, tuple(hs))
         h = self.middle_block(h, emb)
         for module in self.output_blocks:
             h = module(torch.cat([h, hs.pop()], dim=1), emb)
         h = self.out[1](self.out[0](h))
         conv = self.out[2]
-        return F.conv2d(h.float(), conv.weight.float(), conv.bias.float(), padding=1)
+        out = F.conv2d(h.float(), conv.weight.float(), conv.bias.float(), padding=1)
+        return (out, out_cache) if return_cache else out

@@ -68,7 +68,9 @@ def cross_plane(attn: nn.Module, planes):
 
 class TriplaneUNet(UNet):
     """x (b, n, c_in) tokens [xy | xt | yt], t (b,) -> (b, n, c_out) fp32.
-    cfg.plane_sizes gives the three planes' (h, w)."""
+    cfg.plane_sizes gives the three planes' (h, w).  `cache=` and
+    `return_cache=` split it as they split the UNet, with the cache
+    (planes, skips) after the down path and its cross-plane attentions."""
 
     def __init__(self, cfg):
         super().__init__(cfg)
@@ -90,16 +92,20 @@ class TriplaneUNet(UNet):
             for _ in range(cfg.num_res_blocks + 1)
         )
 
-    def forward(self, x, t):
+    def forward(self, x, t, *, cache=None, return_cache: bool = False):
         dtype = self.time_embed[0].weight.dtype
         emb = self.time_embed(timestep_embedding(t, self.cfg.model_channels).to(dtype))
-        planes = split_tokens(x.to(dtype), [tuple(s) for s in self.cfg.plane_sizes])
-        skips = []
-        for i, (module, xattn) in enumerate(zip(self.input_blocks, self.input_attns)):
-            planes = plane_map(module, planes, emb)
-            if i:
-                planes = cross_plane(xattn, planes)
-            skips.append(planes)
+        if cache is not None:
+            planes, skips = list(cache[0]), [list(s) for s in cache[1]]
+        else:
+            planes = split_tokens(x.to(dtype), [tuple(s) for s in self.cfg.plane_sizes])
+            skips = []
+            for i, (module, xattn) in enumerate(zip(self.input_blocks, self.input_attns)):
+                planes = plane_map(module, planes, emb)
+                if i:
+                    planes = cross_plane(xattn, planes)
+                skips.append(planes)
+        out_cache = (tuple(planes), tuple(tuple(s) for s in skips))
         planes = cross_plane(self.mid_attn, plane_map(self.middle_block, planes, emb))
         for module, xattn in zip(self.output_blocks, self.output_attns):
             planes = [torch.cat([p, s], dim=1) for p, s in zip(planes, skips.pop())]
@@ -111,4 +117,5 @@ class TriplaneUNet(UNet):
             return torch.nn.functional.conv2d(h.float(), conv.weight.float(),
                                               conv.bias.float(), padding=1)
 
-        return cat_tokens(plane_map(head, planes))
+        out = cat_tokens(plane_map(head, planes))
+        return (out, out_cache) if return_cache else out

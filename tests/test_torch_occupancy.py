@@ -5,7 +5,8 @@ parameters), the pointnet's cell index and pooling, the triplane encoder and
 posterior, the decoder's HDBF taps, `OccupancyPipeline.sample_latents` at
 NFE 4 and the logits, the port's geometry library (MISE, marching cubes),
 the lockstep mesh extractor, mesh refinement, the occupancy
-`SamplerService`, and the weight bridge.
+`SamplerService`, the weight bridge, and the host utilities (mesh and
+point-cloud IO, ICP, the plots: the same bytes and arrays as JAX's).
 
 Tolerances: the fp32 coordinate helpers max|diff| <= 1e-6 * max(1,
 max|ref|), the cell index exact; modules <= 1e-4 * max(1, max|ref|) (fp32
@@ -916,3 +917,87 @@ def test_grid_sample_under_a_coordinate_gradient_matches_jax(span):
     dd, = torch.autograd.grad((d**2).sum(), g)
     _close(d.detach(), ref_grad, "d/dgrid", rel=1e-5)
     _close(dd, ref_hvp, "second derivative", rel=1e-4)
+
+
+# --------------------------------------------------- host utilities
+
+
+@pytest.mark.parametrize("as_text", [True, False])
+def test_mesh_io_matches_jax(tmp_path, as_text):
+    """ddmi_tpu_torch/utils/mesh_io.py against ddmi_tpu/utils/mesh_io.py:
+    the same PLY and OFF bytes, the same arrays read back (the ModelNet
+    OFF quirk included), the same refusals."""
+    from ddmi_tpu.utils import mesh_io as ref
+    from ddmi_tpu_torch.utils import mesh_io
+
+    rng = np.random.default_rng(31)
+    pts = rng.standard_normal((65, 3)).astype(np.float32)
+    verts = rng.uniform(-0.5, 0.5, (12, 3)).astype(np.float32)
+    tris = rng.integers(0, 12, (20, 3))
+    for mod, name in ((mesh_io, "ours"), (ref, "ref")):
+        mod.export_pointcloud(pts, str(tmp_path / f"{name}.ply"), as_text=as_text)
+        mod.write_off(str(tmp_path / f"{name}.off"), verts, tris)
+    for ext in ("ply", "off"):
+        assert (tmp_path / f"ours.{ext}").read_bytes() == (tmp_path / f"ref.{ext}").read_bytes()
+    ply = str(tmp_path / "ours.ply")
+    assert np.array_equal(mesh_io.load_pointcloud(ply), ref.load_pointcloud(ply))
+    assert mesh_io.read_off(str(tmp_path / "ours.off")) == ref.read_off(str(tmp_path / "ref.off"))
+    (tmp_path / "quirk.off").write_text("OFF3 1 0\n0 0 0\n1 0 0\n0 1 0\n3 0 1 2\n")
+    assert mesh_io.read_off(str(tmp_path / "quirk.off")) == ref.read_off(str(tmp_path / "quirk.off"))
+    (tmp_path / "quad.off").write_text("OFF\n4 1 0\n0 0 0\n1 0 0\n1 1 0\n0 1 0\n4 0 1 2 3\n")
+    for mod in (mesh_io, ref):
+        with pytest.raises(ValueError):
+            mod.read_off(str(tmp_path / "quad.off"))
+        with pytest.raises(ValueError):
+            mod.export_pointcloud(pts[:, :2], str(tmp_path / "bad.ply"))
+
+
+def test_icp_matches_jax():
+    """ddmi_tpu_torch/utils/icp.py against ddmi_tpu/utils/icp.py: the same
+    transform, distances and iteration count on the same clouds."""
+    import importlib
+
+    # the packages export an `icp` function beside the module
+    ref = importlib.import_module("ddmi_tpu.utils.icp")
+    icp = importlib.import_module("ddmi_tpu_torch.utils.icp")
+
+    rng = np.random.default_rng(32)
+    a = rng.random((300, 3))
+    th = 0.07
+    rot = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+    b = a @ rot.T + np.array([0.02, -0.01, 0.03])
+    for got, want in zip(icp.best_fit_transform(a, b), ref.best_fit_transform(a, b)):
+        assert np.array_equal(got, want)
+    for got, want in zip(icp.nearest_neighbor(a, b), ref.nearest_neighbor(a, b)):
+        assert np.array_equal(got, want)
+    got = icp.icp(a, b, max_iterations=30, tolerance=1e-9)
+    want = ref.icp(a, b, max_iterations=30, tolerance=1e-9)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert got[2] == want[2] < 30
+    hom = np.concatenate([a, np.ones((len(a), 1))], 1)
+    assert np.abs((got[0] @ hom.T).T[:, :3] - b).max() < 1e-3
+
+
+def test_visualize_matches_jax(tmp_path):
+    """ddmi_tpu_torch/utils/visualize.py against ddmi_tpu/utils/visualize.py:
+    the same PNG bytes for voxels, a point cloud with normals and an image;
+    the same refusal of an unknown type."""
+    pytest.importorskip("matplotlib")
+    from ddmi_tpu.utils import visualize as ref
+    from ddmi_tpu_torch.utils import visualize
+
+    vox = np.zeros((5, 5, 5), bool)
+    vox[1:3, 2:4, 1:4] = True
+    pts = np.random.default_rng(33).random((40, 3)) - 0.5
+    img = np.random.default_rng(34).random((3, 8, 8))
+    for mod, name in ((visualize, "ours"), (ref, "ref")):
+        mod.visualize_voxels(vox, out_file=str(tmp_path / f"{name}_vox.png"))
+        mod.visualize_pointcloud(pts, normals=0.1 * pts, out_file=str(tmp_path / f"{name}_pc.png"))
+        mod.visualize_data(img, "img", str(tmp_path / f"{name}_img.png"))
+        mod.visualize_data(None, None, str(tmp_path / "never.png"))
+        with pytest.raises(ValueError):
+            mod.visualize_data(vox, "bogus", str(tmp_path / "never.png"))
+    assert not (tmp_path / "never.png").exists()
+    for what in ("vox", "pc", "img"):
+        ours = (tmp_path / f"ours_{what}.png").read_bytes()
+        assert len(ours) > 100 and ours == (tmp_path / f"ref_{what}.png").read_bytes(), what
