@@ -118,7 +118,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      256^2 and at 512^2, one inr_decode launch per call, pixels finite in
      [0, 1], PSNR logged; inr_decode against its plain version at both
      token counts;
- 23. adversarial stage 1 (configs/d2c-vae/celebahq_gan.yaml, 5
+ 23. adversarial stage 1 (configs/d2c-vae/celebahq_gan.yaml, 3
      micro-steps): the discriminator changes at every micro-step, the VAE
      and INR at none, finite losses, the extra time per micro-step;
  24. the stage-1 -> stage-2 hand-off: configs/ldm/celebahq.yaml's
@@ -142,7 +142,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
  27. video checkpoint and reconstruction: the state restored bit for bit
      into a scrambled one and a resumed run of 2 micro-steps; reconstruct
      of 2 clips (2 flash launches, pixels in [0, 1], PSNR);
- 28. adversarial video stage 1 (configs/d2c-vae/skytimelapse_gan.yaml, 5
+ 28. adversarial video stage 1 (configs/d2c-vae/skytimelapse_gan.yaml, 3
      checked micro-steps after 2 timed): the 2D and 3D discriminators
      change at every micro-step, the VAE and INR at none;
  29. video stage 2: Trainer.train_stage2 on configs/ldm/skytimelapse.yaml
@@ -150,8 +150,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      flash forward and backward counts per micro-step against the calls
      recorded in the run, finite losses, the parameters moving at every
      micro-step and the EMA at micro-steps 1 and 6 (copies before step
-     100); the state saved, restored bit for bit into a scrambled one and
-     resumed for a micro-step; a timed run, a micro-step split (encode / forward / backward /
+     100); at a cut TriplaneUNet (channel_mult (1, 2), one res block: the
+     full-width state is 10 GB a checkpoint) the state saved, restored bit
+     for bit into a scrambled one and resumed for a micro-step; a timed run, a micro-step split (encode / forward / backward /
      optimizer+EMA), a profile, and the stage-2 eval hook's EMA video
      sample (NFE 200) with the sampling path's exact counts;
  30. video train kernels: the flash forward with LSE and the backward
@@ -170,7 +171,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      render trains through the INRNeRF module, never nerf_mlp), finite
      losses, the parameters bit-unchanged through micro-step 19 and all
      changed at 20, the SN state changed at every one, the eval hook silent;
-     a timed run (micro-steps/s, scenes/s, peak memory), a split by the
+     a timed run of 5 (micro-steps/s, scenes/s, peak memory), a split by the
      stage1/* ranges (encode, decode, render, sn, backward, optimizer), the
      idle share and a profile; then configs/ldm/srn_cars.yaml's
      train_stage2 on that checkpoint (10 micro-steps: every counter 0, the
@@ -231,7 +232,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      cli/serve.py --turbo 2 over HTTP: the reference step, the file's EMA,
      each request's launches exactly an exact batch's less 2 x (a full
      forward's - a cached forward's), every format of the domain
-     (occupancy obj and npz, npy refused with 400).
+     (occupancy obj and npz, npy refused with 400);
+ 42. MDTv2 (model.DiT) generation at full width: the image SamplerService
+     on configs/ldm/celebahq.yaml with DiTConfig's widths (1024 tokens,
+     hidden 768, depth 12, 12 heads; served bf16, which promotes to fp32
+     on the fp32 latent as flax does), batch 8 at 256^2, NFE 50:
+     concurrent requests coalesce, a repeated seed is bit-identical,
+     inr_decode 1 a batch and no other launch; samples/s, one forward's
+     time;
+ 43. MDTv2 masked stage-2 training at full width (mask ratio 0.3, batch 5,
+     amp, accumulation over 5, 10 micro-steps, no checkpoint): no launch,
+     finite losses, parameters moving at micro-steps 5 and 10 only; ms a
+     micro-step, peak memory; at a cut width 2 micro-steps, a checkpoint,
+     the eval hook's 2 EMA images (inr_decode 1) and a resumed micro-step;
+ 44. the converter's DiT branch on a small config (a reference file with
+     maskedtransformer.py's keys), then cli/serve.py over HTTP: the step,
+     the file's EMA, one request with inr_decode 1; --turbo refused; gen
+     through the CLI;
+ 45. the UNet's options at celebahq's width, bf16: scale-shift norm with
+     1000 class labels (attn_block exactly 16 a forward, its output
+     against the plain block's), and the spatial transformer with a
+     77 x 512 context through 4 classifier-free-guided DDIM steps (no
+     attention kernel: its attention is plain PyTorch, as in JAX).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -326,8 +348,8 @@ LSE_MAX_ERR = 1e-4
 TRAIN_REF_LOSS_REL, TRAIN_REF_MIN_COS = 0.02, 0.999
 # stage-1 training on configs/d2c-vae/celebahq.yaml: batch 10 of 512^2
 # synthetic images (the multiscale targets need twice the 256^2 anchor),
-# accumulation over 5, 10 micro-steps; the adversarial config 5
-S1_BATCH, S1_RES, S1_STEPS, S1_GAN_STEPS = 10, 512, 10, 5
+# accumulation over 5, 10 micro-steps; the adversarial config 3
+S1_BATCH, S1_RES, S1_STEPS, S1_GAN_STEPS = 10, 512, 10, 3
 # one stage-1 micro-step at a small config, bf16 on the GPU against fp32 on
 # the CPU: the loss, each term (recon, KL, LPIPS, SN), the gradient cosine
 S1_REF_LOSS_REL, S1_REF_TERM_REL, S1_REF_MIN_COS = 0.02, 0.05, 0.999
@@ -335,11 +357,11 @@ S1_REF_LOSS_REL, S1_REF_TERM_REL, S1_REF_MIN_COS = 0.02, 0.05, 0.999
 # skytimelapse.yaml on its checkpoint): batches of 2 synthetic clips of 16 x
 # 256^2; stage 1 accumulates over 5, 10 micro-steps checked and 5 timed (the
 # steady window, micro-steps 2-5, holds the update at 5), the adversarial
-# config 5; per stage-1 micro-step one flash forward with LSE and
+# config 3; per stage-1 micro-step one flash forward with LSE and
 # one backward (the decoder's n = 20,480 cross-plane attention at hd 128; the
 # n = 73,728 one trains through the MEA above FLASH_TRAIN_MAX_TOKENS); stage 2
 # steps every micro-step, 10 of them
-V_BATCH, V1_STEPS, V1_TIMED, V1_GAN_STEPS, V2_STEPS = 2, 10, 5, 5, 10
+V_BATCH, V1_STEPS, V1_TIMED, V1_GAN_STEPS, V2_STEPS = 2, 10, 5, 3, 10
 V1_LAUNCHES = {"flash_attention": V1_STEPS, "flash_attention_bwd": V1_STEPS}
 # reconstructing 2 clips (the stage-1 eval hook, reconstruct): the decoder's
 # n = 20,480 and n = 73,728 cross-plane attentions through the flash forward
@@ -350,7 +372,7 @@ V_RECON_LAUNCHES = {"flash_attention": 2}
 # rate 0, so its parameters move at micro-step 20 (the update at 10 has rate
 # 0); shapenet stage 1 at batch 12 accumulates over 5, 10 micro-steps; both
 # stage 2s take 10 micro-steps; each stage 1 also a timed run
-N1_STEPS, N1_TIMED, O_BATCH, O1_STEPS, O1_TIMED, T2_STEPS = 20, 10, 12, 10, 10, 10
+N1_STEPS, N1_TIMED, O_BATCH, O1_STEPS, O1_TIMED, T2_STEPS = 20, 5, 12, 10, 5, 10
 # the occupancy stage-2 eval hook samples one latent at NFE 200 through the
 # shapenet UNet's 11 fused attention blocks per forward
 O2_HOOK_LAUNCHES = {"attn_block": 11 * OCC_NFE}
@@ -2557,8 +2579,9 @@ def reconstruct_phase(torch, dev, pipe):
 
 
 def stage1_gan_phase(torch, dev, tmp, plain_ms):
-    """configs/d2c-vae/celebahq_gan.yaml: 5 micro-steps through the
-    trainer, timed, then 5 more from a fresh state that are checked: the
+    """configs/d2c-vae/celebahq_gan.yaml: S1_GAN_STEPS (3) micro-steps
+    through the trainer, timed, then 3 more from a fresh state that are
+    checked: the
     discriminator changes at every one, the VAE and INR at none (the first
     window's update has rate 0); finite losses; the extra time per
     micro-step over the plain run's."""
@@ -2958,8 +2981,8 @@ def video_reconstruct_phase(torch, dev, pipe):
 
 
 def video_stage1_gan_phase(torch, dev, tmp, plain_ms):
-    """configs/d2c-vae/skytimelapse_gan.yaml: 2 micro-steps timed, then 5
-    from a fresh state checked: the 2D and 3D discriminators change at
+    """configs/d2c-vae/skytimelapse_gan.yaml: 2 micro-steps timed, then
+    V1_GAN_STEPS (3) from a fresh state checked: the 2D and 3D discriminators change at
     every micro-step, the VAE and INR at none (the first window's update
     has rate 0), finite losses, flash launches as the plain config's."""
     from ddmi_tpu_torch.core.trainer import Trainer
@@ -3003,6 +3026,75 @@ def video_stage1_gan_phase(torch, dev, tmp, plain_ms):
         raise AssertionError(f"video GAN: discriminators changed {disc_ok}, launches {bad[:2]}")
 
 
+def cut_state_checkpoint(torch, dev, cfg, tmp):
+    """The video stage-2 state saved as the trainer saves it, restored bit
+    for bit into a scrambled one and resumed for a micro-step, at a cut
+    TriplaneUNet (channel_mult (1, 2), one res block a level: the
+    full-width state is 10 GB a checkpoint, which the call's write budget
+    leaves no room for): one micro-step trained, the checkpoint, then the
+    resumed micro-step's loss finite and its flash forward and backward
+    launches equal (the inference kernels 0)."""
+    from ddmi_tpu_torch.core.checkpoint import CheckpointManager
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.domains.video import VideoPipeline
+
+    unet = dataclasses.replace(cfg.model.unetconfig, channel_mult=(1, 2), num_res_blocks=1)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, unetconfig=unet),
+        data=dataclasses.replace(cfg.data, extra={**cfg.data.extra, "steps_per_epoch": 1}))
+    pipe = VideoPipeline(cfg, device=dev, seed=cfg.seed)
+    perturb_zero_init(pipe.unet, 97)
+    state = Trainer(cfg, pipe, Clips(1, 9), save_dir=tmp).train_stage2(epochs=1, save=False)
+    ckpt = CheckpointManager(tmp, prefix="stage2")
+    step = state.step
+    gen = torch.Generator(device=dev).manual_seed(99)
+    t0 = time.perf_counter()
+    ckpt.save(step, {"state": state.state_dict(), "generators": [gen.get_state()]})
+    t_save = time.perf_counter() - t0
+    saved = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in flat_state(state.state_dict()).items()}
+    size = os.path.getsize(os.path.join(ckpt.root, f"{step}.pt"))
+    with torch.no_grad():
+        for t in list(state.params.values()) + list(state.ema.values()) + state.opt.mu:
+            t.add_(1.0)
+    state.step, state.opt.count = -1, -1
+
+    class Wrap:
+        def load_state_dict(self, sd):
+            state.load_state_dict(sd["state"])
+
+    t0 = time.perf_counter()
+    ckpt.restore(Wrap())
+    t_restore = time.perf_counter() - t0
+    now = flat_state(state.state_dict())
+    diff = [k for k in saved if not (torch.equal(saved[k], now[k]) if torch.is_tensor(saved[k])
+                                      else saved[k] == now[k])]
+    del saved, now
+    losses, step_fn = [], pipe.stage2_train_step
+
+    def recording(st, x, **kw):
+        out = step_fn(st, x, **kw)
+        losses.append(float(out[1]["loss"]))
+        return out
+
+    pipe.stage2_train_step = recording
+    read = reset_launches()
+    resumed = Trainer(cfg, pipe, Clips(1, 10), save_dir=tmp).train_stage2(epochs=1, resume=True,
+                                                                           save=False)
+    launches = read()
+    del pipe.stage2_train_step
+    n = sum(p.numel() for p in pipe.unet.parameters())
+    log(f"[v-stage2-ckpt] cut TriplaneUNet ({n} parameters) at step {step}: {size / 2**30:.3f} "
+        f"GiB on disk, saved in {t_save:.2f} s, restored in {t_restore:.2f} s into a scrambled "
+        f"state: {len(diff)} entries differ {diff[:3]}; resumed to step {resumed.step}, loss "
+        f"{losses}, launches { {k: v for k, v in launches.items() if v} }")
+    flash = launches["flash_attention"]
+    if (diff or resumed.step != step + 1 or len(losses) != 1 or not math.isfinite(losses[0])
+            or not flash or launches != {k: flash if k.startswith("flash") else 0
+                                         for k in launches}):
+        raise AssertionError("the video stage-2 checkpoint does not restore bit for bit and resume")
+
+
 def video_stage2_phase(torch, dev, tmp):
     """Trainer.train_stage2 on configs/ldm/skytimelapse.yaml at full width
     (the UNet seeded, zero-init layers perturbed) with the VAE and INR of
@@ -3010,10 +3102,8 @@ def video_stage2_phase(torch, dev, tmp):
     checkpoint of their own; the flash counts per micro-step against the
     calls recorded in the run, finite losses, the parameters changing at
     every micro-step and the EMA at the schedule's (every 5th from 0, a
-    copy before step 100); then the state saved as the trainer saves it,
-    restored bit for bit into a scrambled one and resumed for a micro-step;
-    a timed run, a micro-step split and the stage-2 eval hook's video
-    sample.  -> (launches of the checked run, flash shapes {shape: calls
+    copy before step 100); then `cut_state_checkpoint`; a timed run, a
+    micro-step split and the stage-2 eval hook's video sample.  -> (launches of the checked run, flash shapes {shape: calls
     per micro-step})."""
     from ddmi_tpu_torch.core.amp import amp_denoiser
     from ddmi_tpu_torch.core.config import load_config
@@ -3086,46 +3176,7 @@ def video_stage2_phase(torch, dev, tmp):
     if len(rows) != V2_STEPS or not all(checks):
         raise AssertionError("the video stage-2 run failed its checks")
 
-    from ddmi_tpu_torch.core.checkpoint import CheckpointManager
-
-    ckpt = CheckpointManager(tmp, prefix="stage2")
-    step = state.step
-    gen = torch.Generator(device=dev).manual_seed(99)
-    t0 = time.perf_counter()
-    ckpt.save(step, {"state": state.state_dict(), "generators": [gen.get_state()]})
-    t_save = time.perf_counter() - t0
-    saved = {k: v.clone() if torch.is_tensor(v) else v
-             for k, v in flat_state(state.state_dict()).items()}
-    size = os.path.getsize(os.path.join(ckpt.root, f"{step}.pt"))
-    with torch.no_grad():
-        for t in list(state.params.values()) + list(state.ema.values()) + state.opt.mu:
-            t.add_(1.0)
-    state.step, state.opt.count = -1, -1
-
-    class Wrap:
-        def load_state_dict(self, sd):
-            state.load_state_dict(sd["state"])
-
-    t0 = time.perf_counter()
-    ckpt.restore(Wrap())
-    t_restore = time.perf_counter() - t0
-    now = flat_state(state.state_dict())
-    diff = [k for k in saved if not (torch.equal(saved[k], now[k]) if torch.is_tensor(saved[k])
-                                      else saved[k] == now[k])]
-    del saved, now
-    rows.clear()
-    pipe.stage2_train_step = recording
-    resumed = Trainer(cfg, pipe, Clips(1, 10), save_dir=tmp).train_stage2(epochs=1, resume=True,
-                                                                           save=False)
-    del pipe.stage2_train_step
-    log(f"[v-stage2-ckpt] step {step}: {size / 2**30:.2f} GiB on disk, saved in {t_save:.2f} s, "
-        f"restored in {t_restore:.2f} s into a scrambled state: {len(diff)} entries differ "
-        f"{diff[:3]}; resumed to step {resumed.step}, loss {float(rows[0][3]):.5f}, launches "
-        f"{ {k: v for k, v in rows[0][4].items() if v} }")
-    if diff or resumed.step != step + 1 or not math.isfinite(float(rows[0][3])) or (
-            rows[0][4] != expect):
-        raise AssertionError("the video stage-2 checkpoint does not restore bit for bit and resume")
-    state = resumed
+    cut_state_checkpoint(torch, dev, cfg, os.path.join(tmp, "cut"))
 
     timer = StepTimer(torch, pipe, "stage2_train_step", V2_STEPS)
     t0 = time.perf_counter()
@@ -4595,6 +4646,375 @@ def convert_serve_phase(torch, dev, tmp):
     return dict(total)
 
 
+# ------------------------------------------------------ the denoiser family
+# MDTv2 (model.DiT) on configs/ldm/celebahq.yaml's diffusion space at
+# DiTConfig's own widths: 64 x 64 x 64 latents, patch 2 (1024 tokens),
+# hidden 768, depth 12 (4 + 4 + 4 decode blocks), 12 heads of 64.  Served
+# at the config's NFE (50), batch 8 at 256^2; trained at mask ratio 0.3
+# (sail-sg/MDT's recipe: 614 of 1024 tokens kept), batch 5, accumulation
+# over 5, 10 micro-steps
+MDT_BATCH, MDT_MASK_RATIO, MDT_STEPS = 8, 0.3, 10
+# the cut MDT of the save -> resume check and the converted small config
+MDT_CUT = {"hidden_size": 128, "depth": 4, "num_heads": 4, "decode_layer": 2}
+# the UNet variants at celebahq's unetconfig width: scale-shift norm with
+# 1000 classes at batch 8 (16 fused attention blocks a forward), and the
+# spatial transformer attending to a 77-token context of width 512 through
+# 4 classifier-free-guided DDIM steps (w = 1) at batch 4
+UNET_CLASSES, CTX_TOKENS, CTX_DIM, CFG_STEPS, CFG_BATCH = 1000, 77, 512, 4, 4
+# the scale-shift UNet's bf16 forward through attn_block against the same
+# forward with the plain block in its place: relative L2 error (each block
+# rounds its GEMM operands and P to bf16 where the plain one is fp32)
+VARIANT_REL_ERR = 0.02
+
+
+def mdt_config(path="configs/ldm/celebahq.yaml", **dit):
+    """`path` with model.DiT set and ditconfig at DiTConfig's defaults
+    updated by `dit`."""
+    from ddmi_tpu_torch.core.config import DiTConfig, load_config
+
+    cfg = load_config(os.path.join(ROOT, path))
+    model = dataclasses.replace(cfg.model, DiT=True, ditconfig=DiTConfig(**dit))
+    return dataclasses.replace(cfg, model=model)
+
+
+def mdt_slice_phase(torch, dev):
+    """Phase 42: the image SamplerService with the MDTv2 denoiser at full
+    width (seeded weights, zero-init layers perturbed; served bf16, which
+    with the fp32 latent promotes the transformer to fp32 on bf16-rounded
+    weights, as flax computes): three concurrent requests coalesce into
+    one batch of 8 at 256^2, NFE 50; a repeat of a seed is bit-identical;
+    the counters read inr_decode 1 a batch and 0 for every other kernel.
+    Samples/s, one MDT forward's CUDA-event time, peak memory.  -> the
+    launches."""
+    from ddmi_tpu_torch.serve.server import SamplerService
+
+    cfg = mdt_config()
+    nfe = cfg.model.ddpmconfig.sampling_timesteps
+    t0 = time.perf_counter()
+    svc = SamplerService(cfg, service_batch=MDT_BATCH, resolution=RESOLUTION, linger_ms=500,
+                         device=dev, allow_init=True)
+    perturb_zero_init(svc.pipe, 42)
+    n_mdt = sum(p.numel() for p in svc.pipe.unet.parameters())
+    log(f"[mdt] celebahq with model.DiT at full width: MDTv2 {n_mdt} parameters "
+        f"({svc.pipe.unet.num_tokens()} tokens, hidden {cfg.model.ditconfig.hidden_size}, "
+        f"depth {cfg.model.ditconfig.depth}), set up in {time.perf_counter() - t0:.1f} s")
+    requests = [(3, 421), (3, 422), (2, 423)]
+    try:
+        t0 = time.perf_counter()
+        svc.warmup()
+        log(f"[mdt] warm-up batch {time.perf_counter() - t0:.3f} s")
+        results, t_batch, t_repeat, launches, peak = serve(torch, dev, svc, requests, "mdt")
+        x = torch.randn((MDT_BATCH, 64, 64, 64), device=dev)
+        t = torch.full((MDT_BATCH,), 500, device=dev, dtype=torch.long)
+        with torch.inference_mode():
+            fwd_ms = events_ms(torch, lambda: svc.pipe.unet(x, t), 5)
+    finally:
+        svc.close()
+    for n, seed in requests:
+        r = results[seed]
+        if r.shape != (n, RESOLUTION, RESOLUTION, 3) or r.dtype.name != "uint8":
+            raise AssertionError(f"mdt: bad result for seed {seed}: {r.shape} {r.dtype}")
+    expect = {k: 2 if k == "inr_decode" else 0 for k in launches}
+    log(f"[mdt] launches over 2 batches: {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"the MDT slice's launch counts are off: {launches}")
+    log(f"[mdt] coalesced batch of {MDT_BATCH} at {RESOLUTION}^2, NFE {nfe}: {t_batch:.3f} s = "
+        f"{MDT_BATCH / t_batch:.4f} samples/s; repeat request {t_repeat:.3f} s; one MDT forward "
+        f"at batch {MDT_BATCH} {fwd_ms:.3f} ms (CUDA events, fp32 compute on bf16 weights); "
+        f"peak allocated {peak / 2**30:.2f} GiB on {nvidia_smi()}")
+    return launches
+
+
+def mdt_train_phase(torch, dev, tmp):
+    """Phase 43: Trainer.train_stage2 with the masked MDTv2 at full width
+    (mask ratio 0.3; celebahq's batch 5 of 256^2 synthetic images, amp,
+    accumulation over 5; 10 micro-steps; no checkpoint): every counter 0,
+    finite losses, the watched parameters (patch embedding, the first
+    block's qkv, the final layer, the mask token, the mixing logit)
+    changed at micro-steps 5 and 10 only; micro-steps/s and peak memory.
+    Then at a cut width (MDT_CUT) 2 micro-steps with a checkpoint and the
+    stage-2 eval hook (2 EMA images through MDTv2, inr_decode 1), and a new
+    trainer that resumes for 1 more.  -> the launches."""
+    from ddmi_tpu_torch.core.checkpoint import CheckpointManager
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.data.synthetic import SyntheticImages
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+
+    cfg = mdt_config(mask_ratio=MDT_MASK_RATIO)
+    m = cfg.model
+    extra = {**cfg.data.extra, "nan_check_every": 5, "prefetch": 2}
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, extra=extra))
+    pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
+    perturb_zero_init(pipe, 43)
+    u = pipe.unet
+    log(f"[mdt-train] masked MDTv2 at full width: {sum(p.numel() for p in u.parameters())} "
+        f"parameters (fp32 masters, amp {m.amp}), {u.keep_count()} of {u.num_tokens()} tokens "
+        f"kept, batch {cfg.data.batch_size}, accumulation {m.lossconfig.gradient_accumulate_every}")
+    data = SyntheticImages(cfg.data.batch_size, 256, length=MDT_STEPS, seed=0)
+    watch = {"patch embedding": u.x_embedder.proj.weight,
+             "first block qkv": u.en_inblocks[0].attn.qkv.weight,
+             "final linear": u.final_layer.linear.weight, "mask token": u.mask_token,
+             "mixing logit": pipe.mixing_logit}
+    steps, step_fn = [], pipe.stage2_train_step
+
+    def recording(state, x, **kw):
+        before = {k: w.detach().clone() for k, w in watch.items()}
+        out = step_fn(state, x, **kw)
+        changed = [k for k, w in watch.items() if not torch.equal(before[k], w)]
+        steps.append((changed, out[1]["loss"], time.perf_counter()))
+        return out
+
+    pipe.stage2_train_step = recording
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = reset_launches()
+    t0 = time.perf_counter()
+    Trainer(cfg, pipe, data, save_dir=os.path.join(tmp, "full")).train_stage2(epochs=1,
+                                                                             save=False)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del pipe.stage2_train_step
+    losses = [float(loss) for _, loss, _ in steps]
+    moved = [i for i, (c, _, _) in enumerate(steps, 1) if c]
+    log(f"[mdt-train] {len(steps)} micro-steps, losses {[round(v, 5) for v in losses]}; "
+        f"parameters changed at {moved} ({[c for c, _, _ in steps if c][:1]}); launches "
+        f"{launches} (all expected 0)")
+    if any(launches.values()) or len(steps) != MDT_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"MDT training: launches {launches}, losses {losses}")
+    for i, (changed, _, _) in enumerate(steps, 1):
+        if (i % 5 == 0) != (len(changed) == len(watch)) or (i % 5 and changed):
+            raise AssertionError(f"MDT micro-step {i} changed {changed}")
+    steady = (steps[-1][2] - steps[0][2]) / (len(steps) - 1)
+    log(f"[mdt-train] {len(steps)} micro-steps in {t_run:.3f} s (the first includes set-up); "
+        f"steady {1e3 * steady:.1f} ms a micro-step = {cfg.data.batch_size / steady:.4f} "
+        f"training samples/s; peak allocated {peak / 2**30:.2f} GiB on {nvidia_smi()}")
+    del pipe, u, watch, steps
+    torch.cuda.empty_cache()
+
+    cut = mdt_config(mask_ratio=MDT_MASK_RATIO, **MDT_CUT)
+    extra = {**cut.data.extra, "nan_check_every": 1, "prefetch": 0, "steps_per_epoch": 2}
+    cut = dataclasses.replace(cut, data=dataclasses.replace(cut.data, extra=extra))
+    sub = os.path.join(tmp, "cut")
+    total = collections.Counter()
+    done = []
+    for count, resume in ((2, False), (1, True)):
+        pipe = ImagePipeline(cut, device=dev, seed=cut.seed)
+        read = reset_launches()
+        st = Trainer(cut, pipe, Batches(cut.data.batch_size, 256, count, 50 + count),
+                     save_dir=sub).train_stage2(epochs=1, resume=resume)
+        torch.cuda.synchronize()
+        got = read()
+        total.update(got)
+        done.append((st.step, {k: v for k, v in got.items() if v}))
+        del pipe, st
+    recs = [json.loads(line) for line in open(os.path.join(sub, "train.jsonl"))]
+    losses = [r["s2/loss"] for r in recs if "s2/loss" in r]
+    failures = [r for r in recs if "s2/eval_hook_failures" in r]
+    samples = sorted(f for f in os.listdir(os.path.join(sub, "samples")))
+    log(f"[mdt-train] cut MDT {MDT_CUT}: steps {[s for s, _ in done]}, launches "
+        f"{[l for _, l in done]} (inr_decode 1 a run: the eval hook), losses "
+        f"{[round(v, 5) for v in losses]}, checkpoints "
+        f"{CheckpointManager(sub, prefix='stage2').all_steps()}, samples {samples}, hook "
+        f"failures {len(failures)}")
+    if ([s for s, _ in done] != [2, 3] or [l for _, l in done] != [{"inr_decode": 1}] * 2
+            or len(losses) != 3 or not all(map(math.isfinite, losses)) or failures
+            or not samples):
+        raise AssertionError("the cut MDT's save -> resume or its eval hook failed")
+    return {k: launches[k] + total.get(k, 0) for k in launches}
+
+
+def dit_convert_serve_phase(torch, dev, tmp):
+    """Phase 44: a DiT config at a small width (celebahq with the VAE cut
+    to 32 channels and 1 block a level, MDTv2 cut to MDT_CUT, the INR at
+    width 256, NFE 4): a synthetic reference ldm file (maskedtransformer.py
+    keys with their relative_position_index buffers), converted by
+    cli/convert_reference_ckpt.py, then served by cli/serve.py over HTTP:
+    the reference step, the file's EMA in the served MDT, one request
+    with inr_decode 1 and nothing else; --turbo 2 refused; then gen
+    through the CLI.  -> launches."""
+    from ddmi_tpu_torch.cli.convert_reference_ckpt import convert
+    from ddmi_tpu_torch.cli.serve import build_service, parse_args
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+
+    params = {"ddconfig": {"ch": 32, "num_res_blocks": 1}, "ddpmconfig": {"sampling_timesteps": 4},
+              "ditconfig": {**MDT_CUT, "mask_ratio": MDT_MASK_RATIO}}
+    path = cli_yaml(tmp, "configs/ldm/celebahq.yaml", "serve.yaml",
+                    {"dataset": "synthetic", "mode": "gen", "test_batch_size": 2}, params,
+                    {"DiT": True})
+    cfg = load_config(path, exp="ldm")
+    pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
+    perturb_zero_init(pipe, 44)
+    pt = os.path.join(tmp, "ldm-last.pt")
+    reference_file(torch, pipe, pt, False)
+    data = torch.load(pt, map_location="cpu", weights_only=True)
+    for k, b in pipe.unet.named_buffers():  # the reference keeps the index buffers
+        for name, prefix in (("diffusion", "model."), ("ema", "ema_model.model.")):
+            data[name][prefix + k] = b.cpu()
+    torch.save(data, pt)
+    del pipe
+    t0 = time.perf_counter()
+    convert("ldm", path, pt, device=dev)
+    t_convert = time.perf_counter() - t0
+    try:
+        build_service(parse_args(["--configs", path, "--turbo", "2", "--device", str(dev)]))
+        raise AssertionError("--turbo 2 was not refused for the MDTv2 denoiser")
+    except ValueError as e:
+        refused = str(e)
+    svc = build_service(parse_args(["--configs", path, "--batch", "2", "--linger-ms", "0",
+                                    "--resolution", "256", "--device", str(dev)]))
+    httpd, url = start_http(svc)
+    try:
+        health = json.loads(http_call(url, "/healthz")[2])
+        w = svc.pipe.unet.final_layer.linear.weight
+        want = data["ema"]["ema_model.model.final_layer.linear.weight"]
+        held = torch.equal(w.float().cpu(), want.to(w.dtype).float())
+        read = reset_launches()
+        code, _, body, sec = http_call(url, "/generate", {"n": 1, "seed": 3, "format": "npy"})
+        launches = read()
+    finally:
+        stop_http(httpd)
+        svc.close()
+    img = npy(body) if code == 200 else None
+    log(f"[dit-convert] converted in {t_convert:.2f} s; /healthz {health}; the served MDT holds "
+        f"the file's EMA: {held}; a request {code} in {sec:.3f} s, "
+        f"{None if img is None else (img.shape, str(img.dtype))}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; --turbo 2 refused: {refused!r}")
+    if (health["step"] != REFERENCE_STEP or health["initialized"] or not held or img is None
+            or img.shape != (1, 256, 256, 3) or {k: v for k, v in launches.items() if v}
+            != {"inr_decode": 1}):
+        raise AssertionError("the converted DiT service failed its checks")
+    gen, _ = run_cli(torch, "dit-convert", "ldm", path, dev)
+    files = generated(tmp, "generation")
+    log(f"[dit-convert] gen wrote {files}")
+    if gen != {"inr_decode": 1} or not files:
+        raise AssertionError(f"gen on the converted DiT config: launches {gen}, files {files}")
+    total = collections.Counter(launches)
+    total.update(gen)
+    return dict(total)
+
+
+def unet_variants_phase(torch, dev):
+    """Phase 45: the UNet's options at celebahq's unetconfig width, bf16.
+    The scale-shift UNet with 1000 class labels: one forward at batch 8
+    launches attn_block exactly 16 times and nothing else, its output
+    against the same forward with the plain block in the kernel's place
+    (relative L2 <= VARIANT_REL_ERR), labels that change the output, both
+    forwards timed.  The spatial-transformer UNet (context_dim 512): 4
+    classifier-free-guided DDIM steps at batch 4 on a 77-token context, the
+    unconditional branch a zero context; no attention kernel launches, the
+    sample finite, the context changes a forward.  -> the launches."""
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.diffusion import process
+    from ddmi_tpu_torch.nn.unet import UNet
+    from ddmi_tpu_torch.ops import attn_block
+
+    cfg = load_config(os.path.join(ROOT, "configs/ldm/celebahq.yaml")).model
+    g = torch.Generator(device=dev).manual_seed(45)
+
+    def build(**kw):
+        with torch.device(dev):
+            unet = UNet(dataclasses.replace(cfg.unetconfig, **kw))
+        perturb_zero_init(unet, 45)
+        return unet.to(torch.bfloat16).to(memory_format=torch.channels_last)
+
+    unet = build(use_scale_shift_norm=True, num_classes=UNET_CLASSES)
+    n_ss = sum(p.numel() for p in unet.parameters())
+    x = torch.randn((BATCH, 64, 64, 64), device=dev, generator=g)
+    t = torch.randint(0, 1000, (BATCH,), device=dev, generator=g)
+    y = torch.randint(0, UNET_CLASSES, (BATCH,), device=dev, generator=g)
+    with torch.inference_mode():
+        read = reset_launches()
+        out = unet(x, t, y=y)
+        torch.cuda.synchronize()
+        launches = read()
+        kernel_ms = events_ms(torch, lambda: unet(x, t, y=y), 3)
+        other = unet(x, t, y=y.flip(0))
+        fused, plain_fn = attn_block.attention_block, attn_block._plain_module
+        attn_block.attention_block = plain_fn
+        try:
+            ref = unet(x, t, y=y)
+            plain_ms = events_ms(torch, lambda: unet(x, t, y=y), 3)
+        finally:
+            attn_block.attention_block = fused
+    rel = float((out - ref).norm() / ref.norm())
+    moved = float((out - other).abs().max())
+    expect = {k: 16 if k == "attn_block" else 0 for k in launches}
+    log(f"[unet-variants] scale-shift + {UNET_CLASSES} classes: {n_ss} parameters; one forward "
+        f"at batch {BATCH}: launches {launches} (expected {expect}), {kernel_ms:.3f} ms with "
+        f"attn_block against {plain_ms:.3f} ms with the plain block (CUDA events); rel L2 "
+        f"{rel:.5f} (<= {VARIANT_REL_ERR}); other labels move the output by {moved:.4f} on "
+        f"{nvidia_smi()}")
+    if launches != expect or not (rel <= VARIANT_REL_ERR) or not moved > 0:
+        raise AssertionError("the scale-shift, class-conditional UNet failed its checks")
+    del unet, out, ref, other
+    torch.cuda.empty_cache()
+
+    unet = build(use_spatial_transformer=True, context_dim=CTX_DIM)
+    n_st = sum(p.numel() for p in unet.parameters())
+    ctx = torch.randn((CFG_BATCH, CTX_TOKENS, CTX_DIM), device=dev, generator=g)
+    ddpm = dataclasses.replace(cfg.ddpmconfig, sampling_timesteps=CFG_STEPS)
+    gd = process.GaussianDiffusion.from_config(ddpm).to(dev)
+    logit = torch.zeros((1, 64, 1, 1), device=dev)
+    noise = torch.randn((CFG_BATCH, 64, 64, 64), device=dev, generator=g)
+    zero = torch.zeros_like(ctx)
+    read = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = process.ddim_sample(gd, lambda a, b: unet(a, b, cond=zero), logit, None, noise=noise,
+                            cond_model_fn=lambda a, b: unet(a, b, cond=ctx))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches_st = read()
+    with torch.inference_mode():
+        tt = torch.full((CFG_BATCH,), 500, device=dev, dtype=torch.long)
+        moved = float((unet(noise, tt, cond=ctx) - unet(noise, tt, cond=zero)).abs().max())
+    log(f"[unet-variants] spatial transformer (context {CTX_TOKENS} x {CTX_DIM}): {n_st} "
+        f"parameters; {CFG_STEPS} CFG DDIM steps at batch {CFG_BATCH} (w {gd.w}, 2 forwards a "
+        f"step) in {sec:.3f} s = {1e3 * sec / (2 * CFG_STEPS):.1f} ms a forward; launches "
+        f"{ {k: v for k, v in launches_st.items() if v} } (expected none); sample finite "
+        f"{bool(torch.isfinite(z).all())}, std {float(z.std()):.4f}; the context moves a "
+        f"forward by {moved:.4f} on {nvidia_smi()}")
+    if any(launches_st.values()) or not bool(torch.isfinite(z).all()) or not moved > 0:
+        raise AssertionError("the spatial-transformer UNet failed its checks")
+    return launches
+
+def denoiser_phases(torch, dev):
+    """Phases 42-45 in a temporary directory under build/; -> their
+    launches."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="denoiser_smoke_", dir=os.path.join(ROOT, "build"))
+    total = collections.Counter()
+    try:
+        total.update(mdt_slice_phase(torch, dev))
+        torch.cuda.empty_cache()
+        total.update(mdt_train_phase(torch, dev, os.path.join(tmp, "train")))
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(tmp, "convert"))
+        total.update(dit_convert_serve_phase(torch, dev, os.path.join(tmp, "convert")))
+        torch.cuda.empty_cache()
+        total.update(unet_variants_phase(torch, dev))
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(total)
+
+
+class Laps:
+    """lap(what) logs the seconds since the previous lap (or since the
+    start) and the bytes this process has written so far."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, what):
+        now = time.perf_counter()
+        log(f"[clock] {what}: {now - self.t:.1f} s; written so far {write_bytes()}")
+        self.t = now
+
+
 def build_report(name, ptxas) -> None:
     """Registers, spills and dynamic shared memory of each kernel of a
     library built in this run, from the ptxas report and the libraries' own
@@ -4677,10 +5097,12 @@ def main() -> int:
             log("[build]   flash: mha_vmem runs the flash_fwd_kernel instances above, in their "
                 "q pre-scale mode")
 
+    laps = Laps()
     image_kernel_phase(torch, dev)
     image = image_slice_phase(torch, dev)
     image_breakdown_phase(torch, dev)
     image_reference_phase(torch, dev)
+    laps.lap("phases 3-5 (image sampling)")
     video, svc = video_slice_phase(torch, dev)
     try:
         shapes = video_breakdown_phase(torch, dev, svc.pipe)
@@ -4691,6 +5113,7 @@ def main() -> int:
     video_kernel_phase(torch, dev, shapes)
     video_reference_phase(torch, dev)
     torch.cuda.empty_cache()
+    laps.lap("phases 6-9 (video sampling)")
     nerf_kernel_phase(torch, dev)
     nerf, svc = nerf_slice_phase(torch, dev)
     try:
@@ -4701,11 +5124,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     nerf_reference_phase(torch, dev)
     torch.cuda.empty_cache()
+    laps.lap("phases 10-13 (NeRF sampling)")
     train_kernel_phase(torch, dev)
     train = train_slice_phase(torch, dev)
     torch.cuda.empty_cache()
     train_reference_phase(torch, dev)
     torch.cuda.empty_cache()
+    laps.lap("phases 14-16 (image stage-2 training)")
     occ, svc = occupancy_slice_phase(torch, dev)
     try:
         occupancy_breakdown_phase(torch, dev, svc)
@@ -4716,6 +5141,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     import tempfile
 
+    laps.lap("phases 17-19 (occupancy)")
     tmp = tempfile.mkdtemp(prefix="stage1_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         pipe, trainer, state, plain_ms = stage1_slice_phase(torch, dev, tmp)
@@ -4731,6 +5157,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    laps.lap("phases 20-25 (image stage 1)")
     vtmp = tempfile.mkdtemp(prefix="video_train_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         vpipe, vtrainer, vstate, v1_ms, v1_shapes = video_stage1_phase(torch, dev, vtmp)
@@ -4753,6 +5180,7 @@ def main() -> int:
         shutil.rmtree(vtmp, ignore_errors=True)
     vtrain1 = {k: V1_LAUNCHES.get(k, 0) for k in KERNELS}
 
+    laps.lap("phases 26-31 (video training)")
     ttmp = tempfile.mkdtemp(prefix="threed_train_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         nerf_train_phase(torch, dev, os.path.join(ttmp, "nerf"))
@@ -4763,6 +5191,7 @@ def main() -> int:
     finally:
         shutil.rmtree(ttmp, ignore_errors=True)
 
+    laps.lap("phases 32-34 (3D training)")
     nets = metric_nets_phase(torch, dev)
     torch.cuda.empty_cache()
     fid_n = fid_timing_phase(torch, dev, nets)
@@ -4780,11 +5209,16 @@ def main() -> int:
         shutil.rmtree(ctmp, ignore_errors=True)
     log(f"[cli] launches of FID-n at full width, the CLI's gen and eval runs and phases 40-41's "
         f"serving: {dict(cli)}; "
-        f"metric networks {json.dumps(nets)}; this process wrote {write_bytes()} in all")
+        f"metric networks {json.dumps(nets)}; this process has written {write_bytes()}")
+    laps.lap("phases 35-41 (metric networks, FID, the CLI, serving)")
+    den = denoiser_phases(torch, dev)
+    laps.lap("phases 42-45 (the denoiser variants)")
+    log(f"[denoisers] launches of phases 42-45: {den}; this process wrote {write_bytes()} in all")
 
     kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]
                             + occ[name] + recon[name] + vtrain1[name] + vrecon[name]
-                            + vtrain2[name] + o2_hook.get(name, 0) + cli.get(name, 0))
+                            + vtrain2[name] + o2_hook.get(name, 0) + cli.get(name, 0)
+                            + den.get(name, 0))
                for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))

@@ -27,9 +27,10 @@ in the trainer's layout, so that `Trainer.load_stage1` / `load_stage2`,
 training with `model.resume: True`, gen, eval and `cli/serve.py` read them
 as they read the trainer's own.  The optimizer, spectral-norm and
 discriminator states start fresh, and a resumed run draws its steps from
-the trainer's seeds.  All four domains; the MDTv2 denoiser (model.DiT) is
-not ported, and its checkpoints are refused.  Runs on the card unless
-`--device cpu` is given.
+the trainer's seeds.  All four domains, and the image domain's MDTv2
+denoiser (model.DiT: 'model.*' is then the maskedtransformer.py state,
+whose derived relative_position_index buffers are dropped).  Runs on the
+card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -68,11 +69,14 @@ def load_reference_checkpoint(path: str) -> dict:
 
 def checked(name: str, sd, module: torch.nn.Module, skip=()) -> Dict[str, torch.Tensor]:
     """A reference state_dict (tensors or arrays) as `module`'s, its keys
-    under the `skip` prefixes dropped: the keys and shapes must be the
+    under the `skip` prefixes and those of the module's derived
+    (non-persistent) buffers dropped: the keys and shapes must be the
     module's exactly, else ValueError naming up to 8 of each kind of
     difference."""
-    sd = {k: torch.as_tensor(v) for k, v in sd.items() if not k.startswith(tuple(skip))}
     want = module.state_dict()
+    derived = {k for k, _ in module.named_buffers()} - set(want)
+    sd = {k: torch.as_tensor(v) for k, v in sd.items()
+          if not k.startswith(tuple(skip)) and k not in derived}
     missing, extra = sorted(set(want) - set(sd))[:8], sorted(set(sd) - set(want))[:8]
     if missing or extra:
         raise ValueError(f"{name}: the checkpoint's tensors differ from the model's; "
@@ -98,8 +102,9 @@ def stage1_reference(data: dict, pipe, exp: str) -> Dict[str, dict]:
 
 
 def stage2_reference(data: dict, pipe, use_ema: bool) -> dict:
-    """The UNet's state_dict and the mixing logit of a reference stage-2
-    file (its 'ema' copy when `use_ema`), checked."""
+    """The denoiser's state_dict (the UNet's, or MDTv2's) and the mixing
+    logit of a reference stage-2 file (its 'ema' copy when `use_ema`),
+    checked."""
     if use_ema:
         sd = {k[len("ema_model."):]: v for k, v in data["ema"].items()
               if k.startswith("ema_model.")}
@@ -135,9 +140,6 @@ def convert(exp: str, config_path: str, ckpt_path: str, out_dir=None, device="cu
     if exp not in ("d2c-vae", "ldm"):
         raise ValueError(f"unknown exp {exp!r}")
     cfg = load_config(config_path, exp=exp)
-    if cfg.model.DiT:
-        raise NotImplementedError("model.DiT: the MDTv2 denoiser is not ported, so its "
-                                  "checkpoints are not converted")
     device = resolve_device(device)
     data = load_reference_checkpoint(ckpt_path)
     save_dir = out_dir or cfg.data.save_pth

@@ -53,7 +53,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_service(args):
     """The SamplerService the arguments describe, restored from the
-    config's save_pth; --turbo K > 1 sets ddpmconfig.extra["encoder_reuse"]."""
+    config's save_pth; --turbo K > 1 sets ddpmconfig.extra["encoder_reuse"]
+    (refused with ValueError for the MDTv2 denoiser)."""
     from ddmi_tpu_torch.core.device import resolve_device
     from ddmi_tpu_torch.serve.server import SamplerService
 
@@ -65,6 +66,9 @@ def build_service(args):
     device = resolve_device(args.device)
     cfg = load_config(args.configs)
     if args.turbo > 1:
+        if cfg.model.DiT:
+            raise ValueError("--turbo needs the UNet's down/up split; the MDTv2 (model.DiT) "
+                             "denoiser does not support it")
         cfg.model.ddpmconfig.extra["encoder_reuse"] = args.turbo
         print(f"turbo sampling: encoder reuse every {args.turbo} steps "
               "(non-exact, arXiv:2312.09608)")

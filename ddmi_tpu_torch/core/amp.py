@@ -55,14 +55,15 @@ def method_call(module: torch.nn.Module, params: dict, method: str, *args, **kwa
                            args, kwargs)
 
 
-def amp_denoiser(module: torch.nn.Module, enabled: bool):
-    """model_fn(x, t) -> fp32 output of `module` under the bf16 policy when
-    enabled, else the module itself (in its parameters' dtype)."""
+def amp_denoiser(module: torch.nn.Module, enabled: bool, **kwargs):
+    """model_fn(x, t) -> fp32 output of `module(x, t, **kwargs)` under the
+    bf16 policy when enabled, else the module's own output (in its
+    parameters' dtype)."""
     if not enabled:
-        return module
+        return (lambda x, t: module(x, t, **kwargs)) if kwargs else module
 
     def model_fn(x, t):
         params = compute_cast(dict(module.named_parameters()), True)
-        return functional_call(module, params, (x.to(torch.bfloat16), t)).float()
+        return functional_call(module, params, (x.to(torch.bfloat16), t), kwargs).float()
 
     return model_fn

@@ -80,8 +80,15 @@ class UNetConfig:
     channel_mult: Tuple[int, ...] = (1, 2, 4, 8)
     num_heads: int = -1
     num_head_channels: int = 32
+    dropout: float = 0.0
     use_scale_shift_norm: bool = False
+    # context-conditioned denoiser: SpatialTransformer blocks in place of
+    # the self-attention blocks, cross-attending to a (B, n_ctx,
+    # context_dim) context (nn/transformer.py)
     use_spatial_transformer: bool = False
+    transformer_depth: int = 1
+    context_dim: Optional[int] = None
+    # class-conditional: a label embedding added to the timestep embedding
     num_classes: Optional[int] = None
     # triplane (video) variant: planes (xy, xt, yt) as (h, w) pairs
     triplane: bool = False
@@ -138,6 +145,24 @@ class DDPMConfig:
     mixed_init: float = -6.0
     sampling_timesteps: int = 50
     ddim_sampling_eta: float = 0.0
+    w: float = 1.0  # classifier-free guidance weight
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """The MDTv2 denoiser (model.DiT: True, nn/mdt.py)."""
+
+    input_size: int = 64
+    patch_size: int = 2
+    in_channels: int = 64
+    hidden_size: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    mask_ratio: Optional[float] = None
+    decode_layer: int = 4
+    cross_plane: bool = False
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -153,6 +178,7 @@ class ModelConfig:
     mlpconfig: MLPConfig = field(default_factory=MLPConfig)
     unetconfig: UNetConfig = field(default_factory=UNetConfig)
     ddpmconfig: DDPMConfig = field(default_factory=DDPMConfig)
+    ditconfig: DiTConfig = field(default_factory=DiTConfig)
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -195,7 +221,7 @@ class Config:
 
 
 _SUB = (("lossconfig", LossConfig), ("ddconfig", DDConfig), ("mlpconfig", MLPConfig),
-        ("unetconfig", UNetConfig), ("ddpmconfig", DDPMConfig))
+        ("unetconfig", UNetConfig), ("ddpmconfig", DDPMConfig), ("ditconfig", DiTConfig))
 
 
 def config_from_dict(d: Dict[str, Any]) -> Config:

@@ -31,8 +31,9 @@ def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-
 
 
 class DiffusionSchedule(NamedTuple):
-    """The schedule arrays the sampler and the training loss read; float32
-    tensors of shape (T,)."""
+    """The schedule arrays the samplers and the training loss read; float32
+    tensors of shape (T,).  The posterior terms are q(x_{t-1} | x_t, x_0)'s,
+    which the ancestral sampler reads."""
 
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
@@ -40,6 +41,10 @@ class DiffusionSchedule(NamedTuple):
     sqrt_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
+    posterior_variance: torch.Tensor
+    posterior_log_variance_clipped: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
     lvlb_weights: torch.Tensor
 
     @property
@@ -80,7 +85,10 @@ def make_schedule(beta_schedule: str = "linear", timesteps: int = 1000,
     betas = make_beta_schedule(
         beta_schedule, timesteps, linear_start, linear_end, cosine_s
     )
-    acp = np.cumprod(1.0 - betas, axis=0)
+    alphas = 1.0 - betas
+    acp = np.cumprod(alphas, axis=0)
+    acp_prev = np.append(1.0, acp[:-1])
+    post_var = (1 - v_posterior) * betas * (1.0 - acp_prev) / (1.0 - acp) + v_posterior * betas
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)
     return DiffusionSchedule(
         betas=f32(betas),
@@ -89,6 +97,10 @@ def make_schedule(beta_schedule: str = "linear", timesteps: int = 1000,
         sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
         sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
         sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1)),
+        posterior_variance=f32(post_var),
+        posterior_log_variance_clipped=f32(np.log(np.maximum(post_var, 1e-20))),
+        posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
+        posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)),
         lvlb_weights=f32(lvlb_weights(betas, v_posterior, parameterization)),
     )
 

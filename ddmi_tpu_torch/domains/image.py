@@ -1,10 +1,12 @@
 """Image domain (counterpart of ddmi_tpu/domains/image.py::ImagePipeline):
-sampling (DDIM over the UNet, HDBF decode, INR render), stage-1 D2C-VAE
+sampling (DDIM over the denoiser, HDBF decode, INR render), stage-1 D2C-VAE
 training (the multiscale reconstruction through the VAE and the INR at the
 crop's coordinates, the annealed KL, LPIPS, the spectral-norm regulariser
 and, for the adversarial configs, the PatchGAN), reconstruction at any
 resolution, and stage-2 training (the frozen VAE encoder, the diffusion
-loss through the UNet, AdamW with gradient accumulation, EMA).
+loss through the denoiser, AdamW with gradient accumulation, EMA).  The
+denoiser is the ADM UNet, or with `model.DiT` the MDTv2 transformer
+(nn/mdt.py), whose masked training draws its token mask explicitly.
 
 Every random draw of a stage-1 micro-step is explicit (`Stage1Draws`): the
 multiscale branch and crop (drawn on the host), the posterior eps, the
@@ -12,8 +14,7 @@ INR's NoiseInjection draws and the DiffAugment draws, so that a test can
 feed the JAX package's own.  Each stage of a stage-1 micro-step runs in a
 profiler range named `stage1/<stage>` (multiscale, encode, decode, inr,
 lpips, sn, backward, gan, optimizer), which a torch.profiler trace reads;
-outside a profile a range costs some microseconds of host time.  The
-MDTv2 denoiser waits for a later slice.
+outside a profile a range costs some microseconds of host time.
 """
 
 from __future__ import annotations
@@ -35,10 +36,13 @@ from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.core.ema import ema_update
 from ddmi_tpu_torch.core.optim import disc_adamw, stage1_adamw, stage2_adamw
 from ddmi_tpu_torch.core.sn_reg import init_sn_state, norm_scale_loss, spectral_norm_loss
-from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet, diffusion_loss
+from ddmi_tpu_torch.diffusion.process import (
+    GaussianDiffusion, ddim_sample, ddim_sample_unet, diffusion_loss, draw_t_noise,
+)
 from ddmi_tpu_torch.losses.diffaugment import diff_augment, draw_diffaugment
 from ddmi_tpu_torch.losses.gan import GANLoss2D
 from ddmi_tpu_torch.nn.inr import INRImage
+from ddmi_tpu_torch.nn.mdt import MDTv2
 from ddmi_tpu_torch.nn.unet import UNet
 from ddmi_tpu_torch.nn.vae import Autoencoder
 from ddmi_tpu_torch.ops.attention import needs_grad
@@ -227,15 +231,26 @@ class LatentTraining:
         images or clips; the 3D domains encode the batch's point cloud)."""
         return self.encode_latents(x, eps, generator)
 
+    # True where the denoiser trains masked (MDTv2 with a mask ratio)
+    masked_denoiser = False
+
     def stage2_loss(self, x, generator: Optional[torch.Generator] = None, t=None, noise=None,
-                    eps=None):
+                    eps=None, mask_noise=None):
         """The stage-2 loss: the frozen encode (`stage2_latents`), then the
-        diffusion loss through the UNet (bf16 compute under model.amp,
+        diffusion loss through the denoiser (bf16 compute under model.amp,
         core/amp.py; the mixing logit stays fp32).  The posterior eps, the
-        timesteps t and the diffusion noise are drawn from `generator`, in
-        that order, where not given.  -> (loss, aux)."""
+        timesteps t, the diffusion noise and, for a masked denoiser, the
+        (b, L) uniform mask draws are drawn from `generator`, in that order,
+        where not given.  -> (loss, aux)."""
         z = self.stage2_latents(x, eps, generator)
-        model_fn = amp_denoiser(self.unet, self.amp)
+        kwargs = {}
+        if self.masked_denoiser:
+            t, noise = draw_t_noise(self.gd, z, generator, t, noise)
+            if mask_noise is None:
+                mask_noise = torch.rand((z.shape[0], self.unet.num_tokens()),
+                                        generator=generator, device=z.device)
+            kwargs["mask_noise"] = mask_noise
+        model_fn = amp_denoiser(self.unet, self.amp, **kwargs)
         return diffusion_loss(self.gd, model_fn, self.mixing_logit, z, generator, t, noise)
 
     def stage2_apply(self, state: Stage2State) -> None:
@@ -250,20 +265,23 @@ class LatentTraining:
         state.step += 1
 
     def stage2_train_step(self, state: Stage2State, x, generator: Optional[torch.Generator] = None,
-                          t=None, noise=None, eps=None):
+                          t=None, noise=None, eps=None, mask_noise=None):
         """One micro-step: the loss and its gradients, then the optimizer and
         the EMA; the draws as in `stage2_loss`.  -> (state, aux of detached
         fp32 scalars)."""
-        loss, aux = self.stage2_loss(x, generator, t=t, noise=noise, eps=eps)
+        loss, aux = self.stage2_loss(x, generator, t=t, noise=noise, eps=eps,
+                                     mask_noise=mask_noise)
         loss.backward()
         self.stage2_apply(state)
         return state, {k: v.detach() for k, v in aux.items()}
 
 
 class ImagePipeline(LatentTraining, nn.Module):
-    """The models of one image config: `unet` + `mixing_logit` (stage 2),
-    `vae` + `mlp` (stage 1), and `gan` (the PatchGAN loss) for the
-    adversarial stage-1 configs.
+    """The models of one image config: `unet` + `mixing_logit` (stage 2;
+    `unet` is the MDTv2 transformer when model.DiT is set, with its side
+    interpolater's parameters when ditconfig.mask_ratio is), `vae` + `mlp`
+    (stage 1), and `gan` (the PatchGAN loss) for the adversarial stage-1
+    configs.
 
     Parameters are initialised on `device` (the card unless the caller asks
     for the CPU) from `seed`; `load_state_dicts`
@@ -278,15 +296,15 @@ class ImagePipeline(LatentTraining, nn.Module):
     def __init__(self, cfg, device="cuda", seed: int = 0, perceptual: Optional[nn.Module] = None):
         super().__init__()
         m = cfg.model
-        if m.DiT:
-            raise NotImplementedError("the MDTv2 denoiser is not ported")
         self.cfg = cfg
+        self.is_dit = bool(m.DiT)
+        self.masked_denoiser = self.is_dit and m.ditconfig.mask_ratio is not None
         device = resolve_device(device)
         cuda = [device.index or 0] if device.type == "cuda" else []
         with torch.random.fork_rng(devices=cuda, device_type="cuda"):
             torch.manual_seed(seed)
             with device:
-                self.unet = UNet(m.unetconfig)
+                self.unet = MDTv2(m.ditconfig) if self.is_dit else UNet(m.unetconfig)
                 self.vae = Autoencoder(m.ddconfig, embed_dim=m.embed_dim)
                 self.mlp = INRImage(m.mlpconfig)
                 self.gan = (GANLoss2D(m.ddconfig.in_channels, disc_weight=m.lossconfig.disc_weight)
@@ -361,15 +379,23 @@ class ImagePipeline(LatentTraining, nn.Module):
         """DDIM + HDBF decode + INR render -> (batch, res, res, out_ch) in
         [0, 1], fp32.  `noise` (batch, C, h, w) is the initial latent; without
         it the latent is drawn from `generator`.  `render_seed` keys the INR's
-        NoiseInjection draws."""
+        NoiseInjection draws.  Encoder reuse (ddpmconfig.extra) needs the
+        UNet's down/up split: with the MDTv2 denoiser it raises ValueError."""
         m = self.cfg.model
         res = resolution or self.cfg.data.test_resolution
         d = m.ddpmconfig
         shape = (batch, d.channels, d.image_size, d.image_size)
-        z = ddim_sample_unet(
-            self.gd, self.unet, self.mixing_logit, shape, noise=noise,
-            generator=generator, device=self.device,
-        )
+        if self.is_dit:
+            if self.gd.encoder_reuse > 1:
+                raise ValueError("encoder_reuse needs the UNet down/up split; the MDTv2 "
+                                 "(model.DiT) denoiser does not support it")
+            z = ddim_sample(self.gd, self.unet, self.mixing_logit, shape, noise=noise,
+                            generator=generator, device=self.device)
+        else:
+            z = ddim_sample_unet(
+                self.gd, self.unet, self.mixing_logit, shape, noise=noise,
+                generator=generator, device=self.device,
+            )
         p_dtype = self.vae.post_quant_conv.weight.dtype
         hdbf = self.vae.decode(z.to(p_dtype))
         si = get_scale_injection(res, self.anchor)

@@ -145,8 +145,9 @@ class NeRFPipeline(TriplaneTraining, nn.Module):
     def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
         m = cfg.model
-        if m.DiT:
-            raise NotImplementedError("the MDTv2 denoiser is not ported")
+        if m.DiT:  # the JAX pipeline ignores the key and builds its UNet
+            raise ValueError("model.DiT selects the MDTv2 denoiser of the image domain; the "
+                             "NeRF pipeline denoises with its UNet")
         self.cfg = cfg
         dd = m.ddconfig
         if cfg.data.conv_config:

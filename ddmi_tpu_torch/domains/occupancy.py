@@ -76,8 +76,9 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
     def __init__(self, cfg, device="cuda", seed: int = 0):
         super().__init__()
         m = cfg.model
-        if m.DiT:
-            raise NotImplementedError("the MDTv2 denoiser is not ported")
+        if m.DiT:  # the JAX pipeline ignores the key and builds its UNet
+            raise ValueError("model.DiT selects the MDTv2 denoiser of the image domain; the "
+                             "occupancy pipeline denoises with its UNet")
         self.cfg = cfg
         dd = m.ddconfig
         self.generation_kwargs = generation_kwargs({})

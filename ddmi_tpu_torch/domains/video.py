@@ -82,8 +82,9 @@ class VideoPipeline(LatentTraining, nn.Module):
                  perceptual: Optional[nn.Module] = None):
         super().__init__()
         m = cfg.model
-        if m.DiT:
-            raise NotImplementedError("the MDTv2 denoiser is not ported")
+        if m.DiT:  # the JAX pipeline ignores the key and builds its UNet
+            raise ValueError("model.DiT selects the MDTv2 denoiser of the image domain; the "
+                             "video pipeline denoises with its UNet")
         self.cfg = cfg
         self.frames = cfg.data.frames
         self.res = m.ddconfig.resolution

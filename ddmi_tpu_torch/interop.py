@@ -2,7 +2,9 @@
 
 The exact inverse of the converters in
 ddmi_tpu/interop/reference_ckpt.py that the ported slices need: for images
-`convert_unet`, `convert_vae` and `convert_mlp_image`; for video
+`convert_unet` (and the JAX UNet's label embedding and spatial
+transformers, which that converter does not map), `convert_mdt`,
+`convert_vae` and `convert_mlp_image`; for video
 `convert_unet_triplane`, `convert_video_vae` (whole, or its decoder half)
 and `convert_mlp_video`; for NeRF and occupancy `convert_triplane_vae`
 (whole, or its decoder half for the sampling checkpoints), `convert_pointnet`
@@ -108,12 +110,52 @@ def _adm_attn(sd: SD, key: str, p, num_heads: int) -> None:
     _conv1d(sd, key + ".proj_out", p["proj_out"]["kernel"], p["proj_out"]["bias"])
 
 
+def _linear_nobias(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(np.transpose(p["kernel"]))
+
+
+def _layer_norm(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(p["scale"])
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+def _conv1x1_from_dense(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(np.transpose(p["kernel"])[:, :, None, None])
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+def _spatial_transformer(sd: SD, key: str, p, depth: int) -> None:
+    """JAX SpatialTransformer (nn/transformer.py) -> the LDM attention.py
+    keys of the port's (nn/transformer.py)."""
+    _gn(sd, key + ".norm", p["norm"])
+    _conv1x1_from_dense(sd, key + ".proj_in", p["proj_in"])
+    for i in range(depth):
+        b, k = p[f"block_{i}"], f"{key}.transformer_blocks.{i}"
+        for a in ("attn1", "attn2"):
+            for name in ("to_q", "to_k", "to_v"):
+                _linear_nobias(sd, f"{k}.{a}.{name}", b[a][name])
+            _dense(sd, f"{k}.{a}.to_out.0", b[a]["to_out"])
+        for n in ("norm1", "norm2", "norm3"):
+            _layer_norm(sd, f"{k}.{n}", b[n])
+        _dense(sd, f"{k}.ff.net.0.proj", b["ff"]["geglu"]["proj"])
+        _dense(sd, f"{k}.ff.net.2", b["ff"]["out_proj"])
+    _conv1x1_from_dense(sd, key + ".proj_out", p["proj_out"])
+
+
 def unet_from_jax(tree, cfg) -> SD:
     """JAX UNet params (nn/unet.py) -> port UNet state_dict (walks the same
-    ADM block layout as reference_ckpt.convert_unet)."""
+    ADM block layout as reference_ckpt.convert_unet), with the label
+    embedding of a class-conditional UNet and the spatial transformers in
+    the attention blocks' places where the config asks for them."""
     sd: SD = {}
     _dense(sd, "time_embed.0", tree["time_dense1"])
     _dense(sd, "time_embed.2", tree["time_dense2"])
+    if cfg.num_classes is not None:
+        sd["label_emb.weight"] = _t(tree["label_emb"]["embedding"])
+    if cfg.use_spatial_transformer:
+        attn = lambda key, p, nh: _spatial_transformer(sd, key, p, cfg.transformer_depth)
+    else:
+        attn = lambda key, p, nh: _adm_attn(sd, key, p, nh)
     _conv(sd, "input_blocks.0.0", tree["conv_in"])
     mc = cfg.model_channels
     idx, ds, ch = 1, 1, mc
@@ -123,14 +165,14 @@ def unet_from_jax(tree, cfg) -> SD:
             _adm_resblock(sd, key + ".0", tree[f"down_{level}_{i}"])
             ch = mult * mc
             if ds in cfg.attention_resolutions:
-                _adm_attn(sd, key + ".1", tree[f"down_attn_{level}_{i}"], _heads(ch, cfg))
+                attn(key + ".1", tree[f"down_attn_{level}_{i}"], _heads(ch, cfg))
             idx += 1
         if level != len(cfg.channel_mult) - 1:
             _conv(sd, f"input_blocks.{idx}.0.op", tree[f"downsample_{level}"]["Conv_0"])
             idx += 1
             ds *= 2
     _adm_resblock(sd, "middle_block.0", tree["mid_block1"])
-    _adm_attn(sd, "middle_block.1", tree["mid_attn"], _heads(ch, cfg))
+    attn("middle_block.1", tree["mid_attn"], _heads(ch, cfg))
     _adm_resblock(sd, "middle_block.2", tree["mid_block2"])
     idx = 0
     for level, mult in reversed(list(enumerate(cfg.channel_mult))):
@@ -140,7 +182,7 @@ def unet_from_jax(tree, cfg) -> SD:
             ch = mult * mc
             sub = 1
             if ds in cfg.attention_resolutions:
-                _adm_attn(sd, f"{key}.{sub}", tree[f"up_attn_{level}_{i}"], _heads(ch, cfg))
+                attn(f"{key}.{sub}", tree[f"up_attn_{level}_{i}"], _heads(ch, cfg))
                 sub += 1
             if level != 0 and i == cfg.num_res_blocks:
                 _conv(sd, f"{key}.{sub}.conv", tree[f"upsample_{level}"]["Conv_0"])
@@ -148,6 +190,49 @@ def unet_from_jax(tree, cfg) -> SD:
             idx += 1
     _gn(sd, "out.0", tree["norm_out"])
     _conv(sd, "out.2", tree["conv_out"])
+    return sd
+
+
+# ------------------------------------------------------------------ MDTv2
+
+
+def _mdt_block(sd: SD, key: str, p) -> None:
+    _dense(sd, key + ".adaLN_modulation.1", p["adaLN_modulation"])
+    _dense(sd, key + ".attn.qkv", p["attn"]["qkv"])
+    _dense(sd, key + ".attn.proj", p["attn"]["proj"])
+    sd[key + ".attn.rel_pos_bias.relative_position_bias_table"] = _t(p["attn"]["rel_pos_table"])
+    _dense(sd, key + ".mlp.fc1", p["mlp_fc1"])
+    _dense(sd, key + ".mlp.fc2", p["mlp_fc2"])
+    if "skip_linear" in p:
+        _dense(sd, key + ".skip_linear", p["skip_linear"])
+
+
+def mdt_from_jax(tree, cfg) -> SD:
+    """JAX MDTv2 params (nn/mdt.py) -> port MDTv2 state_dict (the
+    reference maskedtransformer.py keys); inverts
+    reference_ckpt.convert_mdt: the patch Dense over (p, p, C)-ordered
+    patch vectors becomes the p x p stride-p Conv2d."""
+    p, C = cfg.patch_size, cfg.in_channels
+    k = np.asarray(tree["x_embedder"]["kernel"])
+    sd: SD = {
+        "x_embedder.proj.weight": _t(np.transpose(k.reshape(p, p, C, -1), (3, 2, 0, 1))),
+        "x_embedder.proj.bias": _t(tree["x_embedder"]["bias"]),
+        "pos_embed": _t(tree["pos_embed"]),
+        "decoder_pos_embed": _t(tree["decoder_pos_embed"]),
+    }
+    _dense(sd, "t_embedder.mlp.0", tree["t_mlp1"])
+    _dense(sd, "t_embedder.mlp.2", tree["t_mlp2"])
+    half = (cfg.depth - cfg.decode_layer) // 2
+    for i in range(half):
+        _mdt_block(sd, f"en_inblocks.{i}", tree[f"en_in_{i}"])
+        _mdt_block(sd, f"en_outblocks.{i}", tree[f"en_out_{i}"])
+    for i in range(cfg.decode_layer):
+        _mdt_block(sd, f"de_blocks.{i}", tree[f"de_{i}"])
+    if "sideblock" in tree:
+        _mdt_block(sd, "sideblocks.0", tree["sideblock"])
+        sd["mask_token"] = _t(tree["mask_token"])
+    _dense(sd, "final_layer.adaLN_modulation.1", tree["final_adaLN"])
+    _dense(sd, "final_layer.linear", tree["final_linear"])
     return sd
 
 

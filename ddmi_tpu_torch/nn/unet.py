@@ -8,6 +8,14 @@ Module tree and state keys follow the reference `openaimodel.UNetModel`:
 the attention kernel's NHWC view of a feature map is free.  The triplane
 (video) variant builds on this one in nn/unet_triplane.py.
 
+The JAX UNet's three options: `use_scale_shift_norm` (the ResBlock's
+embedding projection gives a scale and a shift for its second norm),
+`num_classes` (`label_emb`, a label embedding added to the timestep
+embedding; `forward(..., y=)`) and `use_spatial_transformer`
+(SpatialTransformer blocks, nn/transformer.py, in place of the attention
+blocks, attending to `forward(..., cond=)`).  Dropout is read but inactive,
+as in the JAX UNet's deterministic apply.
+
 Dtype plan (as the JAX UNet's): everything in the parameters' dtype (bf16
 for sampling), GroupNorm statistics in fp32, and the final `out.2` conv in
 fp32 on the fp32 cast of its input and weights.
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddmi_tpu_torch.nn.transformer import SpatialTransformer
 from ddmi_tpu_torch.ops import attention, attn_block, flash_attention
 
 
@@ -50,23 +59,35 @@ class TimestepBlock(nn.Module):
 
 
 class TimestepEmbedSequential(nn.Sequential):
-    def forward(self, x, emb):
+    def forward(self, x, emb, context=None):
         for layer in self:
-            x = layer(x, emb) if isinstance(layer, TimestepBlock) else layer(x)
+            if isinstance(layer, TimestepBlock):
+                x = layer(x, emb)
+            elif isinstance(layer, SpatialTransformer):
+                x = layer(x, context)
+            else:
+                x = layer(x)
         return x
 
 
 class ResBlock(TimestepBlock):
     """Timestep-embedded residual block (GroupNorm eps 1e-5).  Dropout is
-    inactive when sampling; `out_layers.2` keeps its place in the state keys."""
+    inactive; `out_layers.2` keeps its place in the state keys.  With
+    `use_scale_shift_norm` the embedding projection gives 2 C channels,
+    (scale, shift), and the second norm's output becomes norm * (1 + scale)
+    + shift; else the embedding is added before that norm."""
 
-    def __init__(self, channels: int, emb_channels: int, out_channels: int):
+    def __init__(self, channels: int, emb_channels: int, out_channels: int,
+                 use_scale_shift_norm: bool = False):
         super().__init__()
+        self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(
             nn.GroupNorm(32, channels, eps=1e-5), nn.SiLU(),
             nn.Conv2d(channels, out_channels, 3, padding=1),
         )
-        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(),
+            nn.Linear(emb_channels, 2 * out_channels if use_scale_shift_norm else out_channels))
         self.out_layers = nn.Sequential(
             nn.GroupNorm(32, out_channels, eps=1e-5), nn.SiLU(), nn.Identity(),
             nn.Conv2d(out_channels, out_channels, 3, padding=1),
@@ -80,7 +101,13 @@ class ResBlock(TimestepBlock):
 
     def forward(self, x, emb):
         h = self.in_layers(x)
-        h = self.out_layers(h + self.emb_layers(emb).to(h.dtype)[:, :, None, None])
+        emb_out = self.emb_layers(emb).to(h.dtype)[:, :, None, None]
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = self.out_layers[0](h) * (1 + scale) + shift
+            h = self.out_layers[3](self.out_layers[1](h))
+        else:
+            h = self.out_layers(h + emb_out)
         return self.skip_connection(x) + h
 
 
@@ -168,21 +195,29 @@ class UNet(nn.Module):
     `input_blocks` (the stem and the down path) and runs the middle and up
     paths on the cached features under the current timestep embedding.
     Exact when x and t are the caching call's; across DDIM steps an
-    approximation (diffusion/process.py::ddim_sample_encoder_reuse)."""
+    approximation (diffusion/process.py::ddim_sample_encoder_reuse).
+
+    `cond` (B, m, context_dim) is the spatial transformers' context, `y`
+    (B,) the class labels; each raises ValueError where the config lacks
+    (or needs) it, as the JAX UNet does."""
 
     def __init__(self, cfg):
         super().__init__()
-        if (cfg.use_spatial_transformer or cfg.num_classes is not None
-                or cfg.use_scale_shift_norm):
-            raise NotImplementedError(
-                "spatial-transformer, class-conditional and scale-shift-norm "
-                "UNets are not ported"
-            )
         self.cfg = cfg
         mc = cfg.model_channels
         ted = mc * 4
-        block = lambda cin, cout: ResBlock(cin, ted, cout)
+        block = lambda cin, cout: ResBlock(cin, ted, cout, cfg.use_scale_shift_norm)
+
+        def attn(ch):
+            nh = _num_heads(ch, cfg)
+            if cfg.use_spatial_transformer:
+                return SpatialTransformer(ch, nh, ch // nh, cfg.transformer_depth,
+                                          cfg.context_dim)
+            return AttentionBlock(ch, nh)
+
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, ted)
         self.input_blocks = nn.ModuleList(
             [TimestepEmbedSequential(nn.Conv2d(cfg.in_channels, mc, 3, padding=1))]
         )
@@ -193,23 +228,21 @@ class UNet(nn.Module):
                 layers = [block(ch, mult * mc)]
                 ch = mult * mc
                 if ds in cfg.attention_resolutions:
-                    layers.append(AttentionBlock(ch, _num_heads(ch, cfg)))
+                    layers.append(attn(ch))
                 self.input_blocks.append(TimestepEmbedSequential(*layers))
                 chans.append(ch)
             if level != len(cfg.channel_mult) - 1:
                 self.input_blocks.append(TimestepEmbedSequential(Downsample(ch)))
                 chans.append(ch)
                 ds *= 2
-        self.middle_block = TimestepEmbedSequential(
-            block(ch, ch), AttentionBlock(ch, _num_heads(ch, cfg)), block(ch, ch)
-        )
+        self.middle_block = TimestepEmbedSequential(block(ch, ch), attn(ch), block(ch, ch))
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(cfg.channel_mult))):
             for i in range(cfg.num_res_blocks + 1):
                 layers = [block(ch + chans.pop(), mult * mc)]
                 ch = mult * mc
                 if ds in cfg.attention_resolutions:
-                    layers.append(AttentionBlock(ch, _num_heads(ch, cfg)))
+                    layers.append(attn(ch))
                 if level and i == cfg.num_res_blocks:
                     layers.append(Upsample(ch))
                     ds //= 2
@@ -221,23 +254,40 @@ class UNet(nn.Module):
         nn.init.zeros_(self.out[2].weight)
         nn.init.zeros_(self.out[2].bias)
 
-    def forward(self, x, t, *, cache=None, return_cache: bool = False):
+    def embed(self, t, y=None, cond=None) -> torch.Tensor:
+        """The timestep embedding, plus the label embedding of a
+        class-conditional UNet; checks `cond` and `y` against the config."""
+        c = self.cfg
+        if cond is not None and not c.use_spatial_transformer:
+            raise ValueError(
+                "cond was passed but unetconfig.use_spatial_transformer is off - enable "
+                "it (with context_dim) to get the cross-attention conditioning path")
+        if c.use_spatial_transformer and c.context_dim is None:
+            raise ValueError("use_spatial_transformer requires unetconfig.context_dim")
         dtype = self.time_embed[0].weight.dtype
-        emb = self.time_embed(timestep_embedding(t, self.cfg.model_channels).to(dtype))
+        emb = self.time_embed(timestep_embedding(t, c.model_channels).to(dtype))
+        if c.num_classes is not None:
+            if y is None:
+                raise ValueError("num_classes is set; class labels y required")
+            emb = emb + self.label_emb(y)
+        return emb
+
+    def forward(self, x, t, cond=None, y=None, *, cache=None, return_cache: bool = False):
+        emb = self.embed(t, y, cond)
         if cache is not None:
             h, hs = cache[0], list(cache[1])
         else:
-            h = x.to(dtype)
+            h = x.to(emb.dtype)
             if h.is_cuda:
                 h = h.contiguous(memory_format=torch.channels_last)
             hs = []
             for module in self.input_blocks:
-                h = module(h, emb)
+                h = module(h, emb, cond)
                 hs.append(h)
         out_cache = (h, tuple(hs))
-        h = self.middle_block(h, emb)
+        h = self.middle_block(h, emb, cond)
         for module in self.output_blocks:
-            h = module(torch.cat([h, hs.pop()], dim=1), emb)
+            h = module(torch.cat([h, hs.pop()], dim=1), emb, cond)
         h = self.out[1](self.out[0](h))
         conv = self.out[2]
         out = F.conv2d(h.float(), conv.weight.float(), conv.bias.float(), padding=1)

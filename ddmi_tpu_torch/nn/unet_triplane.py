@@ -70,9 +70,15 @@ class TriplaneUNet(UNet):
     """x (b, n, c_in) tokens [xy | xt | yt], t (b,) -> (b, n, c_out) fp32.
     cfg.plane_sizes gives the three planes' (h, w).  `cache=` and
     `return_cache=` split it as they split the UNet, with the cache
-    (planes, skips) after the down path and its cross-plane attentions."""
+    (planes, skips) after the down path and its cross-plane attentions.
+    Its ResBlocks take `use_scale_shift_norm`, as the JAX TriplaneUNet's;
+    it has no context or label path (the JAX module builds neither), so a
+    config that asks for one is refused."""
 
     def __init__(self, cfg):
+        if cfg.use_spatial_transformer or cfg.num_classes is not None:
+            raise ValueError("the triplane UNet takes no spatial transformer and no class "
+                             "labels (unetconfig.use_spatial_transformer / num_classes)")
         super().__init__(cfg)
         if len(cfg.plane_sizes) != 3:
             raise ValueError("plane_sizes must give 3 (h, w) pairs")

@@ -61,6 +61,12 @@ def _random_tree(tree, seed):
     )
 
 
+def _shapes(init):
+    """The "params" tree of `init()` as shapes (jax.eval_shape: no flax init
+    runs); every test here replaces each leaf with _random_tree's values."""
+    return jax.eval_shape(init)["params"]
+
+
 def _assert_trees_equal(a, b, path=""):
     if isinstance(a, dict):
         assert set(a) == set(b), (path, sorted(set(a) ^ set(b)))
@@ -76,9 +82,9 @@ def test_unet_bridge_round_trip_is_exact():
     from ddmi_tpu.nn.unet import UNet
     from ddmi_tpu_torch.nn.unet import UNet as TorchUNet
 
-    t = UNet(UNET).init(
+    t = _shapes(lambda: UNet(UNET).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32)
-    )["params"]
+    ))
     t = _random_tree(t, 1)
     sd = unet_from_jax(t, UNET)
     TorchUNet(UNET).load_state_dict(sd, strict=True)
@@ -89,10 +95,10 @@ def test_vae_decoder_bridge_round_trip_is_exact():
     from ddmi_tpu.nn.vae import Autoencoder
     from ddmi_tpu_torch.nn.vae import Autoencoder as TorchAE
 
-    t = Autoencoder(DD, embed_dim=4).init(
+    t = _shapes(lambda: Autoencoder(DD, embed_dim=4).init(
         {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 16, 16, 3)),
         jax.random.PRNGKey(1),
-    )["params"]
+    ))
     t = _random_tree(t, 2)
     sd = vae_from_jax(t, DD)
     TorchAE(DD, embed_dim=4).load_state_dict(sd, strict=True)
@@ -104,10 +110,10 @@ def test_mlp_bridge_round_trip_is_exact():
     from ddmi_tpu_torch.nn.inr import INRImage as TorchINR
 
     hdbf = [jnp.zeros((1, r, r, 8)) for r in (4, 8, 16)]
-    t = INRImage(MLP).init(
+    t = _shapes(lambda: INRImage(MLP).init(
         {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
         jnp.zeros((1, 5, 2)), hdbf, 1.0,
-    )["params"]
+    ))
     t = _random_tree(t, 3)
     sd = mlp_image_from_jax(t, MLP)
     TorchINR(MLP).load_state_dict(sd, strict=True)
@@ -131,9 +137,9 @@ def test_triplane_unet_bridge_round_trip_is_exact():
     from ddmi_tpu.nn.unet_triplane import TriplaneUNet
     from ddmi_tpu_torch.nn.unet_triplane import TriplaneUNet as TorchUNet
 
-    t = TriplaneUNet(TRIPLANE).init(
+    t = _shapes(lambda: TriplaneUNet(TRIPLANE).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 48, 8)), jnp.zeros((1,), jnp.int32)
-    )["params"]
+    ))
     t = _random_tree(t, 4)
     sd = triplane_unet_from_jax(t, TRIPLANE)
     TorchUNet(TRIPLANE).load_state_dict(sd, strict=True)
@@ -144,10 +150,10 @@ def test_video_decoder_bridge_round_trip_is_exact():
     from ddmi_tpu.nn.video_vae import VideoAutoencoder
     from ddmi_tpu_torch.nn.video_vae import VideoAutoencoder as TorchAE
 
-    t = VideoAutoencoder(VIDEO_DD, embed_dim=8, frames=4).init(
+    t = _shapes(lambda: VideoAutoencoder(VIDEO_DD, embed_dim=8, frames=4).init(
         {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 4, 32, 32, 3)),
         jax.random.PRNGKey(1),
-    )["params"]
+    ))
     t = _random_tree(t, 5)
     sd = video_decoder_from_jax(t, VIDEO_DD)
     TorchAE(VIDEO_DD, embed_dim=8, frames=4).load_state_dict(sd, strict=True)
@@ -168,7 +174,7 @@ def test_mlp_video_bridge_round_trip_is_exact():
         [(1, r, r, 8) for r in (4, 8, 16)], [(1, 4, r, 8) for r in (4, 8, 16)],
         [(1, 4, r, 8) for r in (4, 8, 16)]))
     axes = {"axes": (jnp.linspace(-1, 1, 2), jnp.linspace(-1, 1, 3), jnp.linspace(-1, 1, 3))}
-    t = INRVideo(cfg).init({"params": jax.random.PRNGKey(0)}, axes, hdbf)["params"]
+    t = _shapes(lambda: INRVideo(cfg).init({"params": jax.random.PRNGKey(0)}, axes, hdbf))
     t = _random_tree(t, 6)
     sd = mlp_video_from_jax(t)
     TorchINR(cfg).load_state_dict(sd, strict=True)
@@ -187,9 +193,9 @@ def test_triplane_decoder_bridge_round_trip_is_exact():
     from ddmi_tpu_torch.nn.triplane_vae import TriplaneAutoencoder as TorchAE
 
     planes = tuple(jnp.zeros((1, 16, 16, 8)) for _ in range(3))
-    t = TriplaneAutoencoder(NERF_DD, embed_dim=4).init(
+    t = _shapes(lambda: TriplaneAutoencoder(NERF_DD, embed_dim=4).init(
         {"params": jax.random.PRNGKey(0)}, planes, jax.random.PRNGKey(1)
-    )["params"]
+    ))
     t = _random_tree(t, 7)
     sd = triplane_decoder_from_jax(t, NERF_DD)
     TorchAE(NERF_DD, embed_dim=4).load_state_dict(sd, strict=True)
@@ -205,8 +211,8 @@ def test_mlp_nerf_bridge_round_trip_is_exact():
     from ddmi_tpu.nn.inr import INRNeRF
     from ddmi_tpu_torch.nn.inr import INRNeRF as TorchNeRF
 
-    t = INRNeRF(depth=6, width=64, in_channels_xyz=39, in_channels_dir=15,
-                skips=(2, 4)).init(jax.random.PRNGKey(0), jnp.zeros((4, 54)))["params"]
+    t = _shapes(lambda: INRNeRF(depth=6, width=64, in_channels_xyz=39, in_channels_dir=15,
+                                skips=(2, 4)).init(jax.random.PRNGKey(0), jnp.zeros((4, 54))))
     t = _random_tree(t, 8)
     sd = mlp_nerf_from_jax(t, 6)
     TorchNeRF(6, 64, 39, 15, (2, 4)).load_state_dict(sd, strict=True)
@@ -221,10 +227,10 @@ def test_linear_attention_vae_bridge_round_trip_is_exact():
     from ddmi_tpu_torch.nn.vae import Autoencoder as TorchAE
 
     dd = dataclasses.replace(DD, attn_type="linear", attn_resolutions=(8,))
-    t = Autoencoder(dd, embed_dim=4).init(
+    t = _shapes(lambda: Autoencoder(dd, embed_dim=4).init(
         {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 16, 16, 3)),
         jax.random.PRNGKey(1),
-    )["params"]
+    ))
     assert "LinAttnBlock_1" in t["encoder"] and "LinAttnBlock_1" in t["decoder"]
     t = _random_tree(t, 9)
     sd = vae_from_jax(t, dd)
@@ -239,7 +245,8 @@ def test_discriminator_bridge_round_trip_is_exact():
     from ddmi_tpu_torch.losses.gan import GANLoss2D as TorchGAN
 
     x = jnp.zeros((1, 32, 32, 3))
-    t = _random_tree(GANLoss2D().init(jax.random.PRNGKey(0), x, x, False, 1.0)["params"], 10)
+    t = _random_tree(_shapes(lambda: GANLoss2D().init(jax.random.PRNGKey(0), x, x, False, 1.0)),
+                     10)
     sd = discriminator_from_jax(t)
     TorchGAN(3).load_state_dict(sd, strict=True)
     _assert_trees_equal(discriminator_to_jax(sd), t)
@@ -253,7 +260,7 @@ def test_lpips_bridge_round_trip_is_exact():
     from ddmi_tpu_torch.interop import lpips_from_jax
 
     x = jnp.zeros((1, 32, 32, 3))
-    t = _random_tree(LPIPS().init(jax.random.PRNGKey(0), x, x)["params"], 11)
+    t = _random_tree(_shapes(lambda: LPIPS().init(jax.random.PRNGKey(0), x, x)), 11)
     sd = lpips_from_jax(t)
     m = TorchLPIPS()
     m.load_state_dict(sd, strict=True)
@@ -425,9 +432,8 @@ def test_video_vae_bridge_round_trip_is_exact():
     from ddmi_tpu_torch.nn.video_vae import VideoAutoencoder as TorchAE
 
     dd = dataclasses.replace(VIDEO_DD, timesformer_channels=32)
-    t = jax.jit(lambda k: VideoAutoencoder(dd, embed_dim=8, frames=4).init(
-        {"params": k}, jnp.zeros((1, 4, 32, 32, 3)), jax.random.PRNGKey(1)))(
-        jax.random.PRNGKey(0))["params"]
+    t = _shapes(lambda: VideoAutoencoder(dd, embed_dim=8, frames=4).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 4, 32, 32, 3)), jax.random.PRNGKey(1)))
     t = _random_tree(t, 7)
     sd = video_vae_from_jax(t, dd)
     TorchAE(dd, embed_dim=8, frames=4, with_encoder=True).load_state_dict(sd, strict=True)
@@ -443,7 +449,7 @@ def test_discriminator3d_bridge_round_trip_is_exact():
     from ddmi_tpu_torch.losses.gan import GANLoss3D as TorchGAN
 
     x = jnp.zeros((1, 4, 16, 16, 3))
-    t = _random_tree(GANLoss3D().init(jax.random.PRNGKey(0), x, x, False)["params"], 8)
+    t = _random_tree(_shapes(lambda: GANLoss3D().init(jax.random.PRNGKey(0), x, x, False)), 8)
     sd = discriminator3d_from_jax(t)
     TorchGAN(3).load_state_dict(sd, strict=True)
     _assert_trees_equal(discriminator3d_to_jax(sd), t)

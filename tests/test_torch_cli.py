@@ -128,13 +128,20 @@ def test_profiler_hook_writes_a_chrome_trace(tmp_path):
     assert os.path.exists(tmp_path / "late" / "trace_1_3.json")
 
 
-def test_cli_image_train_gen_eval(tmp_path):
+def test_cli_image_train_gen_eval(tmp_path, monkeypatch):
     """The image slice through the CLI on the CPU, as tests/test_cli_smoke.py
     drives the JAX one: stage 1 and stage 2 checkpoints and the eval hooks'
     images; stage 2 with data.extra.profile_steps 2 writes a trace of
     micro-steps 3-4; gen (in a fresh interpreter that loads no JAX)
     writes generation_<i>.png (or .npy); eval --exp d2c-vae writes rfid,
-    eval --exp ldm fid, both finite."""
+    eval --exp ldm fid, both finite.  The synthetic loader's epoch is 6
+    batches (its default 64 reaches no further check)."""
+    import functools
+
+    from ddmi_tpu_torch import data as port_data
+
+    monkeypatch.setattr(port_data, "SyntheticImages",
+                        functools.partial(port_data.SyntheticImages, length=6))
     save = str(tmp_path / "run")
     cfg = _base_cfg(save)
     _cli(tmp_path, cfg, "d2c-vae", "train", "s1.yaml")

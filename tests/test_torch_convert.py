@@ -12,7 +12,8 @@ take over a minute on the CPU, and tests/test_interop.py drives it whole),
 for each of the four domains.  The port's stage-1 and stage-2
 checkpoints and JAX's params mapped by ddmi_tpu_torch/interop.py must
 be equal bit for bit, the EMA too.  A
-missing, extra or misshapen tensor raises; `DiT: True` is refused; the
+missing, extra or misshapen tensor raises (a UNet file for a `DiT: True`
+config too; the MDTv2 branch is tests/test_torch_mdt_convert.py's); the
 converted image save_pth is served and resumed by `train` (both stages)
 through the port's CLI.
 """
@@ -270,11 +271,15 @@ def test_converter_refuses_a_mismatched_file(tmp_path, fault):
 
 
 def test_converter_refuses_mdt_and_warns_before_a_full_unpickle(tmp_path):
+    """A DiT config refuses a file whose denoiser is a UNet (the MDTv2
+    branch is tests/test_torch_mdt_convert.py's); a file a weights-only
+    load rejects is unpickled in full only after a warning."""
     import argparse
 
     path = _write_config(tmp_path, "image", DiT=True)
-    with pytest.raises(NotImplementedError, match="MDTv2"):
-        convert("ldm", path, str(tmp_path / "none.pt"), device="cpu")
+    with pytest.raises(ValueError, match=r"stage2 'diffusion'.*missing=\['de_blocks.*extra=\['input_blocks"):
+        convert("ldm", path, _save(tmp_path, _reference("image")), device="cpu",
+                steps_per_epoch=2)
     pt = str(tmp_path / "args.pt")
     torch.save({"args": argparse.Namespace(lr=1e-4), "w": torch.ones(2)}, pt)
     with pytest.warns(UserWarning, match="FULL pickle loading"):

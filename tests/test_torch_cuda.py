@@ -977,3 +977,49 @@ def test_occupancy_stage2_eval_hook_counts_attn_block(cuda_device, tmp_path):
     log = tmp_path / "train.jsonl"
     assert not log.exists() or not [r for r in map(json.loads, open(log))
                                      if "s2/eval_hook_failures" in r]
+
+
+@pytest.mark.parametrize("variant", ["plain", "masked", "cross"])
+def test_mdt_forward_on_the_card_matches_the_cpu(cuda_device, variant):
+    """MDTv2 (hidden 128, depth 4, 4 heads over 16 x 16 latents of 8
+    channels) on the card against the same module on the CPU, fp32 (TF32
+    off): the unmasked forward, the masked one on the same (B, L) uniform
+    draws, and the cross-plane one, max |err| <= 1e-4 max |CPU|; under the
+    bf16 policy (bf16 weights and input) the card's output lies within 2e-2
+    max |CPU fp32| of the fp32 one and launches no kernel."""
+    from ddmi_tpu_torch.core.amp import amp_denoiser
+    from ddmi_tpu_torch.core.config import DiTConfig
+    from ddmi_tpu_torch.nn.mdt import MDTv2
+
+    kw = {"masked": {"mask_ratio": 0.3}, "cross": {"cross_plane": True}}.get(variant, {})
+    cfg = DiTConfig(input_size=16, patch_size=2, in_channels=8, hidden_size=128, depth=4,
+                    num_heads=4, decode_layer=2, **kw)
+    torch.manual_seed(0)
+    cpu = MDTv2(cfg)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if not p.any():
+                p.normal_(0, 0.05)
+    gpu = MDTv2(cfg).to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    c = 24 if cfg.cross_plane else 8
+    g = torch.Generator().manual_seed(1)
+    x, t = torch.randn(2, c, 16, 16, generator=g), torch.tensor([3, 700])
+    noise = torch.rand(2, cpu.num_tokens(), generator=g) if cfg.mask_ratio else None
+    with torch.no_grad():
+        ref = cpu(x, t, mask_noise=noise)
+        got = gpu(x.to(cuda_device), t.to(cuda_device),
+                  mask_noise=None if noise is None else noise.to(cuda_device)).cpu()
+        counts = [f.launches for f in (attn_block.fused_attention_block,
+                                       inr_decode.inr_decode_fused, attention.mha_vmem,
+                                       flash_attention.flash_attention)]
+        amp = amp_denoiser(gpu, True, **({"mask_noise": noise.to(cuda_device)} if noise is not None
+                                         else {}))(x.to(cuda_device), t.to(cuda_device)).cpu()
+        after = [f.launches for f in (attn_block.fused_attention_block,
+                                      inr_decode.inr_decode_fused, attention.mha_vmem,
+                                      flash_attention.flash_attention)]
+    scale = ref.abs().max().item()
+    assert scale > 0.1
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
+    assert amp.dtype == torch.float32 and (amp - ref).abs().max().item() <= 2e-2 * scale
+    assert counts == after
