@@ -50,7 +50,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
  10. nerf kernel: nerf_mlp against its plain version at the render's shape
      (4096 rays x 256 samples) and at a ragged N, with a bit-identical
      repeat and one launch per call, timed against the plain version and
-     against the bf16 INRNeRF module (a chain of cuBLAS GEMMs);
+     against the bf16 INRNeRF module (a chain of cuBLAS GEMMs), and at 603
+     xyz + 27 dir inputs (11 panels: the kernel's streamed instance);
      attn_block at the two srn_cars UNet shapes;
  11. nerf slice: the NeRF SamplerService on configs/ldm/srn_cars.yaml at
      full width (bf16, batch 2, 8 views at 128^2, 256 samples per ray, NFE
@@ -62,7 +63,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      kernel and the compositing) timed, with profiles of the render and the
      forward;
  13. nerf reference: a small config with a width-256 MLP, bf16 with the
-     kernels on the GPU against fp32 plain versions on the CPU;
+     kernels on the GPU against fp32 plain versions on the CPU; again with
+     the decoder's out_ch at 180, so that the render's MLP takes 603 + 27
+     inputs through the streamed instance (its launches count in the
+     `kernels` line);
  14. train kernels: the flash backward (dk/dv and dq kernels) against its
      plain version at the celebahq training shape (5, 16, 1024, 32), at
      (2, 4, 2048, 16) and at a ragged (1, 2, 1000, 64), timed against the
@@ -253,7 +257,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      1000 class labels (attn_block exactly 16 a forward, its output
      against the plain block's), and the spatial transformer with a
      77 x 512 context through 4 classifier-free-guided DDIM steps (no
-     attention kernel: its attention is plain PyTorch, as in JAX).
+     attention kernel: its attention is plain PyTorch, as in JAX);
+ 46. the standalone ConvONet at full width: configs/convocc/pointcloud/
+     shapenet_3plane.yaml's model block through the port's convocc reader
+     (pointnet_local_pool, hidden 256, 7 blocks, three 64^2 planes, c_dim
+     32; LocalDecoder at hidden 256, 5 blocks), fp32 with TF32 off, batches
+     of 32 synthetic shapes (3000-point clouds, noise 0.005, 2048 query
+     points): the loss falls over 20 Adam steps on a repeated batch, a
+     timed run of 10 (steps/s, peak memory), eval_iou, and one mesh through
+     MeshGenerator at the config's generation block (64 -> 256^3): encode
+     ms, decode ms per MISE round, host extraction seconds; no launch (JAX
+     runs the ConvONet outside any Pallas kernel);
+ 47. the voxel variant at full width: LocalVoxelEncoder (c_dim 32, planes
+     at 64, the plane UNet at depth 4 and 32 filters, 'grid' through the
+     UNet3D at f_maps 32 and 3 levels) on batches of 32 32^3 grids, 5
+     ConvONet steps: ms a step, peak memory, no launch;
+ 48. PointNet++ forward at batch 32 x 3000 points: ms, no launch;
+ 49. each new module and op on the card against the port's fp32 CPU run at
+     cut widths: the ConvONet's logits, two steps' losses and parameters,
+     the voxel variant, PointNet++'s indices (equal) and features, and
+     upfirdn, the resampling StyleGAN blocks, the zeros-padded resample and
+     grid_sample_3d (max|err| <= 1e-4 x max(1, max|ref|) for the ops,
+     1e-3 for the models).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -315,6 +340,10 @@ VIDEO_LAUNCHES = {"attn_block": 32 * VIDEO_NFE, "mha_vmem": 18 * VIDEO_NFE,
 # 6 at 4x4 (ds 4); per batch 11 per forward and one MLP launch per 4096-ray
 # chunk: 2 scenes x 8 views x 4 chunks
 NERF_ATTN_SHAPES = [((8, 512, 16), 5), ((4, 1024, 32), 6)]
+# inputs past the NeRF MLP kernel's 8 resident panels: 603 xyz columns (the
+# decoder's 3 x 180 plane features and the embedding's 63) and 27 dir ones,
+# streamed through its input buffer (phases 10 and 13)
+NERF_WIDE_OUT_CH, NERF_WIDE_IN = 180, (3 * 180 + 63, 27)
 NERF_LAUNCHES = {"attn_block": 11 * NERF_NFE,
                  "nerf_mlp": NERF_BATCH * NERF_VIEWS * (NERF_RES * NERF_RES // 4096)}
 # shapenet occupancy (configs/ldm/shapenet.yaml, bench_3d.py's protocol):
@@ -1445,6 +1474,42 @@ def nerf_kernel_phase(torch, dev):
     LEDGER.add("nerf_mlp", "nerf", calls, kms, pms, None, flops, nbytes,
                max(rgb_err, sig_err))
     LEDGER.rows["nerf_mlp"]["by_path"]["nerf"]["cublas_chain_ms"] = calls * cms
+    del x
+
+    # inputs the kernel streams: NERF_WIDE_IN at the render's chunk of points
+    in_xyz, in_dir = NERF_WIDE_IN
+    torch.manual_seed(34)
+    wide = INRNeRF(6, 256, in_xyz, in_dir, (2, 4)).to(dev)
+    perturb_zero_init(wide, 35)
+    fw = nerf_mlp.fold_nerf_params(wide)
+    N = 4096 * 256
+    x = torch.randn((N, in_xyz + in_dir), generator=g, device=dev).bfloat16()
+    kern = lambda: nerf_mlp.nerf_mlp_fused(fw, x)
+    plain = lambda: nerf_mlp.nerf_mlp_plain(fw, x)
+    before = nerf_mlp.nerf_mlp_fused.launches
+    out, again = kern(), kern()
+    launched = nerf_mlp.nerf_mlp_fused.launches - before
+    ref = plain()
+    torch.cuda.synchronize()
+    rgb_err = (out[:, :3] - ref[:, :3]).abs().max().item()
+    sig_err = (out[:, 3] - ref[:, 3]).abs().max().item()
+    sig_max = ref[:, 3].abs().max().item()
+    same = torch.equal(out, again)
+    with torch.inference_mode():
+        kms, pms = paired_ms(kern, plain, 5)
+    flops = 2 * N * nerf_mlp_macs(fw)
+    nbytes = x.numel() * 2 + N * 4 * 4 + 2 * nerf_mlp_macs(fw)
+    bms, by = bound(flops, nbytes)
+    log(f"[nerf-kernel] nerf_mlp at {in_xyz} xyz + {in_dir} dir inputs (streamed), N={N}: rgb "
+        f"max|err| {rgb_err:.6f}, sigma max|err| {sig_err:.6f} (max|sigma| {sig_max:.4f}); "
+        f"repeat identical {same}, launches {launched}/2; kernel {kms:.4f} ms, plain fp32 "
+        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); {flops / kms / 1e9:.1f} TFLOP/s = "
+        f"{100 * flops / (kms / 1e3) / PEAK_FLOPS:.1f}% of the bf16 peak")
+    if not (rgb_err <= NERF_RGB_ERR and sig_err <= NERF_SIGMA_REL_ERR * max(1.0, sig_max)
+            and bool(torch.isfinite(out).all()) and same and launched == 2):
+        raise AssertionError(f"nerf_mlp fails at {in_xyz} + {in_dir} inputs")
+    LEDGER.add("nerf_mlp", f"nerf-wide ({in_xyz} + {in_dir} inputs, one call)", 1, kms, pms,
+               None, flops, nbytes, max(rgb_err, sig_err))
 
 
 def nerf_config():
@@ -1573,11 +1638,14 @@ def nerf_breakdown_phase(torch, dev, pipe):
                 "the attention blocks (attn_block's GroupNorm, GEMM and flash kernels)")
 
 
-def nerf_reference_phase(torch, dev):
+def nerf_reference_phase(torch, dev, out_ch=32):
     """bf16 + kernels on the GPU against fp32 plain versions on the CPU, at a
     small config whose MLP width (256) the kernel takes and whose UNet
     attention (C 128, 4 heads at 4x4) the fused block takes; NFE 4, 2 views
-    at 16^2."""
+    at 16^2.  The MLP's xyz input is the decoder's 3 x out_ch plane
+    features and the 63 of the embedding: out_ch 180 gives 603 xyz and 27
+    dir columns, 11 panels, which the kernel streams through its input
+    buffer.  -> the launches."""
     import numpy as np
 
     from ddmi_tpu_torch.core.config import config_from_dict
@@ -1588,7 +1656,7 @@ def nerf_reference_phase(torch, dev):
             "unetconfig": dict(in_channels=12, model_channels=64, out_channels=12,
                                num_res_blocks=1, attention_resolutions=[2],
                                channel_mult=[1, 2], num_head_channels=32),
-            "ddconfig": dict(z_channels=16, resolution=32, out_ch=32, ch=32,
+            "ddconfig": dict(z_channels=16, resolution=32, out_ch=out_ch, ch=32,
                              ch_mult=[1, 2, 2], num_res_blocks=1, hdbf_resolutions=[],
                              inter_attn_resolutions=[32, 16, 8]),
             "mlpconfig": dict(D=6, W=256, skips=[2, 4], N_samples=64),
@@ -1606,7 +1674,9 @@ def nerf_reference_phase(torch, dev):
     got = got.cpu()
     launches = read()
     d = (got.clamp(0, 1) - ref.clamp(0, 1)).abs()
-    log(f"[nerf-reference] small config, NFE 4, 2 views at 16^2: bf16 kernels vs fp32 plain "
+    mlp = gpu.mlp
+    log(f"[nerf-reference] small config (MLP inputs {mlp.in_channels_xyz} xyz + "
+        f"{mlp.in_channels_dir} dir), NFE 4, 2 views at 16^2: bf16 kernels vs fp32 plain "
         f"on the CPU: mean|diff| {d.mean().item():.6f}, max|diff| {d.max().item():.6f}, pixel "
         f"std {ref.std().item():.4f}; launches {launches}")
     if not (launches["nerf_mlp"] == 2 * 2 and launches["attn_block"] > 0):
@@ -1615,6 +1685,7 @@ def nerf_reference_phase(torch, dev):
         raise AssertionError("the NeRF reference render is too flat to compare")
     if not (d.mean().item() <= NERF_REF_MEAN_ERR and d.max().item() <= NERF_REF_MAX_ERR):
         raise AssertionError("the GPU NeRF slice disagrees with the CPU reference")
+    return launches
 
 
 def train_kernel_phase(torch, dev):
@@ -5002,6 +5073,344 @@ def denoiser_phases(torch, dev):
     return dict(total)
 
 
+# ------------------------------------------------------ the standalone ConvONet
+# configs/convocc/pointcloud/shapenet_3plane.yaml's model block through the
+# port's convocc reader: pointnet_local_pool (hidden 256, 7 blocks, three
+# 64^2 planes, c_dim 32) and LocalDecoder at its defaults (hidden 256, 5
+# blocks); batches of 32 synthetic shapes (3000-point clouds, noise 0.005,
+# 2048 query points, the config's data block); Adam at the JAX pipeline's
+# 1e-4; a repeated batch for the loss check, then a timed run
+CONVONET_CONFIG = "configs/convocc/pointcloud/shapenet_3plane.yaml"
+CONVONET_BATCH, CONVONET_STEPS, CONVONET_TIMED = 32, 20, 10
+# the voxel variant: LocalVoxelEncoder at c_dim 32, planes at 64, the plane
+# UNet (depth 4, start_filts 32) and 'grid' through the UNet3D (f_maps 32,
+# 3 levels) on 32^3 grids of batch 32
+VOXEL_RES, VOXEL_STEPS = 32, 5
+VOXEL_KWARGS = dict(plane_resolution=64, plane_type=("xz", "xy", "yz", "grid"), unet=True,
+                    unet_depth=4, unet_start_filts=32, unet3d=True)
+# the card (fp32, TF32 off in matmuls and cuDNN convolutions) against the
+# port's fp32 CPU run at cut widths: max|err| <= REL * max(1, max|ref|).
+# Convolution and matmul algorithms sum in other orders; the models' bar is
+# wider for the batch-statistics norms of PointNet++ and for two Adam steps
+CONVONET_OPS_REL, CONVONET_MODEL_REL = 1e-4, 1e-3
+
+
+def voxel_batch(rng, b, res, n_points):
+    """Synthetic ellipsoids voxelised on a res^3 grid of the padded unit
+    cube (cell centres), with query points and their occupancies."""
+    import numpy as np
+
+    radii = rng.uniform(0.15, 0.4, (b, 1, 1, 1, 3)).astype(np.float32)
+    c = (np.arange(res, dtype=np.float32) + 0.5) / res - 0.5
+    grid = np.stack(np.meshgrid(c, c, c, indexing="ij"), -1)[None]
+    vox = (np.sum((grid / radii) ** 2, -1) <= 1.0).astype(np.float32)
+    pts = rng.uniform(-0.5, 0.5, (b, n_points, 3)).astype(np.float32)
+    occ = (np.sum((pts / radii[:, 0, 0]) ** 2, -1) <= 1.0).astype(np.float32)
+    return {"points": pts, "occ": occ, "inputs": vox}
+
+
+def convonet_close(torch, got, ref, rel):
+    """(max|err|, bar) of a card tensor against its CPU reference."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    if got.shape != ref.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} against {tuple(ref.shape)}")
+    return (got - ref).abs().max().item(), rel * max(1.0, ref.abs().max().item())
+
+
+def convonet_train(torch, dev, pipe, batches, steps, tag):
+    """`steps` Adam steps on `batches` (a list, cycled): -> (losses, ms a
+    step over the steps after the first, peak GiB, launches)."""
+    state = pipe.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = reset_launches()
+    losses, stamps = [], []
+    for i in range(steps):
+        state, m = pipe.train_step(state, batches[i % len(batches)])
+        losses.append(m["loss"])
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    launches = read()
+    ms = 1e3 * (stamps[-1] - stamps[0]) / max(1, steps - 1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not all(map(math.isfinite, losses)) or any(launches.values()):
+        raise AssertionError(f"{tag}: losses {losses}, launches {launches}")
+    return losses, ms, peak, launches
+
+
+def convonet_phase(torch, dev):
+    """Phase 46: the ConvONet of configs/convocc/pointcloud/shapenet_3plane.yaml
+    at full width, built by ONetPipeline.from_convocc through the port's
+    convocc reader: CONVONET_STEPS Adam steps on one repeated batch of 32
+    synthetic shapes (finite, falling loss), a timed run of CONVONET_TIMED
+    steps on fresh batches (steps/s, peak memory), eval_iou on a held-out
+    batch, then one mesh through MeshGenerator at the config's generation
+    block (resolution_0 64, 2 upsampling steps) from mesh_eval_fn: the
+    encode, the decode per MISE round and the host's extraction timed.  No
+    kernel of the six is on this path (JAX runs it outside Pallas): every
+    counter stays 0.  -> launches."""
+    import numpy as np
+
+    from ddmi_tpu_torch.core.convocc_config import load_convocc_config
+    from ddmi_tpu_torch.data.shapenet import SyntheticOccupancy
+    from ddmi_tpu_torch.domains.onet import ONetPipeline
+    from ddmi_tpu_torch.geometry.generation import MeshGenerator
+
+    conv = load_convocc_config(os.path.join(ROOT, CONVONET_CONFIG))
+    data = conv["data"]
+    pipe = ONetPipeline.from_convocc(conv, device=dev, seed=46)
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    log(f"[convonet] {CONVONET_CONFIG}: {conv['model']['encoder']} {conv['model']['encoder_kwargs']}"
+        f", c_dim {conv['model']['c_dim']}, LocalDecoder defaults; {n_params} parameters, fp32, "
+        f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+        f"{torch.backends.cudnn.allow_tf32}; batch {CONVONET_BATCH} x {data['pointcloud_n']} "
+        f"points (noise {data['pointcloud_noise']}), {data['points_subsample']} queries")
+    shapes = SyntheticOccupancy(CONVONET_BATCH, n_points=data["points_subsample"],
+                                n_cloud=data["pointcloud_n"], length=CONVONET_TIMED + 2, seed=46)
+    batches = list(shapes)
+    losses, _, _, launches = convonet_train(torch, dev, pipe, batches[:1], CONVONET_STEPS,
+                                            "convonet repeated batch")
+    log(f"[convonet] {CONVONET_STEPS} steps on one batch: losses {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f} ({[round(v, 3) for v in losses[::5]]} every 5th); launches {launches}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the ConvONet loss does not fall on a repeated batch")
+    losses, ms, peak, more = convonet_train(torch, dev, pipe, batches[1:-1], CONVONET_TIMED,
+                                            "convonet timed")
+    log(f"[convonet] timed run of {CONVONET_TIMED} steps on fresh batches: {ms:.2f} ms a step "
+        f"(after the first) = {1e3 / ms:.3f} steps/s = {CONVONET_BATCH * 1e3 / ms:.1f} shapes/s; "
+        f"peak allocated {peak:.3f} GiB on {nvidia_smi()}")
+    read = reset_launches()
+    iou = pipe.eval_iou(batches[-1])
+    log(f"[convonet] eval_iou of a held-out batch of {CONVONET_BATCH}: {iou:.4f}")
+    if not 0.0 <= iou <= 1.0:
+        raise AssertionError(f"IoU {iou}")
+    gen = conv["generation"]
+    cloud = torch.from_numpy(batches[-1]["inputs"][:1]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn = pipe.mesh_eval_fn(cloud)
+    torch.cuda.synchronize()
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    calls = []
+
+    def timed_fn(points):
+        t = time.perf_counter()
+        out = fn(points)
+        torch.cuda.synchronize()
+        calls.append((points.shape[1], time.perf_counter() - t))
+        return out
+
+    mg = MeshGenerator(timed_fn, threshold=conv["test"]["threshold"],
+                       resolution0=gen["resolution_0"], upsampling_steps=gen["upsampling_steps"],
+                       device=str(dev))
+    t0 = time.perf_counter()
+    verts, tris = mg.generate()
+    wall = time.perf_counter() - t0
+    mesh_launches = read()
+    decode_s = sum(t for _, t in calls)
+    rounds = gen["upsampling_steps"] + 1
+    log(f"[convonet] mesh at resolution_0 {gen['resolution_0']}, {gen['upsampling_steps']} "
+        f"upsampling steps (threshold {conv['test']['threshold']}): {len(verts)} vertices, "
+        f"{len(tris)} faces; encode {encode_ms:.2f} ms; decode {1e3 * decode_s:.1f} ms over "
+        f"{len(calls)} calls of <= {mg.points_batch_size} points ({sum(n for n, _ in calls)} "
+        f"points), {1e3 * decode_s / rounds:.1f} ms a MISE round ({rounds} rounds); host "
+        f"extraction (octree, marching cubes) {wall - decode_s:.3f} s of {wall:.3f} s; launches "
+        f"{mesh_launches}")
+    if any(mesh_launches.values()) or not np.isfinite(verts).all():
+        raise AssertionError("the ConvONet mesh failed")
+    del pipe, batches
+    torch.cuda.empty_cache()
+    total = collections.Counter(launches)
+    total.update(more)
+    total.update(mesh_launches)
+    return dict(total)
+
+
+def voxel_convonet_phase(torch, dev):
+    """Phase 47: the voxel variant at full width, LocalVoxelEncoder (c_dim
+    32, planes at 64 from the 32^3 grid, the shared plane UNet at depth 4
+    and 32 filters, 'grid' through the UNet3D at f_maps 32 and 3 levels)
+    with LocalDecoder at its defaults, through VOXEL_STEPS ConvONet steps
+    on batches of 32 32^3 grids: finite losses, no launch; ms a step and
+    peak memory.  -> launches."""
+    import numpy as np
+
+    from ddmi_tpu_torch.domains.onet import ONetPipeline
+
+    pipe = ONetPipeline(c_dim=32, encoder="voxel_simple_local", encoder_kwargs=VOXEL_KWARGS,
+                        device=dev, seed=47)
+    rng = np.random.default_rng(47)
+    batches = [voxel_batch(rng, CONVONET_BATCH, VOXEL_RES, 2048) for _ in range(2)]
+    losses, ms, peak, launches = convonet_train(torch, dev, pipe, batches, VOXEL_STEPS, "voxel")
+    log(f"[voxel-convonet] LocalVoxelEncoder {VOXEL_KWARGS}, c_dim 32, "
+        f"{sum(p.numel() for p in pipe.model.parameters())} parameters, batch {CONVONET_BATCH} "
+        f"of {VOXEL_RES}^3: {VOXEL_STEPS} steps, losses {[round(v, 3) for v in losses]}, "
+        f"{ms:.2f} ms a step (after the first), peak allocated {peak:.3f} GiB; launches "
+        f"{launches}")
+    with torch.no_grad():
+        x = torch.from_numpy(batches[0]["inputs"]).to(dev)
+        enc_ms = cuda_ms(lambda: pipe.model.encode_inputs(x), 3)
+    log(f"[voxel-convonet] the encoder's forward {enc_ms:.2f} ms at batch {CONVONET_BATCH}")
+    del pipe, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pointnetpp_phase(torch, dev):
+    """Phase 48: PointNet++ (c_dim 32) forward at batch 32 x 3000 points:
+    ms (events), the features finite, no launch."""
+    from ddmi_tpu_torch.nn.pointnetpp import PointNetPlusPlus
+
+    torch.manual_seed(48)
+    m = PointNetPlusPlus(c_dim=32).to(dev)
+    g = torch.Generator(device=dev).manual_seed(48)
+    xyz = torch.rand((CONVONET_BATCH, 3000, 3), generator=g, device=dev) - 0.5
+    read = reset_launches()
+    with torch.no_grad():
+        _, feats = m(xyz)
+        ms = cuda_ms(lambda: m(xyz), 3)
+    launches = read()
+    log(f"[pointnetpp] PointNet++ forward at batch {CONVONET_BATCH} x 3000 points: {ms:.2f} ms; "
+        f"features {tuple(feats.shape)}, finite {bool(torch.isfinite(feats).all())}; launches "
+        f"{launches}")
+    if any(launches.values()) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError("PointNet++ failed")
+    return launches
+
+
+def convonet_reference_phase(torch, dev):
+    """Phase 49: each new module and op on the card (fp32, TF32 off)
+    against the port's fp32 CPU run on the same weights and inputs, at cut
+    widths: the ConvONet of phase 46 (logits, two Adam steps' losses and
+    parameters), the voxel variant with its plane UNet and UNet3D, the
+    pointnet's plane UNet, PointNet++ (the farthest-point and ball-query
+    indices equal, the features), and at small shapes upfirdn, the
+    resampling StyleGAN blocks, the zeros-padded resample and grid_sample_3d
+    (CONVONET_OPS_REL for the ops, CONVONET_MODEL_REL for the models)."""
+    import numpy as np
+
+    from ddmi_tpu_torch.data.shapenet import SyntheticOccupancy
+    from ddmi_tpu_torch.domains.onet import ONetPipeline
+    from ddmi_tpu_torch.nn import pointnetpp, stylegan
+    from ddmi_tpu_torch.ops import grid_sample, resample, upfirdn
+
+    rows = []
+
+    def check(what, got, ref, rel):
+        err, bar = convonet_close(torch, got, ref, rel)
+        rows.append(f"{what} {err:.3g} (bar {bar:.3g})")
+        if not err <= bar:
+            raise AssertionError(f"{what}: max|err| {err} against {bar}")
+
+    def pair(**kw):
+        cpu = ONetPipeline(device="cpu", seed=49, **kw)
+        gpu = ONetPipeline(device=dev, seed=49, **kw)
+        gpu.model.load_state_dict(cpu.model.state_dict())
+        return cpu, gpu
+
+    read = reset_launches()
+    cut = dict(c_dim=8, encoder_kwargs=dict(hidden_dim=32, plane_resolution=16, n_blocks=3,
+                                            unet=True, unet_depth=2, unet_start_filts=8),
+               decoder_kwargs=dict(hidden_size=32, n_blocks=3), lr=1e-3)
+    cpu, gpu = pair(**cut)
+    batch = next(iter(SyntheticOccupancy(2, n_points=256, n_cloud=300, length=1, seed=49)))
+    with torch.no_grad():
+        t = {k: torch.from_numpy(v) for k, v in batch.items()}
+        check("convonet logits", gpu.model(t["points"].to(dev), t["inputs"].to(dev)),
+              cpu.model(t["points"], t["inputs"]), CONVONET_MODEL_REL)
+    cs, gs = cpu.init(), gpu.init()
+    for i in range(2):
+        cs, cm = cpu.train_step(cs, batch)
+        gs, gm = gpu.train_step(gs, batch)
+        check(f"convonet loss {i}", torch.tensor(gm["loss"]), torch.tensor(cm["loss"]),
+              CONVONET_MODEL_REL)
+    ref_sd = cpu.model.state_dict()
+    check("convonet parameters after 2 steps",
+          torch.cat([p.flatten().cpu() for p in gpu.model.state_dict().values()]),
+          torch.cat([p.flatten() for p in ref_sd.values()]), CONVONET_MODEL_REL)
+
+    vkw = dict(plane_resolution=16, plane_type=("xz", "xy", "yz", "grid"), unet=True,
+               unet_depth=2, unet_start_filts=8, unet3d=True)
+    cpu, gpu = pair(c_dim=8, encoder="voxel_simple_local", encoder_kwargs=vkw,
+                    decoder_kwargs=dict(hidden_size=32, n_blocks=2))
+    vb = voxel_batch(np.random.default_rng(49), 2, 8, 256)
+    with torch.no_grad():
+        p, v = torch.from_numpy(vb["points"]), torch.from_numpy(vb["inputs"])
+        check("voxel convonet logits", gpu.model(p.to(dev), v.to(dev)), cpu.model(p, v),
+              CONVONET_MODEL_REL)
+
+    torch.manual_seed(49)
+    pp = pointnetpp.PointNetPlusPlus(c_dim=16)
+    ppg = pointnetpp.PointNetPlusPlus(c_dim=16).to(dev)
+    ppg.load_state_dict(pp.state_dict())
+    xyz = torch.from_numpy(np.random.default_rng(50).uniform(-0.5, 0.5, (2, 600, 3))
+                           .astype(np.float32))
+    fps_c = pointnetpp.farthest_point_sample(xyz, 512)
+    fps_g = pointnetpp.farthest_point_sample(xyz.to(dev), 512)
+    new = pointnetpp.index_points(xyz, fps_c)
+    ball_c = pointnetpp.query_ball_point(0.2, 32, xyz, new)
+    ball_g = pointnetpp.query_ball_point(0.2, 32, xyz.to(dev), new.to(dev))
+    same = torch.equal(fps_g.cpu(), fps_c) and torch.equal(ball_g.cpu(), ball_c)
+    rows.append(f"pointnet++ sampling and grouping indices equal {same}")
+    if not same:
+        raise AssertionError("PointNet++'s indices differ between the card and the CPU")
+    with torch.no_grad():
+        check("pointnet++ features", ppg(xyz.to(dev))[1], pp(xyz)[1], CONVONET_MODEL_REL)
+
+    rng = np.random.default_rng(51)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    x, style, skip = f(2, 16, 16, 8), f(2, 6), f(2, 8, 8, 3)
+    k = upfirdn.make_fir_kernel((1, 3, 3, 1))
+    for up, down, pad in ((2, 1, (2, 1)), (1, 2, (1, 1)), (3, 1, (-1, -2))):
+        check(f"upfirdn2d up {up} down {down} pad {pad}",
+              upfirdn.upfirdn2d(x.to(dev), k.to(dev), up, down, pad),
+              upfirdn.upfirdn2d(x, k, up, down, pad), CONVONET_OPS_REL)
+    for kw in (dict(kernel_size=3), dict(kernel_size=3, upsample=True),
+               dict(kernel_size=3, downsample=True)):
+        mc = stylegan.ModulatedConv(8, 4, 6, **kw)
+        with torch.no_grad():
+            mc.modulation.bias.add_(f(8).mul(0.1))
+            ref = mc(x, style)
+            check(f"ModulatedConv {kw}", mc.to(dev)(x.to(dev), style.to(dev)), ref,
+                  CONVONET_OPS_REL)
+    torgb = stylegan.ToRGB(8, 3, 6)
+    layer = stylegan.ConvLayer(8, 4, kernel_size=3, activate=True, bias=True)
+    with torch.no_grad():
+        ref_rgb, ref_layer = torgb(x, style, skip), layer(x)
+        check("ToRGB with the upsampled skip",
+              torgb.to(dev)(x.to(dev), style.to(dev), skip.to(dev)), ref_rgb, CONVONET_OPS_REL)
+        check("ConvLayer k 3", layer.to(dev)(x.to(dev)), ref_layer, CONVONET_OPS_REL)
+    plane, xs = f(2, 3, 9, 7), torch.linspace(-1.3, 1.3, 11)
+    check("separable_grid_sample zeros",
+          resample.separable_grid_sample(plane.to(dev), xs.to(dev), xs[:5].to(dev),
+                                         padding_mode="zeros"),
+          resample.separable_grid_sample(plane, xs, xs[:5], padding_mode="zeros"),
+          CONVONET_OPS_REL)
+    vol, grid = f(2, 4, 5, 6, 3), f(2, 50, 3).clamp(-1.2, 1.2)
+    for mode in ("border", "zeros"):
+        check(f"grid_sample_3d {mode}", grid_sample.grid_sample_3d(vol.to(dev), grid.to(dev),
+                                                                   padding_mode=mode),
+              grid_sample.grid_sample_3d(vol, grid, padding_mode=mode), CONVONET_OPS_REL)
+    launches = read()
+    log(f"[convonet-reference] the card (fp32; TF32 off in matmuls and cuDNN) against the CPU, "
+        f"max|err| against max(1, max|ref|) x {CONVONET_OPS_REL} (ops) or "
+        f"{CONVONET_MODEL_REL} (models): " + "; ".join(rows) + f"; launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the ConvONet reference launched {launches}")
+
+
+def convonet_phases(torch, dev):
+    """Phases 46-49; -> their launches (all 0: no kernel of the six is on
+    the ConvONet's path)."""
+    total = collections.Counter()
+    for fn in (convonet_phase, voxel_convonet_phase, pointnetpp_phase):
+        total.update(fn(torch, dev))
+        torch.cuda.empty_cache()
+    convonet_reference_phase(torch, dev)
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
 class Laps:
     """lap(what) logs the seconds since the previous lap (or since the
     start) and the bytes this process has written so far."""
@@ -5123,6 +5532,7 @@ def main() -> int:
     del svc
     torch.cuda.empty_cache()
     nerf_reference_phase(torch, dev)
+    nerf_wide = nerf_reference_phase(torch, dev, out_ch=NERF_WIDE_OUT_CH)
     torch.cuda.empty_cache()
     laps.lap("phases 10-13 (NeRF sampling)")
     train_kernel_phase(torch, dev)
@@ -5214,11 +5624,13 @@ def main() -> int:
     den = denoiser_phases(torch, dev)
     laps.lap("phases 42-45 (the denoiser variants)")
     log(f"[denoisers] launches of phases 42-45: {den}; this process wrote {write_bytes()} in all")
+    onet = convonet_phases(torch, dev)
+    laps.lap("phases 46-49 (the standalone ConvONet)")
 
     kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]
                             + occ[name] + recon[name] + vtrain1[name] + vrecon[name]
                             + vtrain2[name] + o2_hook.get(name, 0) + cli.get(name, 0)
-                            + den.get(name, 0))
+                            + den.get(name, 0) + onet.get(name, 0) + nerf_wide[name])
                for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Nested convocc-style YAML for the 3D slices (the port's own copy of
 ddmi_tpu/core/convocc_config.py's `load_convocc_config`, `encoder_name`,
-`pointnet_kwargs`, `generation_kwargs` and `nerf_kwargs`; `pointnet_input_dim`
-reads the cloud's width, which the JAX package takes from its input).
+`pointnet_kwargs`, `voxel_encoder_kwargs`, `generation_kwargs` and
+`nerf_kwargs`; `pointnet_input_dim` reads the cloud's width, which the JAX
+package takes from its input).
 
 `data.conv_config` (configs/ldm/shapenet.yaml, configs/ldm/srn_cars.yaml)
 names a convocc YAML whose `inherit_from` chain is merged recursively; its
@@ -77,6 +78,26 @@ def pointnet_kwargs(conv_cfg: Dict[str, Any]) -> Dict[str, Any]:
         "plane_resolution": enc.get("plane_resolution", 64),
         "n_blocks": enc.get("n_blocks", 7),
     }
+    if enc.get("unet"):
+        uk = enc.get("unet_kwargs") or {}
+        kw.update(unet=True, unet_depth=uk.get("depth", 4),
+                  unet_start_filts=uk.get("start_filts", 32))
+    return kw
+
+
+def voxel_encoder_kwargs(conv_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """LocalVoxelEncoder kwargs (convocc encoder_kwargs schema): c_dim, the
+    plane resolution, the conv's kernel size, `plane_type` where given, the
+    UNet3D switch and the optional plane UNet's."""
+    enc = (conv_cfg.get("model") or {}).get("encoder_kwargs", {})
+    kw = {
+        "c_dim": (conv_cfg.get("model") or {}).get("c_dim", 32),
+        "plane_resolution": enc.get("plane_resolution", 64),
+        "kernel_size": enc.get("kernel_size", 3),
+        "unet3d": bool(enc.get("unet3d", False)),
+    }
+    if enc.get("plane_type"):
+        kw["plane_type"] = tuple(enc["plane_type"])
     if enc.get("unet"):
         uk = enc.get("unet_kwargs") or {}
         kw.update(unet=True, unet_depth=uk.get("depth", 4),

@@ -54,6 +54,14 @@
 // in_dir up to about 512) two stages are left, the least that runs.  The
 // tile's x rows (372 bytes each, not 16-byte aligned, so not a TMA source)
 // are read by the consumers themselves.
+// Wider inputs run the kernel's CHUNKED instance: one buffer of
+// CHUNK_PANELS input panels (256 columns, leaving the 6-stage ring) takes
+// the xyz input a chunk at a time at every layer that reads it, and then
+// the dir input, each chunk's products drained before the next chunk is
+// read into the buffer (by cp.async, its bf16 pairs all in flight at
+// once).  The weight slabs stream in the same order as in the resident
+// instance, so the producer does not change; the consumers read x once per
+// input layer instead of once per tile.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,12 +83,14 @@ constexpr int PANEL = SLAB_ROWS * 128;  // one 64-column panel of a slab: 4 KB
 constexpr int SLAB = 4 * PANEL;         // a 32 x 256 slab: 16 KB
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_PANELS = 8;           // xyz + dir input panels: what leaves two stages
+constexpr int CHUNK_PANELS = 4;         // the input buffer of the CHUNKED instance
 constexpr int ACT_PANEL = T * 128;      // one 64-column panel of a tile's activations: 16 KB
 constexpr int H_BYTES = 4 * ACT_PANEL;  // h, feat: 128 x 256
 constexpr int MAX_SMEM = 232448;        // what a block may use
 constexpr int BAR_BYTES = 128;
 constexpr int HW_BYTES = (W + 3 * LANE) * 2;  // w_sig's column 0 and w_rgb's columns 0..2
 constexpr int X_BATCH = 24;             // input loads in flight per thread
+constexpr int CHUNK_BATCH = 8;          // the same in the CHUNKED instance's 2-byte loads
 constexpr float SLOPE = 0.01f;
 
 struct Params {
@@ -223,6 +233,69 @@ __device__ __forceinline__ void store_act(const float (&acc)[W / 2], const uint3
   }
 }
 
+__device__ __forceinline__ void cp_async4(uint32_t saddr, const void* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(saddr), "l"(g) : "memory");
+}
+
+// CHUNKED: columns [c0, c0 + cols) of this warpgroup's `rows` rows of x into
+// the input buffer at sIn, as columns [0, cols), and zeros in the columns up
+// to the next multiple of SLAB_ROWS (weights there are the fold's zero rows,
+// but the buffer holds the previous chunk's values).  From an even c0 the
+// whole bf16 pairs go by 4-byte cp.async, all in flight at once (C is even,
+// so every row's pairs are 4-byte aligned); an odd last column, an odd c0's
+// chunk (the dir input after an odd in_xyz) and the zeros go bf16 by bf16
+__device__ __forceinline__ void load_chunk(uint32_t sIn, const __nv_bfloat16* x, long row0, int C,
+                                           int rows, int c0, int cols, int cw, int tid) {
+  const int width = (cols + SLAB_ROWS - 1) / SLAB_ROWS * SLAB_ROWS;
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x) + row0 * C + c0;
+  int start = 0;
+  if (c0 % 2 == 0) {
+    const int pc = cols / 2, total = rows * pc;
+    for (int e = tid; e < total; e += 128) {
+      const int rr = e / pc, c = 2 * (e - rr * pc);
+      cp_async4(sIn + Sw128::offset<T>(64 * cw + rr, c), xs + (long)rr * C + c);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    start = 2 * pc;
+  }
+  const int span = width - start, total = rows * span;
+  for (int e0 = tid; e0 < total; e0 += 128 * CHUNK_BATCH) {
+    unsigned short v[CHUNK_BATCH];
+#pragma unroll
+    for (int u = 0; u < CHUNK_BATCH; ++u) {
+      const int e = e0 + 128 * u, rr = e / span, c = start + e - rr * span;
+      v[u] = (e < total && c < cols) ? __ldcs(xs + (long)rr * C + c) : (unsigned short)0;
+    }
+#pragma unroll
+    for (int u = 0; u < CHUNK_BATCH; ++u) {
+      const int e = e0 + 128 * u;
+      if (e >= total) break;
+      const int rr = e / span, c = start + e - rr * span;
+      sts16(sIn + Sw128::offset<T>(64 * cw + rr, c), v[u]);
+    }
+  }
+  if (c0 % 2 == 0) asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// CHUNKED: acc (+)= the input columns [c0, c0 + width) of x . the next
+// slabs of the ring, CHUNK_PANELS * 64 columns at a time through the buffer
+template <int NW>
+__device__ __forceinline__ void mma_chunks(float (&acc)[NW / 2], Ring& r, uint32_t sIn,
+                                           const __nv_bfloat16* x, long row0, int C, int rows,
+                                           int c0, int width, bool first, int cw, int tid,
+                                           int lane, int bar_id) {
+  for (int c = 0; c < width; c += CHUNK_PANELS * 64) {
+    const int cols = width - c < CHUNK_PANELS * 64 ? width - c : CHUNK_PANELS * 64;
+    if (r.pending >= 0) mma_drain<NW>(acc, r, lane);  // every product on the buffer is done
+    named_sync(bar_id, 128);
+    load_chunk(sIn, x, row0, C, rows, c0 + c, cols, cw, tid);
+    fence_async_smem();
+    named_sync(bar_id, 128);
+    mma_slabs<NW>(acc, r, sIn, 0, (cols + SLAB_ROWS - 1) / SLAB_ROWS, first && c == 0, cw, lane);
+  }
+}
+
+template <bool CHUNKED>
 __global__ void __launch_bounds__(CTA_THREADS, 1) nerf_mlp_kernel(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
@@ -308,6 +381,7 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) nerf_mlp_kernel(const __grid_c
     // bf16 pairs (C is even; a pair may straddle the two).  The rows are
     // contiguous, so pair e of the warpgroup's rows is at xt + 2e; X_BATCH
     // loads are issued before any is stored, so their latencies overlap
+    if (!CHUNKED) {
     named_sync(bar_id, 128);  // the previous tile's products are done with xyz and dir
     const uint32_t* xt = reinterpret_cast<const uint32_t*>(p.x + row0 * C);
     const int pairs = rows * (C / 2);
@@ -334,12 +408,18 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) nerf_mlp_kernel(const __grid_c
     }
     fence_async_smem();
     named_sync(bar_id, 128);
+    }
 
     // ---- trunk ----
     float sig[2] = {0.0f, 0.0f};
     for (int i = 0; i < p.depth; ++i) {
       const bool xin = i == 0 || ((p.skip_mask >> i) & 1u);
-      if (xin) mma_slabs<W>(acc, r, sX, 0, p.xslabs, true, cw, lane);
+      if (xin) {
+        if (CHUNKED)
+          mma_chunks<W>(acc, r, sX, p.x, row0, C, rows, 0, p.in_xyz, true, cw, tid, lane, bar_id);
+        else
+          mma_slabs<W>(acc, r, sX, 0, p.xslabs, true, cw, lane);
+      }
       if (i > 0) mma_slabs<W>(acc, r, sH, 0, W / SLAB_ROWS, !xin, cw, lane);
       uint32_t bias[W / 8];
       load_pairs(bias, p.b + (size_t)i * W, col0);  // in flight while the products finish
@@ -371,7 +451,11 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) nerf_mlp_kernel(const __grid_c
 
     // ---- d = bf16(leaky(feat . w_dirf + dir . w_dird + b_dir)); rgb ----
     mma_slabs<LANE>(dacc, r, sH, 0, W / SLAB_ROWS, true, cw, lane);
-    mma_slabs<LANE>(dacc, r, sD, 0, p.dslabs, false, cw, lane);
+    if (CHUNKED)
+      mma_chunks<LANE>(dacc, r, sX, p.x, row0, C, rows, p.in_xyz, p.in_dir, false, cw, tid, lane,
+                       bar_id);
+    else
+      mma_slabs<LANE>(dacc, r, sD, 0, p.dslabs, false, cw, lane);
     uint32_t bias_d[LANE / 8];
     load_pairs(bias_d, p.b_dir, col0);
     mma_drain<LANE>(dacc, r, lane);
@@ -429,18 +513,21 @@ extern "C" {
 // x (N, in_xyz + in_dir) bf16, in_xyz + in_dir even, 4-byte aligned (the
 // wrapper pads an odd one with a zero column); the folded weights of
 // ops/nerf_mlp.py (bf16, width 256, XP = in_xyz and DP = in_dir padded to
-// multiples of 128); out (N, 4) fp32.  Takes in_xyz and in_dir of at most
-// MAX_PANELS 64-column panels together (ops/nerf_mlp.py::MAX_PANELS).
-// Returns the cudaError_t of the launch.
+// multiples of 128); out (N, 4) fp32.  Inputs of at most MAX_PANELS
+// 64-column panels together stay resident for the tile; wider ones run the
+// CHUNKED instance.  Returns the cudaError_t of the launch.
 int ddmi_nerf_mlp(const void* x, const void* wx, const void* wh, const void* b,
                   const void* w_sig, const void* b_sig, const void* w_fin, const void* b_fin,
                   const void* w_dirf, const void* w_dird, const void* b_dir, const void* w_rgb,
                   const void* b_rgb, void* out, int N, int in_xyz, int in_dir, int XP, int DP,
                   int depth, unsigned int skip_mask, void* stream) {
   using bf = const __nv_bfloat16*;
-  const int xpanels = (in_xyz + 63) / 64, panels = xpanels + (in_dir + 63) / 64;
-  if (N <= 0 || depth < 1 || in_xyz < 1 || in_dir < 1 || (in_xyz + in_dir) % 2 || panels > MAX_PANELS ||
-      64 * xpanels > XP || 64 * (panels - xpanels) > DP || reinterpret_cast<uintptr_t>(x) % 4)
+  const int in_panels = (in_xyz + 63) / 64 + (in_dir + 63) / 64;
+  const bool chunked = in_panels > MAX_PANELS;
+  const int xpanels = chunked ? CHUNK_PANELS : (in_xyz + 63) / 64;
+  const int panels = chunked ? CHUNK_PANELS : in_panels;
+  if (N <= 0 || depth < 1 || in_xyz < 1 || in_dir < 1 || (in_xyz + in_dir) % 2 ||
+      (in_xyz + 63) / 64 * 64 > XP || (in_dir + 63) / 64 * 64 > DP || reinterpret_cast<uintptr_t>(x) % 4)
     return (int)cudaErrorInvalidValue;
   const int stages = ring_stages(panels);
   Params p{};
@@ -471,25 +558,33 @@ int ddmi_nerf_mlp(const void* x, const void* wx, const void* wh, const void* b,
   p.stages = stages;
   p.tiles = (N + T - 1) / T;
   p.skip_mask = skip_mask;
-  static bool sized = false;  // the attribute holds for the process
+  static bool sized = false;  // the attributes hold for the process
   if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(nerf_mlp_kernel,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    cudaError_t err = cudaFuncSetAttribute(nerf_mlp_kernel<false>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(nerf_mlp_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidValue;
   const int grid = p.tiles < sms ? p.tiles : sms;
-  nerf_mlp_kernel<<<grid, CTA_THREADS, smem_bytes(panels, stages),
-                    reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  if (chunked)
+    nerf_mlp_kernel<true><<<grid, CTA_THREADS, smem_bytes(panels, stages),
+                            reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  else
+    nerf_mlp_kernel<false><<<grid, CTA_THREADS, smem_bytes(panels, stages),
+                             reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
 // The dynamic shared memory and ring stages of a launch at these input
 // widths, for the build report: bytes * 8 + stages.
 int ddmi_nerf_mlp_smem(int in_xyz, int in_dir) {
-  const int panels = (in_xyz + 63) / 64 + (in_dir + 63) / 64;
+  int panels = (in_xyz + 63) / 64 + (in_dir + 63) / 64;
+  if (panels > MAX_PANELS) panels = CHUNK_PANELS;
   return (int)smem_bytes(panels, ring_stages(panels)) * 8 + ring_stages(panels);
 }
 

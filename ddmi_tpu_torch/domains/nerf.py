@@ -230,8 +230,8 @@ class NeRFPipeline(TriplaneTraining, nn.Module):
 
     def fold_mlp(self) -> Optional[nerf_mlp.FoldedNeRF]:
         """The MLP in the kernel's layout, in the parameters' dtype, or None
-        where the kernel does not take its width (JAX's predicate) or its
-        input widths (the CUDA kernel's shared memory)."""
+        where the kernel does not take its width (JAX's predicate: 256, at
+        any input width)."""
         m = self.mlp
         if not nerf_mlp.kernel_supported(m.width, m.in_channels_xyz, m.in_channels_dir):
             return None

@@ -45,6 +45,7 @@ from ddmi_tpu_torch.core.convocc_config import (
     generation_kwargs,
     load_convocc_config,
     pointnet_kwargs,
+    voxel_encoder_kwargs,
 )
 from ddmi_tpu_torch.core.amp import compute_cast, method_call
 from ddmi_tpu_torch.core.device import resolve_device
@@ -52,7 +53,7 @@ from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.domains.triplane import TriplaneDraws, TriplaneTraining
 from ddmi_tpu_torch.geometry.generation import generate_meshes_batched, refine_mesh
 from ddmi_tpu_torch.nn.inr import INR3D
-from ddmi_tpu_torch.nn.pointnet import LocalPoolPointnet
+from ddmi_tpu_torch.nn.pointnet import LocalPoolPointnet, LocalVoxelEncoder
 from ddmi_tpu_torch.nn.triplane_vae import TriplaneAutoencoder
 from ddmi_tpu_torch.nn.unet import UNet
 
@@ -62,11 +63,12 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
     1) (stage 2); `pointnet`, `vae` (encoder, posterior convs and decoder)
     and `mlp` (INR3D) (stage 1).  A batch is a dict: `inputs` (b, n, 3)
     the surface cloud, `points` (b, m, 3) the query points and `occ` (b,
-    m) their occupancies (data/shapenet.py).  The pointnet's and the mesh extraction's
-    settings come from `data.conv_config` (configs/convocc/pointcloud/
-    shapenet_3plane.yaml, read from the working directory as the JAX package
-    reads it), else the pointnet's from `model.pointnet` and the extraction
-    keeps its defaults.
+    m) their occupancies (data/shapenet.py).  The encoder's and the mesh
+    extraction's settings come from `data.conv_config` (configs/convocc/
+    pointcloud/shapenet_3plane.yaml, read from the working directory as the
+    JAX package reads it; its `voxel_simple_local` encoder is
+    LocalVoxelEncoder), else the pointnet's from `model.pointnet` and the
+    extraction keeps its defaults.
 
     Parameters are initialised on `device` (the card unless the caller asks
     for the CPU) from `seed`; `load_state_dicts` replaces them with trained
@@ -82,12 +84,13 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
         self.cfg = cfg
         dd = m.ddconfig
         self.generation_kwargs = generation_kwargs({})
+        encoder = LocalPoolPointnet
         if cfg.data.conv_config:
             conv_cfg = load_convocc_config(cfg.data.conv_config)
-            if encoder_name(conv_cfg) != "pointnet_local_pool":
-                raise NotImplementedError(
-                    f"encoder {encoder_name(conv_cfg)!r} is not ported")
-            pn_kwargs = pointnet_kwargs(conv_cfg)
+            if encoder_name(conv_cfg) == "voxel_simple_local":
+                encoder, pn_kwargs = LocalVoxelEncoder, voxel_encoder_kwargs(conv_cfg)
+            else:
+                pn_kwargs = pointnet_kwargs(conv_cfg)
             self.generation_kwargs = generation_kwargs(conv_cfg)
         else:
             enc = m.extra.get("pointnet", {})
@@ -104,7 +107,7 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
             torch.manual_seed(seed)
             with device:
                 self.unet = UNet(m.unetconfig)
-                self.pointnet = LocalPoolPointnet(**pn_kwargs)
+                self.pointnet = encoder(**pn_kwargs)
                 self.vae = TriplaneAutoencoder(dd, embed_dim=m.embed_dim, with_encoder=True)
                 # its plane features are the decoder's out_ch wide (flax
                 # infers the width from its input; the repo configs set
@@ -119,6 +122,16 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
     @property
     def device(self) -> torch.device:
         return self.mixing_logit.device
+
+    def init_stage1(self, steps_per_epoch: int = 1000):
+        """See LatentTraining.init_stage1.  With the voxel encoder
+        (`voxel_simple_local`) it raises ValueError, where the JAX
+        pipeline's init_stage1 fails too: it initialises the encoder on a
+        (1, 64, 3) point cloud, which LocalVoxelEncoder cannot take."""
+        if isinstance(self.pointnet, LocalVoxelEncoder):
+            raise ValueError("the occupancy pipeline trains its encoder on point clouds "
+                             "(b, n, 3); voxel_simple_local takes voxel grids (b, r, r, r)")
+        return super().init_stage1(steps_per_epoch)
 
     def load_state_dicts(self, unet=None, pointnet=None, vae=None, mlp=None,
                          mixing_logit=None) -> None:

@@ -34,6 +34,12 @@ permutation and the round trip is bit-exact:
   * Flax Dense (I, O) over planes -> 1x1 Conv2d (O, I, 1, 1) [video pre_* and
                                         post_*, triplane post_quant_conv_*]
   * ADM qkv: qkv-major output channels -> head-major (QKVAttentionLegacy)
+
+The standalone ConvONet (nn/onet.py, domains/onet.py): the LocalDecoder,
+the pointnet with its plane UNet, the voxel encoder with its UNet2D and
+UNet3D, PointNet++ (Dense -> Linear; its batch-statistics norm's scale /
+bias -> weight / bias), and the StyleGAN pieces at any kernel size
+(EqualConv2d, ModulatedConv) and FastGroupNorm (`scale` / `bias` kept).
 """
 
 from __future__ import annotations
@@ -497,6 +503,118 @@ def pointnet_from_jax(tree, n_blocks: int) -> SD:
         _resnet_fc(sd, f"blocks.{i}", tree[f"block{i}"])
     _dense(sd, "fc_c", tree["fc_c"])
     return sd
+
+
+def _conv3d(sd: SD, key: str, p) -> None:
+    sd[key + ".weight"] = _t(np.transpose(p["kernel"], (4, 3, 0, 1, 2)))
+    sd[key + ".bias"] = _t(p["bias"])
+
+
+def _conv_unet(tree, levels: int, conv) -> SD:
+    sd: SD = {}
+    for i in range(levels):
+        conv(sd, f"down{i}_conv1", tree[f"down{i}_conv1"])
+        conv(sd, f"down{i}_conv2", tree[f"down{i}_conv2"])
+    for i in range(levels - 1):
+        for name in ("upconv", "conv1", "conv2"):
+            conv(sd, f"up{i}_{name}", tree[f"up{i}_{name}"])
+    conv(sd, "conv_final", tree["conv_final"])
+    return sd
+
+
+def unet2d_from_jax(tree, depth: int) -> SD:
+    """JAX UNet2D params (nn/conv_unet.py) -> port UNet2D state_dict (the
+    same conv names, Conv2d layouts)."""
+    return _conv_unet(tree, depth, _conv)
+
+
+def unet3d_from_jax(tree, num_levels: int = 3) -> SD:
+    """JAX UNet3D params -> port UNet3D state_dict (Conv3d layouts)."""
+    return _conv_unet(tree, num_levels, _conv3d)
+
+
+def _prefixed(prefix: str, sd: SD) -> SD:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def pointnet_unet_from_jax(tree, n_blocks: int, unet_depth: int) -> SD:
+    """JAX LocalPoolPointnet(unet=True) params -> port state_dict: the
+    pointnet's keys and the shared plane UNet's under `unet.`."""
+    sd = pointnet_from_jax(tree, n_blocks)
+    sd.update(_prefixed("unet", unet2d_from_jax(tree["unet"], unet_depth)))
+    return sd
+
+
+def voxel_encoder_from_jax(tree, unet_depth: int = 4) -> SD:
+    """JAX LocalVoxelEncoder params -> port state_dict: `conv_in` (Conv3d),
+    and the optional `unet.` (UNet2D) and `unet3d.` (UNet3D)."""
+    sd: SD = {}
+    _conv3d(sd, "conv_in", tree["conv_in"])
+    if "unet" in tree:
+        sd.update(_prefixed("unet", unet2d_from_jax(tree["unet"], unet_depth)))
+    if "unet3d" in tree:
+        sd.update(_prefixed("unet3d", unet3d_from_jax(tree["unet3d"])))
+    return sd
+
+
+def pointnetpp_from_jax(tree) -> SD:
+    """JAX PointNetPlusPlus params -> port state_dict: each set abstraction
+    and feature propagation's Dense `mlp_{i}` as `mlps.{i}`, its norm
+    `bn_{i}` {scale, bias} as `bns.{i}` {weight, bias}."""
+    sd: SD = {}
+    for block in ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1"):
+        p = tree[block]
+        i = 0
+        while f"mlp_{i}" in p:
+            _dense(sd, f"{block}.mlps.{i}", p[f"mlp_{i}"])
+            _gn(sd, f"{block}.bns.{i}", p[f"bn_{i}"])
+            i += 1
+    return sd
+
+
+def local_decoder_from_jax(tree, n_blocks: int) -> SD:
+    """JAX LocalDecoder params (nn/onet.py) -> port LocalDecoder state_dict
+    (the reference's `fc_p`, `fc_c.{i}`, `blocks.{i}`, `fc_out`)."""
+    sd: SD = {}
+    _dense(sd, "fc_p", tree["fc_p"])
+    for i in range(n_blocks):
+        if f"fc_c{i}" in tree:
+            _dense(sd, f"fc_c.{i}", tree[f"fc_c{i}"])
+        _resnet_fc(sd, f"blocks.{i}", tree[f"block{i}"])
+    _dense(sd, "fc_out", tree["fc_out"])
+    return sd
+
+
+def conv_onet_from_jax(tree, encoder_sd: SD, n_blocks: int) -> SD:
+    """JAX ConvONet params {encoder, decoder} -> port ConvONet state_dict,
+    given the encoder's state_dict converted by its own function above
+    (`pointnet_from_jax`, `pointnet_unet_from_jax`, `voxel_encoder_from_jax`)."""
+    sd = _prefixed("encoder", encoder_sd)
+    sd.update(_prefixed("decoder", local_decoder_from_jax(tree["decoder"], n_blocks)))
+    return sd
+
+
+def equal_conv2d_from_jax(tree) -> SD:
+    """JAX EqualConv2d params (k, k, I, O) weight, (O,) bias -> port
+    EqualConv2d state_dict ((O, I, k, k) weight)."""
+    sd = {"weight": _t(np.transpose(tree["weight"], (3, 2, 0, 1)))}
+    if "bias" in tree:
+        sd["bias"] = _t(tree["bias"])
+    return sd
+
+
+def modulated_conv_from_jax(tree) -> SD:
+    """JAX ModulatedConv params (any kernel size) -> port ModulatedConv
+    state_dict (`weight` (1, O, I, k, k), `modulation.*`)."""
+    sd: SD = {}
+    _modconv(sd, "x", tree)
+    return {k[2:]: v for k, v in sd.items()}
+
+
+def fast_group_norm_from_jax(tree) -> SD:
+    """JAX FastGroupNorm params -> port FastGroupNorm state_dict (the same
+    `scale` and `bias`)."""
+    return {"scale": _t(tree["scale"]), "bias": _t(tree["bias"])}
 
 
 def mlp_nerf_from_jax(tree, depth: int) -> SD:

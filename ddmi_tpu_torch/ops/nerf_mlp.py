@@ -17,12 +17,14 @@ On a CUDA tensor `nerf_mlp_fused` launches csrc/nerf_mlp.cu, which reads x
 (N, in_xyz + in_dir) without the TPU's lane padding and streams the folded
 weights through a TMA ring (128-point tiles, wgmma); on a CPU tensor it runs
 `nerf_mlp_plain`, the same arithmetic in PyTorch.  The kernel's predicate is
-the JAX one: width 256, so that the dir head is 128 wide (W // 2 == LANE).
-The CUDA kernel keeps its inputs in shared memory in 64-column panels, so it
-also needs in_xyz and in_dir to fill at most MAX_PANELS of them together
-(in_xyz + in_dir up to about 512; srn_cars: 159 and 27 in 4):
-`kernel_supported` is that predicate, and NeRFPipeline runs the INRNeRF
-module where it is false.
+the JAX one: width 256, so that the dir head is 128 wide (W // 2 == LANE),
+at any input width.  The CUDA kernel keeps a tile's inputs in shared memory
+in 64-column panels while they fill at most 8 of them together
+(in_xyz + in_dir up to about 512; srn_cars: 159 and 27 in 4); wider inputs
+stream through a buffer of four panels a chunk at a time (the kernel's
+CHUNKED instance).  `kernel_supported` is the JAX predicate with both input
+widths at least 1, and NeRFPipeline runs the INRNeRF module where it is
+false.
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ from ddmi_tpu_torch.ops.attention import needs_grad
 
 LANE = 128
 SLOPE = 0.01
-MAX_PANELS = 8  # csrc/nerf_mlp.cu: the input panels that leave two ring stages
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -52,10 +53,9 @@ def supported(width: int) -> bool:
 
 
 def kernel_supported(width: int, in_xyz: int, in_dir: int) -> bool:
-    """`supported`, and inputs that fit the CUDA kernel's shared memory:
-    in_xyz and in_dir in at most MAX_PANELS 64-column panels together."""
-    panels = -(-in_xyz // 64) + -(-in_dir // 64)
-    return supported(width) and in_xyz >= 1 and in_dir >= 1 and panels <= MAX_PANELS
+    """`supported`, with at least one xyz and one dir input column (the
+    CUDA kernel takes any input width: see the module's docstring)."""
+    return supported(width) and in_xyz >= 1 and in_dir >= 1
 
 
 @dataclasses.dataclass
@@ -174,8 +174,8 @@ def _check_cuda_operands(f: FoldedNeRF, x: torch.Tensor) -> None:
         raise NotImplementedError(f"depth {f.depth} / skips {f.skips}")
     C = f.in_xyz + f.in_dir
     if not kernel_supported(f.width, f.in_xyz, f.in_dir):
-        raise NotImplementedError(f"the NeRF MLP kernel takes in_xyz and in_dir in at most "
-                                  f"{MAX_PANELS} 64-column panels, not {f.in_xyz} and {f.in_dir}")
+        raise NotImplementedError(f"the NeRF MLP kernel takes in_xyz and in_dir of at least 1, "
+                                  f"not {f.in_xyz} and {f.in_dir}")
     if (x.ndim != 2 or x.shape[1] != C or x.dtype != torch.bfloat16 or not x.is_contiguous()
             or x.data_ptr() % 4):
         raise ValueError(f"x must be contiguous, 4-byte aligned bf16 (N, {C}), got {x.dtype} "

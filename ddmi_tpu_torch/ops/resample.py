@@ -1,5 +1,5 @@
 """Regular-grid bilinear sampling as two interpolation products
-(counterpart of ddmi_tpu/ops/resample.py)."""
+(counterpart of ddmi_tpu/ops/resample.py), with border or zeros padding."""
 
 from __future__ import annotations
 
@@ -11,23 +11,30 @@ def interp_matrix_1d(coords: torch.Tensor, size: int, align_corners: bool = Fals
     """(n, size) bilinear interpolation matrix for 1D coords in [-1, 1].
 
     The coordinate math runs in fp32 whatever the coords' dtype: in bf16,
-    `(coords + 1) * size` has a whole-pixel ULP near size 256.  The matrix is
-    cast back to the coords' dtype."""
+    `(coords + 1) * size` has a whole-pixel ULP near size 256.  'border'
+    clamps the pixel coordinate into the row; 'zeros' keeps it and drops
+    the taps that fall outside, so a coordinate past the edge blends toward
+    zero.  The matrix is cast back to the coords' dtype."""
+    if padding_mode not in ("border", "zeros"):
+        raise NotImplementedError(f"padding_mode {padding_mode!r}")
     out_dtype = coords.dtype
     c = coords.float()
     if align_corners:
         px = (c + 1.0) * 0.5 * (size - 1)
     else:
         px = ((c + 1.0) * size - 1.0) * 0.5
-    if padding_mode != "border":
-        raise NotImplementedError(f"padding_mode {padding_mode!r} is not ported")
-    px = px.clamp(0.0, size - 1)
+    if padding_mode == "border":
+        px = px.clamp(0.0, size - 1)
     x0f = torch.floor(px)
     w1 = px - x0f
     x0 = x0f.long()
-    x1c = (x0 + 1).clamp(max=size - 1)
+    x1 = x0 + 1
     eye = torch.eye(size, device=coords.device, dtype=torch.float32)
-    m = eye[x0] * (1.0 - w1)[:, None] + eye[x1c] * w1[:, None]
+    w0 = 1.0 - w1
+    if padding_mode == "zeros":
+        w0 = w0 * ((x0 >= 0) & (x0 <= size - 1)).float()
+        w1 = w1 * ((x1 >= 0) & (x1 <= size - 1)).float()
+    m = eye[x0.clamp(0, size - 1)] * w0[:, None] + eye[x1.clamp(0, size - 1)] * w1[:, None]
     return m.to(out_dtype)
 
 

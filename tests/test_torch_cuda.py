@@ -370,6 +370,32 @@ def test_nerf_mlp_kernel_takes_other_input_widths(cuda_device, in_xyz, in_dir):
     assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("in_xyz, in_dir, N", [(603, 87, 3 * 128 + 41), (512, 27, 64),
+                                               (327, 129, 70_000), (1031, 300, 1000)])
+def test_nerf_mlp_kernel_streams_wide_inputs(cuda_device, in_xyz, in_dir, N):
+    """Inputs of more than 8 panels (690, 539, 456 and 1331 columns) run
+    the kernel's chunked instance, which reads them through a four-panel
+    buffer: xyz in three chunks at 603 and five at 1031, a chunk ending
+    inside a 32-row slab, an odd in_xyz and in_dir, one warpgroup's rows all
+    past N at 64, within the bars of the srn_cars test; a repeat is
+    bit-identical, one launch a call."""
+    assert nerf_mlp.kernel_supported(256, in_xyz, in_dir)
+    folded = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device, 256, in_xyz, in_dir))
+    g = torch.Generator(device=cuda_device).manual_seed(in_xyz)
+    x = torch.randn((N, in_xyz + in_dir), generator=g, device=cuda_device).bfloat16()
+    before = nerf_mlp.nerf_mlp_fused.launches
+    out = nerf_mlp.nerf_mlp_fused(folded, x)
+    again = nerf_mlp.nerf_mlp_fused(folded, x)
+    ref = nerf_mlp.nerf_mlp_plain(folded, x)
+    torch.cuda.synchronize()
+    assert out.shape == (N, 4) and torch.isfinite(out).all()
+    assert (out[:, :3] - ref[:, :3]).abs().max().item() <= 0.005
+    sig_tol = 0.01 * max(1.0, ref[:, 3].abs().max().item())
+    assert (out[:, 3] - ref[:, 3]).abs().max().item() <= sig_tol
+    assert torch.equal(out, again)
+    assert nerf_mlp.nerf_mlp_fused.launches == before + 2
+
+
 def test_nerf_mlp_kernel_refuses_what_it_does_not_take(cuda_device):
     folded = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device))
     x = torch.zeros((64, 186), device=cuda_device, dtype=torch.bfloat16)
@@ -382,8 +408,8 @@ def test_nerf_mlp_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         nerf_mlp.nerf_mlp_fused(folded, x[:, :100])
     wide = nerf_mlp.fold_nerf_params(_nerf_mlp(cuda_device, 256, 512, 27))  # 9 panels
-    with pytest.raises(NotImplementedError):
-        nerf_mlp.nerf_mlp_fused(wide, torch.zeros((64, 539), device=cuda_device,
+    with pytest.raises(ValueError):  # the inputs' width is not the fold's
+        nerf_mlp.nerf_mlp_fused(wide, torch.zeros((64, 538), device=cuda_device,
                                                   dtype=torch.bfloat16))
 
 

@@ -241,28 +241,31 @@ def test_fold_refuses_widths_outside_the_predicate():
 def test_kernel_supported_counts_the_cuda_kernels_input_panels():
     from ddmi_tpu_torch.ops.nerf_mlp import kernel_supported
 
-    assert kernel_supported(256, 159, 27)  # srn_cars: 3 + 1 panels
+    assert kernel_supported(256, 159, 27)  # srn_cars: 3 + 1 panels, resident
     assert kernel_supported(256, 447, 64) and kernel_supported(256, 320, 150)  # 8 panels
-    assert not kernel_supported(256, 512, 27) and not kernel_supported(256, 327, 129)  # 9
+    # 9 panels and more stream through the kernel's input buffer
+    assert kernel_supported(256, 512, 27) and kernel_supported(256, 327, 129)
+    assert kernel_supported(256, 603, 87)
     assert not kernel_supported(128, 159, 27) and not kernel_supported(512, 159, 27)
     assert not kernel_supported(256, 0, 27) and not kernel_supported(256, 159, 0)
 
 
-@pytest.mark.parametrize("multires, multires_views, kernel",
-                         [(4, 2, True), (4, 11, True), (50, 21, False)])
-def test_fold_mlp_follows_the_cuda_kernels_predicate(multires, multires_views, kernel):
-    """At width 256 `NeRFPipeline.fold_mlp` folds the MLP where the CUDA
-    kernel takes its input widths (in_dir 69 from multires_views 11 among
-    them) and returns None where it does not (in_xyz 327 and in_dir 129:
-    9 panels), and `run_mlp` then runs the INRNeRF module; both agree with
-    the module (fp32) within 1e-4 * max(1, max|ref|)."""
+@pytest.mark.parametrize("multires, multires_views, width, kernel",
+                         [(4, 2, 256, True), (4, 11, 256, True), (50, 21, 256, True),
+                          (4, 2, 128, False)])
+def test_fold_mlp_follows_the_cuda_kernels_predicate(multires, multires_views, width, kernel):
+    """`NeRFPipeline.fold_mlp` folds the MLP at width 256 whatever its input
+    widths (in_dir 69 from multires_views 11; in_xyz 327 and in_dir 129,
+    9 panels, which the CUDA kernel streams), as JAX's predicate does, and
+    returns None at width 128, where `run_mlp` runs the INRNeRF module;
+    both agree with the module (fp32) within 1e-4 * max(1, max|ref|)."""
     import copy
 
     from ddmi_tpu_torch.domains.nerf import NeRFPipeline
     from ddmi_tpu_torch.ops.nerf_mlp import kernel_supported
 
     cfg = copy.deepcopy(CFG)
-    cfg["model"]["params"]["mlpconfig"].update(D=2, W=256, skips=[1], multires=multires,
+    cfg["model"]["params"]["mlpconfig"].update(D=2, W=width, skips=[1], multires=multires,
                                                multires_views=multires_views)
     pipe = NeRFPipeline(config_from_dict(cfg), device="cpu")
     m = pipe.mlp

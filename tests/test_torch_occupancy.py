@@ -262,19 +262,27 @@ def test_pointnet_matches_jax(scatter_type):
 
 
 def test_pointnet_refuses_the_unported_options(tmp_path):
+    """The plane UNet and the voxel encoder are ported (tests/test_torch_onet.py
+    holds them against JAX): the pointnet builds its UNet, a conv_config
+    naming voxel_simple_local builds LocalVoxelEncoder, and what is left
+    refused is refused: the voxel encoder's stage-1 init (JAX's fails on
+    its (1, 64, 3) cloud) and an unknown scatter_type."""
     import yaml
 
     from ddmi_tpu_torch.domains.occupancy import OccupancyPipeline
-    from ddmi_tpu_torch.nn.pointnet import LocalPoolPointnet
+    from ddmi_tpu_torch.nn.pointnet import LocalPoolPointnet, LocalVoxelEncoder
 
-    with pytest.raises(NotImplementedError):
-        LocalPoolPointnet(unet=True)
+    assert LocalPoolPointnet(unet=True, unet_depth=2, unet_start_filts=4).unet is not None
+    with pytest.raises(ValueError):
+        LocalPoolPointnet(scatter_type="sum")
     path = tmp_path / "voxel.yaml"
     path.write_text(yaml.safe_dump({"model": {"encoder": "voxel_simple_local"}}))
     cfg = copy.deepcopy(CFG)
     cfg["data"]["conv_config"] = str(path)
-    with pytest.raises(NotImplementedError, match="voxel_simple_local"):
-        OccupancyPipeline(config_from_dict(cfg), device="cpu")
+    pipe = OccupancyPipeline(config_from_dict(cfg), device="cpu")
+    assert isinstance(pipe.pointnet, LocalVoxelEncoder)
+    with pytest.raises(ValueError, match="voxel_simple_local"):
+        pipe.init_stage1(10)
 
 
 # ------------------------------------------------------- triplane VAE
