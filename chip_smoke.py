@@ -140,17 +140,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
      launch, every loss term finite, the parameters bit-unchanged through
      micro-step 9 and all changed at 10, the SN state changed at every
      micro-step, the flash shapes recorded; the eval hook's PSNR of 2
-     reconstructed clips (2 flash launches); then a timed run of 5
+     reconstructed clips (2 flash launches); then a timed run of 2
      micro-steps (micro-steps/s, clips/s, peak memory), a split by the
      stage1/* ranges, host against device time and a profile;
  27. video checkpoint and reconstruction: the state restored bit for bit
-     into a scrambled one and a resumed run of 2 micro-steps; reconstruct
+     into a scrambled one and a resumed micro-step; reconstruct
      of 2 clips (2 flash launches, pixels in [0, 1], PSNR);
- 28. adversarial video stage 1 (configs/d2c-vae/skytimelapse_gan.yaml, 3
+ 28. adversarial video stage 1 (configs/d2c-vae/skytimelapse_gan.yaml, 2
      checked micro-steps after 2 timed): the 2D and 3D discriminators
      change at every micro-step, the VAE and INR at none;
  29. video stage 2: Trainer.train_stage2 on configs/ldm/skytimelapse.yaml
-     at full width on the stage-1 checkpoint (batch 2, 10 micro-steps): the
+     at full width on the stage-1 checkpoint (batch 2, 6 micro-steps): the
      flash forward and backward counts per micro-step against the calls
      recorded in the run, finite losses, the parameters moving at every
      micro-step and the EMA at micro-steps 1 and 6 (copies before step
@@ -158,7 +158,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      full-width state is 10 GB a checkpoint) the state saved, restored bit
      for bit into a scrambled one and resumed for a micro-step; a timed run, a micro-step split (encode / forward / backward /
      optimizer+EMA), a profile, and the stage-2 eval hook's EMA video
-     sample (NFE 200) with the sampling path's exact counts;
+     sample (at NFE 50; phase 6 samples at the config's 200) with the
+     sampling path's exact counts;
  30. video train kernels: the flash forward with LSE and the backward
      against their plain versions at every shape phases 26 and 29 recorded,
      timed beside the plain versions, torch's SDPA forward and backward
@@ -278,7 +279,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
      the voxel variant, PointNet++'s indices (equal) and features, and
      upfirdn, the resampling StyleGAN blocks, the zeros-padded resample and
      grid_sample_3d (max|err| <= 1e-4 x max(1, max|ref|) for the ops,
-     1e-3 for the models).
+     1e-3 for the models);
+ 50. distribution (ddmi_tpu_torch/parallel): a subprocess started by
+     torchrun (`python -m torch.distributed.run --standalone
+     --nproc_per_node=1 chip_smoke.py --dist-child ...`: world size 1,
+     NCCL on the one card) runs stage-2 training through cli/main.py
+     --exp ldm on configs/ldm/celebahq.yaml at full width with its depth
+     cut (channel_mult [1, 2, 4], one res block a level: the full state is
+     18 GB a checkpoint) and synthetic data: its mesh {data: 4, fsdp: 2}
+     falls back to data = 1 with one warning, the UNet goes through
+     FSDP2 (parallel/mesh.py::shard_module, mixed precision), 10
+     micro-steps with finite losses, the flash forward and backward counts
+     exactly the plain one-process run's per micro-step times 10, the
+     eval hook's 2 EMA images through the split UNet (attn_block once per
+     fused block per forward, inr_decode 1) and a checkpoint; then, in the
+     same process group, one micro-step of
+     the state wrapped by shard_module over a one-rank shard mesh against
+     the unwrapped step's (the parameters within Adam's first-step bar),
+     and the plain and the wrapped micro-step timed in turns (the
+     wrapper's overhead; the plain one's launches per micro-step are what
+     the CLI run's must read).  Back in this process: the checkpoint
+     restored by a plain Trainer bit for bit (a SHA-1 of every tensor of
+     the state).  Two ranks cannot share one card under NCCL, so only
+     world size 1 runs here.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Nothing in this run imports JAX or the JAX
@@ -384,13 +407,15 @@ S1_BATCH, S1_RES, S1_STEPS, S1_GAN_STEPS = 10, 512, 10, 3
 S1_REF_LOSS_REL, S1_REF_TERM_REL, S1_REF_MIN_COS = 0.02, 0.05, 0.999
 # video training (configs/d2c-vae/skytimelapse.yaml, then configs/ldm/
 # skytimelapse.yaml on its checkpoint): batches of 2 synthetic clips of 16 x
-# 256^2; stage 1 accumulates over 5, 10 micro-steps checked and 5 timed (the
-# steady window, micro-steps 2-5, holds the update at 5), the adversarial
-# config 3; per stage-1 micro-step one flash forward with LSE and
-# one backward (the decoder's n = 20,480 cross-plane attention at hd 128; the
-# n = 73,728 one trains through the MEA above FLASH_TRAIN_MAX_TOKENS); stage 2
-# steps every micro-step, 10 of them
-V_BATCH, V1_STEPS, V1_TIMED, V1_GAN_STEPS, V2_STEPS = 2, 10, 5, 3, 10
+# 256^2; stage 1 accumulates over 5, 10 micro-steps checked and 2 timed (the
+# steady window, micro-step 2), the adversarial config 2; per stage-1
+# micro-step one flash forward with LSE and one backward (the decoder's
+# n = 20,480 cross-plane attention at hd 128; the n = 73,728 one trains
+# through the MEA above FLASH_TRAIN_MAX_TOKENS); stage 2 steps every
+# micro-step, 6 of them (the EMA at 1 and 6)
+V_BATCH, V1_STEPS, V1_TIMED, V1_GAN_STEPS, V2_STEPS = 2, 10, 2, 2, 6
+# the video stage-2 eval hook samples at NFE 50 (the config's 200 runs in phase 6)
+V2_HOOK_NFE = 50
 V1_LAUNCHES = {"flash_attention": V1_STEPS, "flash_attention_bwd": V1_STEPS}
 # reconstructing 2 clips (the stage-1 eval hook, reconstruct): the decoder's
 # n = 20,480 and n = 73,728 cross-plane attentions through the flash forward
@@ -418,6 +443,11 @@ CHAMFER_CLOUDS, CHAMFER_POINTS, CHAMFER_PROTOCOL = 64, 2048, 1355
 # FID-n at full width (celebahq): generated samples, in batches of the
 # config's test_batch_size; the CLI's eval_samples at celebahq
 FID_SAMPLES, CLI_EVAL_SAMPLES = 16, 16
+# distribution: celebahq stage 2 at full width, depth cut (the state of the
+# full depth is 18 GB a checkpoint), two accumulation windows of 5 through
+# the CLI under torchrun, then timed runs of 6 wrapped and unwrapped
+DIST_UNET = {"channel_mult": [1, 2, 4], "num_res_blocks": 1}
+DIST_STEPS, DIST_TIMED = 10, 6
 # the kernels of one attention block call (csrc/attn_block.cu), by profiler name
 ATTN_BLOCK_KERNELS = ("::group_norm_kernel", "::gemm_kernel<", "flash_fwd_kernel")
 KERNELS = {
@@ -1164,6 +1194,11 @@ def profile_top(torch, fn, tag, ours, what="the port's kernels", inference=True)
     with mode, profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    log_top(prof, tag, ours, what)
+
+
+def log_top(prof, tag, ours, what="the port's kernels"):
+    """A profile's device time by kernel name; the share of names in `ours`."""
     rows = sorted(((e.key, e.device_time_total / 1000) for e in prof.key_averages()
                    if e.device_time_total > 0), key=lambda r: -r[1])
     total = sum(ms for _, ms in rows)
@@ -2370,15 +2405,20 @@ def check_stage1_rows(rows, tag, n_params, move_at=10):
                                  f"training runs no kernel of the six")
 
 
-def range_split(torch, fn, prefix, calls=1, attempts=3):
+def range_split(torch, fn, prefix, calls=1, attempts=3, top=None):
     """fn() under the profiler, host and card: for each profiler range whose
     name starts with `prefix`, per call, the host ms inside it (the
     profiler's own cost included) and the device ms of the kernels
     launched inside it from any thread (the backward's ops run on
     autograd's); -> ({range: (host ms, device ms)}, device ms of all the
-    kernels per call).  A profile with no kernel in it is taken again; if
-    none of `attempts` has one, the host times stand and every device time
-    is NaN (not measured), and the log says so."""
+    kernels per call).  With `top` = (tag, names) the same profile's top
+    kernels are logged (`log_top`).  Each profile starts with
+    `PROFILE_PAD` spin kernels, as `device_ms`'s do: CUPTI loses a late
+    profile's first records, and they are lost in place of fn's.  A
+    profile with no kernel of fn in it, or that lost every pad record (so
+    perhaps some of fn's too), is taken again; if none of `attempts` is
+    whole, the host times stand and every device time is NaN (not
+    measured), and the log says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2386,24 +2426,37 @@ def range_split(torch, fn, prefix, calls=1, attempts=3):
     torch.cuda.synchronize()
     for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1)
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        recorded = prof.events()
+        # the pad's kernels are device events of no host op
+        pad = sum(1 for e in recorded
+                  if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name)
+        events = [e for e in recorded if e.device_type == DeviceType.CPU]
         ranges = [e for e in events if e.name.startswith(prefix)]
         launches = [(e.time_range.start, sum(k.duration for k in e.kernels))
                     for e in events if e.kernels and not e.name.startswith(prefix)]
         total = sum(us for _, us in launches)
-        if not total:
-            log(f"[profiler] profile {attempt + 1} of {attempts} recorded no device time")
+        if not total or not pad:
+            log(f"[profiler] profile {attempt + 1} of {attempts} recorded "
+                + ("no device time" if not total else
+                   f"none of its {PROFILE_PAD} pad kernels (fn's first records may be lost)"))
             continue
+        if pad < PROFILE_PAD:
+            log(f"[profiler] the split's profile lost {PROFILE_PAD - pad} of its {PROFILE_PAD} "
+                f"pad records, none of fn's")
         split = {}
         for e in ranges:
             lo, hi = e.time_range.start, e.time_range.end
             dev = sum(us for t, us in launches if lo <= t <= hi)
             host, d = split.get(e.name, (0.0, 0.0))
             split[e.name] = (host + (hi - lo) / 1e3 / calls, d + dev / 1e3 / calls)
+        if top is not None:
+            log_top(prof, *top)
         return split, total / 1e3 / calls
-    log(f"[profiler] no device time in {attempts} profiles: the split's device times are not "
+    log(f"[profiler] no whole profile in {attempts}: the split's device times are not "
         f"measured (NaN), its host times stand")
     nan = float("nan")
     split = {}
@@ -2525,9 +2578,9 @@ def stage1_checkpoint_phase(torch, dev, pipe, trainer, state, tmp, data=None,
                             watch="mlp.torgb.bias", per_step=None, tag="stage1-ckpt"):
     """Save the state after the run (and the breakdown's micro-steps) as
     the trainer saves it, scramble it, restore it and check it bit for bit;
-    then a resumed trainer goes on 2 micro-steps from it (of `data`, 512^2
-    images when None) with finite losses and `per_step` launches each (none
-    when None)."""
+    then a resumed trainer goes on from it for each batch of `data` (2 of
+    512^2 images when None) with finite losses and `per_step` launches each
+    (none when None)."""
     from ddmi_tpu_torch.core.checkpoint import CheckpointManager
     from ddmi_tpu_torch.core.trainer import Trainer
 
@@ -2571,7 +2624,8 @@ def stage1_checkpoint_phase(torch, dev, pipe, trainer, state, tmp, data=None,
         f"losses {[round(v, 3) for v in losses]}, launches "
         f"{[{k: v for k, v in r['launches'].items() if v} for r in rows]}, checkpoints "
         f"{ckpt.all_steps()}")
-    if not (st.step == step + 2 and len(rows) == 2 and all(map(math.isfinite, losses))
+    more = len(resumed.data.items)
+    if not (st.step == step + more and len(rows) == more and all(map(math.isfinite, losses))
             and all(r["launches"] == want for r in rows)):
         raise AssertionError("the resumed stage-1 run failed")
 
@@ -2995,7 +3049,7 @@ def video_stage1_phase(torch, dev, tmp):
     peak = torch.cuda.max_memory_allocated(dev)
     shutil.rmtree(timed_dir)
     log(f"[v-stage1] timed run: {V1_TIMED} micro-steps and a checkpoint in {t_run:.3f} s; "
-        f"steady over micro-steps 2-{V1_TIMED} (micro-step 5 an optimizer update) "
+        f"steady over micro-steps 2-{V1_TIMED} "
         f"{1 / steady:.4f} micro-steps/s = {V_BATCH / steady:.4f} training clips/s "
         f"({1e3 * steady:.1f} ms per micro-step) on {nvidia_smi()}; peak allocated "
         f"{peak / 2**30:.2f} GiB")
@@ -3003,7 +3057,8 @@ def video_stage1_phase(torch, dev, tmp):
     gen = torch.Generator(device=dev).manual_seed(95)
     x = torch.from_numpy(Clips(1, 2).items[0]).to(dev)
     step = lambda: pipe.stage1_train_step(state, x, generator=gen)
-    split, dev_total = range_split(torch, step, "stage1/")
+    split, dev_total = range_split(torch, step, "stage1/", top=(
+        "v-stage1-profile", ("flash_fwd_kernel", "flash_bwd_")))
     stages = ("encode", "decode", "inr", "lpips", "sn", "backward", "optimizer")
     missing = [k for k in stages if "stage1/" + k not in split]
     log("[v-stage1-breakdown] one micro-step (after a warm-up one) by the profiler's stage1/* "
@@ -3020,12 +3075,11 @@ def video_stage1_phase(torch, dev, tmp):
     t_enq = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t0
-    dms = device_ms(torch, step, reps=1)
+    # the split's profile is padded against lost records
+    dms = dev_total
     log(f"[v-stage1-breakdown] one micro-step: wall {1e3 * t_wall:.1f} ms, host enqueue "
         f"{1e3 * t_enq:.1f} ms, device {dms:.1f} ms (profiler: kernels' time; the device is idle "
         f"{100 * max(0.0, 1 - dms / (1e3 * t_wall)):.1f}% of the wall time)")
-    profile_top(torch, step, "v-stage1-profile", ("flash_fwd_kernel", "flash_bwd_"),
-                inference=False)
     return pipe, trainer, state, 1e3 * steady, train_shapes
 
 
@@ -3053,7 +3107,7 @@ def video_reconstruct_phase(torch, dev, pipe):
 
 def video_stage1_gan_phase(torch, dev, tmp, plain_ms):
     """configs/d2c-vae/skytimelapse_gan.yaml: 2 micro-steps timed, then
-    V1_GAN_STEPS (3) from a fresh state checked: the 2D and 3D discriminators change at
+    V1_GAN_STEPS (2) from a fresh state checked: the 2D and 3D discriminators change at
     every micro-step, the VAE and INR at none (the first window's update
     has rate 0), finite losses, flash launches as the plain config's."""
     from ddmi_tpu_torch.core.trainer import Trainer
@@ -3169,7 +3223,7 @@ def cut_state_checkpoint(torch, dev, cfg, tmp):
 def video_stage2_phase(torch, dev, tmp):
     """Trainer.train_stage2 on configs/ldm/skytimelapse.yaml at full width
     (the UNet seeded, zero-init layers perturbed) with the VAE and INR of
-    the stage-1 checkpoint in `tmp`: 10 micro-steps of 2 clips, saving no
+    the stage-1 checkpoint in `tmp`: 6 micro-steps of 2 clips, saving no
     checkpoint of their own; the flash counts per micro-step against the
     calls recorded in the run, finite losses, the parameters changing at
     every micro-step and the EMA at the schedule's (every 5th from 0, a
@@ -3287,6 +3341,8 @@ def video_stage2_phase(torch, dev, tmp):
     profile_top(torch, lambda: pipe.stage2_train_step(state, x, generator=g), "v-stage2-profile",
                 ("flash_fwd_kernel", "flash_bwd_"), inference=False)
 
+    # the hook samples at NFE V2_HOOK_NFE (the config's 200 is phase 6's)
+    pipe.gd = dataclasses.replace(pipe.gd, sampling_timesteps=V2_HOOK_NFE)
     before = read()
     t0 = time.perf_counter()
     default_stage2_eval_hook(trainer, state, 0)
@@ -3295,8 +3351,9 @@ def video_stage2_phase(torch, dev, tmp):
     files = sorted(f for f in os.listdir(os.path.join(tmp, "samples")) if f.startswith("ep0_video"))
     recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
     failures = [r for r in recs if "s2/eval_hook_failures" in r]
-    want = dict(VIDEO_LAUNCHES)
-    log(f"[v-stage2] eval hook: one EMA video sample (NFE {VIDEO_NFE}) in "
+    want = {k: v // VIDEO_NFE * V2_HOOK_NFE + (2 if k == "flash_attention" else 0)
+            for k, v in VIDEO_LAUNCHES.items()}
+    log(f"[v-stage2] eval hook: one EMA video sample (NFE {V2_HOOK_NFE}) in "
         f"{time.perf_counter() - t0:.1f} s, {len(files)} frame files {files[:3]}, launches "
         f"{ {k: v for k, v in hook.items() if v} } (expected {want}), failures {len(failures)}")
     if failures or len(files) != 16 or {k: v for k, v in hook.items() if v} != want:
@@ -5469,9 +5526,262 @@ def build_report(name, ptxas) -> None:
             log(f"[build]   {name} ptxas: {line}")
 
 
+def dist_yaml(tmp):
+    """configs/ldm/celebahq.yaml at full width with the depth cut
+    (DIST_UNET), synthetic data, one epoch (a checkpoint and the eval hook
+    at its end)."""
+    return cli_yaml(tmp, "configs/ldm/celebahq.yaml", "dist.yaml",
+                    {"dataset": "synthetic", "mode": "train",
+                     "extra": {"nan_check_every": 5, "steps_per_epoch": DIST_STEPS}},
+                    {"unetconfig": DIST_UNET, "lossconfig": {"epochs": 1}})
+
+
+def state_digest(torch, state) -> dict:
+    """{name: SHA-1 of the bytes} of every tensor of a state dict (nested
+    dicts and lists flattened), on the host."""
+    import hashlib
+
+    out = {}
+    for k, v in flat_state(state).items():
+        if torch.is_tensor(v):
+            t = v.detach().cpu().reshape(-1)
+            out[k] = hashlib.sha1(t.view(torch.uint8).numpy().tobytes()
+                                  if t.dtype == torch.bfloat16 else t.numpy().tobytes()).hexdigest()
+        else:
+            out[k] = repr(v)
+    return out
+
+
+def dist_child(path: str, out: str) -> int:
+    """Phase 50's torchrun rank (world size 1): the CLI's stage-2 training
+    and gen on `path`, the one-rank FSDP2 micro-step against the plain one,
+    a timed wrapped run; the results written as JSON to `out`."""
+    import warnings
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ddmi_tpu_torch import data as port_data
+    from ddmi_tpu_torch.cli.main import main as cli
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.data.synthetic import SyntheticImages
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+    from ddmi_tpu_torch.parallel import distributed
+    from ddmi_tpu_torch.parallel.mesh import (
+        MeshSpec, gather_full, is_sharded, make_mesh, shard_module)
+
+    res = {"env": {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                                  "MASTER_ADDR", "MASTER_PORT")}}
+    tmp = os.path.dirname(path)
+    real = port_data.SyntheticImages
+    port_data.SyntheticImages = lambda bs, resolution, **kw: real(bs, resolution,
+                                                                  length=DIST_STEPS, seed=11)
+    captured = {}
+    train_stage2 = Trainer.train_stage2
+
+    def capture(self, *a, **kw):
+        st = train_stage2(self, *a, **kw)
+        captured["digest"] = state_digest(torch, gather_full(st.state_dict()))
+        captured["sharded"] = sum(is_sharded(p) for p in st.params.values())
+        captured["params"] = len(st.params)
+        captured["backend"] = torch.distributed.get_backend()
+        return st
+
+    Trainer.train_stage2 = capture
+    # a stage-1 checkpoint of the config's seeded VAE and INR, which stage 2
+    # loads and gen reads (the CLI's stage 1 at full width is phase 37's)
+    from ddmi_tpu_torch.core.checkpoint import CheckpointManager
+
+    cfg = load_config(path, exp="ldm")
+    pipe = ImagePipeline(cfg, device=torch.device("cuda", int(os.environ["LOCAL_RANK"])),
+                         seed=cfg.seed)
+    CheckpointManager(tmp, prefix="stage1").save(0, {"state": {"params": {
+        k: v.detach() for k, v in pipe.stage1_params().items()}}})
+    del pipe
+    read = reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cli(["--exp", "ldm", "--configs", path])
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    res["train_launches"] = read()
+    res["fallback_warnings"] = sum("falling back to data=1" in str(w.message) for w in caught)
+    Trainer.train_stage2 = train_stage2
+    port_data.SyntheticImages = real
+    res.update(captured)
+    recs = [json.loads(line) for line in open(os.path.join(tmp, "train.jsonl"))]
+    res["losses"] = [r["s2/loss"] for r in recs if "s2/loss" in r]
+    res["hook_failures"] = sum("s2/eval_hook_failures" in r for r in recs)
+    res["samples"] = sorted(os.listdir(os.path.join(tmp, "samples")))
+
+    # one micro-step of the state wrapped over a one-rank shard mesh against
+    # the unwrapped one, on the same batch and draws (accumulation 1, so that
+    # the micro-step updates the parameters)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg1 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, lossconfig=dataclasses.replace(
+        cfg.model.lossconfig, gradient_accumulate_every=1)))
+    mesh = make_mesh(MeshSpec(1, 1, 1))
+    x = torch.from_numpy(next(iter(SyntheticImages(cfg.data.batch_size, 256, length=1,
+                                                   seed=12)))).to(dev)
+    states = []
+    for wrapped in (False, True):
+        pipe = ImagePipeline(cfg1, device=dev, seed=cfg1.seed)
+        perturb_zero_init(pipe.unet, 51)
+        wrap = None
+        if wrapped:
+            def wrap(p):
+                shard_module(p.unet, mesh, amp=p.amp)
+        st = pipe.init_stage2(wrap=wrap)
+        draws = pipe.stage2_draws(x.shape[0], torch.Generator(device=dev).manual_seed(13))
+        st, m = pipe.stage2_train_step(st, x, **draws)
+        states.append(({k: v.detach().float() for k, v in gather_full(dict(st.params)).items()},
+                       float(m["loss"])))
+        del pipe, st
+        torch.cuda.empty_cache()
+    (plain, loss_a), (shard, loss_b) = states
+    lr = cfg.model.lr
+    diff = {k: (plain[k] - shard[k]).abs() for k in plain}
+    res["fsdp_step"] = {
+        "losses": [loss_a, loss_b], "tensors": len(plain),
+        "max_abs_diff": max(float(d.max()) for d in diff.values()),
+        "differ": int(sum(int((d > 0).sum()) for d in diff.values())),
+        "elements": int(sum(d.numel() for d in diff.values())),
+        "over_2lr": int(sum(int((d > 2.02 * lr).sum()) for d in diff.values()))}
+    del plain, shard, diff, states
+
+    # the plain and the wrapped micro-step timed in turns (plain, wrapped,
+    # wrapped, plain) on the same batches, steady over micro-steps
+    # 2..DIST_TIMED, and the plain one's launches per micro-step
+    batches = [torch.from_numpy(b).to(dev) for b in SyntheticImages(
+        cfg.data.batch_size, 256, length=DIST_TIMED, seed=14)]
+    runs = {}
+    for wrapped in (False, True):
+        pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
+        wrap = None
+        if wrapped:
+            def wrap(p):
+                shard_module(p.unet, mesh, amp=p.amp)
+        runs[wrapped] = (pipe, pipe.init_stage2(wrap=wrap))
+
+    def steady_ms(pipe, st):
+        gen = torch.Generator(device=dev).manual_seed(15)
+        for i, xb in enumerate(batches):
+            pipe.stage2_train_step(st, xb, generator=gen)
+            if i == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (len(batches) - 1)
+
+    times = {False: [], True: []}
+    for i, wrapped in enumerate((False, True, True, False)):
+        read = reset_launches()
+        times[wrapped].append(steady_ms(*runs[wrapped]))
+        if i == 0:
+            res["plain_per_step"] = {k: v // DIST_TIMED for k, v in read().items() if v}
+    res["plain_ms"], res["wrapped_ms"] = times[False], times[True]
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(out, "w") as f:
+        json.dump(res, f)
+    distributed.destroy()
+    return 0
+
+
+def distribution_phase(torch, dev):
+    """Phase 50 (see the module docstring).  -> the launches of the
+    torchrun rank's CLI training run (its eval hook included)."""
+    import tempfile
+
+    from ddmi_tpu_torch.core.config import load_config
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+
+    tmp = tempfile.mkdtemp(prefix="dist_smoke_", dir=os.path.join(ROOT, "build"))
+    try:
+        path = dist_yaml(tmp)
+        out = os.path.join(tmp, "child.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+               os.path.abspath(__file__), "--dist-child", path, out]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, timeout=900)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.exists(out):
+            raise AssertionError(f"the torchrun rank exited {proc.returncode}")
+        with open(out) as f:
+            r = json.load(f)
+
+        # the rank's checkpoint restored by a plain Trainer in this process
+        cfg = load_config(path, exp="ldm")
+        per_step = r["plain_per_step"]
+        pipe = ImagePipeline(cfg, device=dev, seed=cfg.seed)
+        t0 = time.perf_counter()
+        restored = Trainer(cfg, pipe, []).load_stage2().state_dict()
+        restore_s = time.perf_counter() - t0
+        digest = state_digest(torch, restored)
+        differ = sorted(k for k in r["digest"] if digest.get(k) != r["digest"][k])
+        n_unet = sum(p.numel() for p in pipe.unet.parameters())
+        nfe = cfg.model.ddpmconfig.sampling_timesteps
+        r_, c = cfg.model.unetconfig.image_size, cfg.model.ddpmconfig.channels
+        _, fused, _ = count_attention_blocks(
+            torch, pipe.unet.to(torch.bfloat16), torch.zeros((1, c, r_, r_), device=dev),
+            torch.zeros((1,), device=dev, dtype=torch.long))
+        del pipe, restored
+        torch.cuda.empty_cache()
+
+        train = {k: v for k, v in r["train_launches"].items() if v}
+        flash = {k: train.get(k, 0) for k in ("flash_attention", "flash_attention_bwd")}
+        want_flash = {k: DIST_STEPS * per_step.get(k, 0) for k in flash}
+        hook = {k: v for k, v in train.items() if k not in flash}
+        want_hook = {"attn_block": fused * nfe, "inr_decode": 1}
+        fs = r["fsdp_step"]
+        log(f"[dist] torchrun rank {r['env']} ({r.get('backend')}): celebahq stage 2 at full "
+            f"width, UNet cut to {DIST_UNET} ({n_unet} parameters), its mesh "
+            f"{{data: 4, fsdp: 2}} fell back to data = 1 with {r['fallback_warnings']} "
+            f"warning(s); {r.get('sharded')} of {r.get('params')} state tensors FSDP2 shards; "
+            f"{len(r['losses'])} micro-steps in {r['train_s']:.1f} s through the CLI (build, "
+            f"checkpoint and eval hook included), losses {[round(v, 5) for v in r['losses']]}")
+        log(f"[dist] launches: training flash {flash} (the rank's plain micro-step's "
+            f"{per_step} x {DIST_STEPS} = {want_flash}); eval hook {hook} (expected "
+            f"{want_hook}, samples {r['samples']}, failures {r['hook_failures']})")
+        log(f"[dist] one-rank FSDP2 micro-step against the unwrapped one (accumulation 1): "
+            f"losses {fs['losses']}, parameters: {fs['differ']} of {fs['elements']} elements "
+            f"differ, max |diff| {fs['max_abs_diff']:.3g} (Adam's first step moves each by "
+            f"~lr = {cfg.model.lr}), {fs['over_2lr']} beyond 2 lr")
+        plain_ms, wrapped_ms = (sum(r[k]) / len(r[k]) for k in ("plain_ms", "wrapped_ms"))
+        log(f"[dist] micro-step time in the rank, in turns (plain, FSDP2, FSDP2, plain), "
+            f"steady over micro-steps 2-{DIST_TIMED}: plain {r['plain_ms']} ms, FSDP2-wrapped "
+            f"{r['wrapped_ms']} ms, means {plain_ms:.1f} and {wrapped_ms:.1f} (the wrapper's "
+            f"overhead {wrapped_ms - plain_ms:+.1f} ms) on {nvidia_smi()}; the rank's peak "
+            f"{r['peak_gib']:.2f} GiB; "
+            f"the checkpoint restored by a plain Trainer in {restore_s:.2f} s: "
+            f"{len(r['digest'])} entries, {len(differ)} differ {differ[:3]}; the torchrun "
+            f"subprocess took {child_s:.1f} s")
+        ok = (r["fallback_warnings"] == 1 and r.get("backend") == "nccl"
+              and r["env"]["WORLD_SIZE"] == "1" and len(r["losses"]) == DIST_STEPS
+              and all(math.isfinite(v) for v in r["losses"]) and flash == want_flash
+              and all(want_flash.values()) and hook == want_hook and not r["hook_failures"]
+              and (len(r["samples"]) == 2 or r["samples"] == ["ep0.npy"])
+              and not differ and r.get("sharded") == r.get("params", 0) - 1
+              and all(math.isfinite(v) for v in fs["losses"])
+              and abs(fs["losses"][0] - fs["losses"][1]) <= 1e-3 * abs(fs["losses"][0])
+              and fs["over_2lr"] == 0 and fs["differ"] <= 1e-3 * fs["elements"])
+        if not ok:
+            raise AssertionError("the distribution phase failed its checks")
+        return train
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 4 and sys.argv[1] == "--dist-child":
+        return dist_child(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 3
@@ -5569,23 +5879,30 @@ def main() -> int:
 
     laps.lap("phases 20-25 (image stage 1)")
     vtmp = tempfile.mkdtemp(prefix="video_train_smoke_", dir=os.path.join(ROOT, "build"))
+    sub = Laps()  # each video training phase's seconds
     try:
         vpipe, vtrainer, vstate, v1_ms, v1_shapes = video_stage1_phase(torch, dev, vtmp)
-        stage1_checkpoint_phase(torch, dev, vpipe, vtrainer, vstate, vtmp, data=Clips(2, 9),
+        sub.lap("  phase 26 (video stage 1)")
+        stage1_checkpoint_phase(torch, dev, vpipe, vtrainer, vstate, vtmp, data=Clips(1, 9),
                                 watch="mlp.net_out.bias",
                                 per_step={k: 1 for k in V1_LAUNCHES}, tag="v-stage1-ckpt")
         vrecon = video_reconstruct_phase(torch, dev, vpipe)
         del vpipe, vtrainer, vstate
         torch.cuda.empty_cache()
+        sub.lap("  phase 27 (video checkpoint, reconstruct)")
         video_stage1_gan_phase(torch, dev, os.path.join(vtmp, "gan"), v1_ms)
         torch.cuda.empty_cache()
+        sub.lap("  phase 28 (adversarial video stage 1)")
         vtrain2, v2_shapes = video_stage2_phase(torch, dev, vtmp)
         torch.cuda.empty_cache()
+        sub.lap("  phase 29 (video stage 2)")
         shapes = {s: ("video-stage1", c) for s, c in v1_shapes.items()}
         shapes.update({s: ("video-stage2", c) for s, c in v2_shapes.items()})
         video_train_kernel_phase(torch, dev, shapes)
         torch.cuda.empty_cache()
+        sub.lap("  phase 30 (video train kernels)")
         video_reference_train_phase(torch, dev)
+        sub.lap("  phase 31 (video train reference)")
     finally:
         shutil.rmtree(vtmp, ignore_errors=True)
     vtrain1 = {k: V1_LAUNCHES.get(k, 0) for k in KERNELS}
@@ -5626,11 +5943,14 @@ def main() -> int:
     log(f"[denoisers] launches of phases 42-45: {den}; this process wrote {write_bytes()} in all")
     onet = convonet_phases(torch, dev)
     laps.lap("phases 46-49 (the standalone ConvONet)")
+    dist = distribution_phase(torch, dev)
+    laps.lap("phase 50 (distribution)")
 
     kernels = [LEDGER.entry(name, image[name] + video[name] + nerf[name] + train[name]
                             + occ[name] + recon[name] + vtrain1[name] + vrecon[name]
                             + vtrain2[name] + o2_hook.get(name, 0) + cli.get(name, 0)
-                            + den.get(name, 0) + onet.get(name, 0) + nerf_wide[name])
+                            + den.get(name, 0) + onet.get(name, 0) + nerf_wide[name]
+                            + dist.get(name, 0))
                for name in KERNELS]
     log(f"[device] {nvidia_smi()}")
     log(json.dumps({"kernels": kernels}))

@@ -7,8 +7,12 @@ The YAML schema is the JAX package's; `data.mode` picks train, gen or eval.
 `--exp d2c-vae` is stage 1, `--exp ldm` stage 2 (its training takes the
 stage-1 modules of the newest stage-1 checkpoint in data.save_pth); gen and
 eval read the newest checkpoints there (core/trainer.py).  The run takes
-one process on one device: the card unless `--device cpu` is given, and
-without a card it raises rather than fall back to the CPU.
+the card unless `--device cpu` is given, and without a card it raises
+rather than fall back to the CPU.  Under torchrun
+(`torchrun --nproc_per_node=N -m ddmi_tpu_torch.cli.main ...`) each rank
+starts the process group (parallel/distributed.py: NCCL on the cards,
+gloo with --device cpu), takes card LOCAL_RANK, and trains or samples on
+its rows of cfg.mesh (core/trainer.py).
 """
 
 from __future__ import annotations
@@ -18,13 +22,21 @@ import argparse
 from ddmi_tpu_torch.core.config import load_config
 
 
-def build_dataset(cfg, train: bool = True):
+def build_dataset(cfg, train: bool = True, num_processes: int = 1, process_index: int = 0):
     """The training (or test) loader of the config: `data.dataset:
     synthetic` draws seeded batches at the real shapes; otherwise image
     folders, frame folders (sky / skytimelapse / folder), ShapeNet
     occupancy or srn-cars objects under data.data_dir (data.test_data_dir).
     Stage-1 multiscale image training reads images at twice the anchor
-    resolution, everything else at the anchor."""
+    resolution, everything else at the anchor.  The image folders take
+    every num_processes-th file from process_index on, as the JAX CLI
+    shards them over its processes, and give each of the num_processes
+    data ranks its rows of the global batch: batch_size / num_processes,
+    rounded up (JAX pads the global batch by wrap-around to a multiple of
+    the data size; here the extra rows are further files).  So the global
+    batch, and the steps of an epoch, are the one-process run's.  The other
+    loaders are not sharded: each rank keeps its rows of their global
+    batch (core/trainer.py)."""
     from ddmi_tpu_torch.data import ImageFolderDataset, SyntheticImages
 
     d = cfg.data
@@ -47,8 +59,10 @@ def build_dataset(cfg, train: bool = True):
             return SyntheticNeRF(bs, resolution=d.test_resolution)
         return SyntheticImages(bs, resolution=train_res if train else anchor)
     if d.domain == "image":
-        return ImageFolderDataset(root, bs, resolution=train_res if train else anchor,
-                                  random_flip=train, workers=d.num_workers)
+        return ImageFolderDataset(root, -(-bs // num_processes),
+                                  resolution=train_res if train else anchor,
+                                  random_flip=train, num_processes=num_processes,
+                                  process_index=process_index, workers=d.num_workers)
     if d.domain == "video":
         from ddmi_tpu_torch.data.video import make_video_dataset
 
@@ -119,23 +133,33 @@ def main(argv=None):
 
     from ddmi_tpu_torch.core.device import resolve_device
     from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.parallel import distributed
+    from ddmi_tpu_torch.parallel.mesh import MeshSpec, data_coordinate, make_mesh
 
-    device = resolve_device(args.device)
+    # the process group first (a no-op without torchrun's environment)
+    distributed.maybe_initialize(args.device)
+    device = resolve_device(distributed.local_device(args.device))
     cfg = load_config(args.configs, exp=args.exp, seed=args.seed)
+    m = cfg.mesh
+    mesh = None
+    if m.model <= 1:  # Trainer refuses model > 1, saying why
+        mesh = make_mesh(MeshSpec(m.data, m.fsdp, m.model), device_type=device.type)
+    shard = dict(zip(("process_index", "num_processes"),
+                     data_coordinate(mesh) if mesh is not None else (0, 1)))
     pipe = build_pipeline(cfg, device)
     mode = cfg.data.mode
     if mode == "gen":
-        Trainer(cfg, pipe, build_dataset(cfg, train=False)).generate()
+        Trainer(cfg, pipe, build_dataset(cfg, train=False), mesh=mesh).generate()
         return
     if mode == "eval":
-        Trainer(cfg, pipe, build_dataset(cfg, train=False)).evaluate(args.exp)
+        Trainer(cfg, pipe, build_dataset(cfg, train=False), mesh=mesh).evaluate(args.exp)
         return
-    train_data = build_dataset(cfg, train=True)
+    train_data = build_dataset(cfg, train=True, **shard)
     try:
         test_data = build_dataset(cfg, train=False)
     except (FileNotFoundError, NotImplementedError):
         test_data = None
-    trainer = Trainer(cfg, pipe, train_data, test_data)
+    trainer = Trainer(cfg, pipe, train_data, test_data, mesh=mesh)
     if args.exp == "d2c-vae":
         trainer.train_stage1(resume=cfg.model.resume)
     else:

@@ -61,6 +61,10 @@ def amp_denoiser(module: torch.nn.Module, enabled: bool, **kwargs):
     parameters' dtype)."""
     if not enabled:
         return (lambda x, t: module(x, t, **kwargs)) if kwargs else module
+    from ddmi_tpu_torch.parallel.mesh import is_fsdp
+
+    if is_fsdp(module):  # FSDP2 casts its parameters itself (shard_module)
+        return lambda x, t: module(x.to(torch.bfloat16), t, **kwargs).float()
 
     def model_fn(x, t):
         params = compute_cast(dict(module.named_parameters()), True)

@@ -6,7 +6,9 @@ enter through interop.py).
 `<directory>/<prefix>/<step>.pt` files, the newest `max_to_keep` of them.
 A save writes a temporary file beside the target and renames it into
 place, so a crash never leaves a torn file or loses the last complete
-copy.  What is saved is a state's `state_dict()` (or a plain dict) of
+copy.  Under a process group every rank calls `save`: the state's split
+tensors are gathered whole (parallel/mesh.py::gather_full) and rank 0
+writes them, so a checkpoint restores at any world size.  What is saved is a state's `state_dict()` (or a plain dict) of
 tensors and Python scalars; `restore` loads the newest (or a given) step
 and copies it into a state of the same layout, in place.
 
@@ -25,6 +27,9 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from ddmi_tpu_torch.parallel import distributed
+from ddmi_tpu_torch.parallel.mesh import gather_full
 
 
 class CheckpointManager:
@@ -54,16 +59,25 @@ class CheckpointManager:
         of this step is replaced only with `overwrite`, after the new one is
         complete."""
         del force
-        os.makedirs(self.root, exist_ok=True)
         path = self._path(step)
-        if os.path.exists(path) and not overwrite:
-            raise FileExistsError(f"checkpoint {path} exists (pass overwrite=True)")
         obj = state.state_dict() if hasattr(state, "state_dict") else state
-        tmp = path + ".tmp"
-        torch.save(obj, tmp)
-        os.replace(tmp, path)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        if distributed.initialized():
+            # every rank gathers its shards; rank 0 writes the full state
+            obj = gather_full(obj)
+            if not distributed.is_main():
+                distributed.barrier()
+                return
+        try:
+            os.makedirs(self.root, exist_ok=True)
+            if os.path.exists(path) and not overwrite:
+                raise FileExistsError(f"checkpoint {path} exists (pass overwrite=True)")
+            tmp = path + ".tmp"
+            torch.save(obj, tmp)
+            os.replace(tmp, path)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+        finally:
+            distributed.barrier()
 
     def restore(self, state_like: Any = None, step: Optional[int] = None,
                 map_location: Any = "cpu", mmap: bool = False) -> Any:

@@ -13,6 +13,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ddmi_tpu_torch.parallel.mesh import local
+
 
 def ema_decay_schedule(updates: int, beta: float = 0.9999, inv_gamma: float = 1.0,
                        power: float = 2.0 / 3.0) -> float:
@@ -35,7 +37,9 @@ def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor], st
     d = ema_decay_schedule(max((step - update_after_step) // update_every, 0), beta)
     one_minus = float(np.float32(1.0) - np.float32(d))
     keys = list(ema)
-    e = [ema[k] for k in keys]
+    # on the ranks' local parts of tensors split by FSDP2 (parallel/mesh.py)
+    e = local([ema[k] for k in keys])
     torch._foreach_mul_(e, d)
-    torch._foreach_add_(e, torch._foreach_mul([params[k].detach() for k in keys], one_minus))
+    torch._foreach_add_(e, torch._foreach_mul(local([params[k].detach() for k in keys]),
+                                              one_minus))
     return ema

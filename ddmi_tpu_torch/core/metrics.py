@@ -15,10 +15,16 @@ import torch
 
 
 class MetricsLogger:
-    def __init__(self, directory: str, name: str = "train", stdout_every: int = 50):
-        os.makedirs(directory, exist_ok=True)
+    """`write=False` (the ranks but 0 of a process group) keeps the records
+    and returns them, for the NaN guard, but writes and prints nothing."""
+
+    def __init__(self, directory: str, name: str = "train", stdout_every: int = 50,
+                 write: bool = True):
         self.path = os.path.join(directory, f"{name}.jsonl")
-        self._f = open(self.path, "a", buffering=1)
+        self._f = None
+        if write:
+            os.makedirs(directory, exist_ok=True)
+            self._f = open(self.path, "a", buffering=1)
         self.stdout_every = stdout_every
         self._t0 = time.perf_counter()
         self._last_step_time = self._t0
@@ -57,6 +63,8 @@ class MetricsLogger:
         self._last_step_time = now
         for k, v in metrics.items():
             rec[prefix + k] = float(v)
+        if self._f is None:
+            return rec
         self._f.write(json.dumps(rec) + "\n")
         if self.stdout_every and step % self.stdout_every == 0:
             pretty = " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
@@ -65,7 +73,8 @@ class MetricsLogger:
         return rec
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class ProfilerHook:

@@ -16,7 +16,9 @@ the first update a no-op.  `linear_schedule` and
 operations.  `MultiSteps` reproduces optax.MultiSteps(every_k_schedule=k):
 gradients are averaged over k micro-steps (optax's running mean
 acc + (g - acc) / (n + 1)), the parameters change only on the k-th, and
-the inner count advances only then.  All update in place.
+the inner count advances only then.  All update in place, on plain
+tensors or on the DTensor shards of parameters split by FSDP2
+(parallel/mesh.py), whose moments `zeros_like` splits alike.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Callable, List, Union
 
 import numpy as np
 import torch
+
+from ddmi_tpu_torch.parallel.mesh import copy_full_, local
 
 Schedule = Callable[[int], float]
 
@@ -86,7 +90,7 @@ class AdamW:
         f32 = np.float32
         bc1 = float(f32(1.0) - f32(self.b1) ** self.count)
         bc2 = float(f32(1.0) - f32(self.b2) ** self.count)
-        for p, g, mu, nu in zip(params, grads, self.mu, self.nu):
+        for p, g, mu, nu in zip(local(params), local(grads), local(self.mu), local(self.nu)):
             m = (mu * self.b1).float().add_(g * (1 - self.b1))
             nu.mul_(self.b2).add_(g * g * (1 - self.b2))
             u = (m / bc1) / ((nu / bc2).sqrt_().add_(self.eps))
@@ -99,7 +103,7 @@ class AdamW:
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         for dst, src in zip(self.mu + self.nu, list(sd["mu"]) + list(sd["nu"])):
-            dst.copy_(src)
+            copy_full_(dst, src)
         self.count = int(sd["count"])
 
 
@@ -117,11 +121,11 @@ class MultiSteps:
         """Take one micro-step's gradients; step the inner optimizer on the
         k-th."""
         n = self.mini_step
-        for acc, g in zip(self.acc, grads):
+        for acc, g in zip(local(self.acc), local(grads)):
             acc.add_((g - acc) / (n + 1))
         if n == self.k - 1:
             self.inner.update(params, self.acc)
-            for acc in self.acc:
+            for acc in local(self.acc):
                 acc.zero_()
             self.gradient_step += 1
         self.mini_step = (n + 1) % self.k
@@ -134,7 +138,7 @@ class MultiSteps:
     def load_state_dict(self, sd: dict) -> None:
         self.inner.load_state_dict(sd["inner"])
         for dst, src in zip(self.acc, sd["acc"]):
-            dst.copy_(src)
+            copy_full_(dst, src)
         self.mini_step, self.gradient_step = int(sd["mini_step"]), int(sd["gradient_step"])
 
 

@@ -9,9 +9,29 @@ a non-finite loss every `data.extra.nan_check_every` steps.  Every
 under `<save_dir>/stage1` or `<save_dir>/stage2` (core/checkpoint.py) with
 the step generators' states, so that `resume=True` continues bit for bit
 where the last checkpoint left off; stage 2 takes its stage-1 modules from
-the newest stage-1 checkpoint in the save directory when there is one.  The JAX
-trainer's mesh becomes one card: `cfg.mesh` is read and changes nothing,
-which the run says once, as the JAX package's `make_mesh` fallback does.
+the newest stage-1 checkpoint in the save directory when there is one.
+
+Under a process group (torchrun, parallel/distributed.py) the trainer runs
+on `cfg.mesh` as the JAX trainer runs on its device mesh
+(parallel/mesh.py: the sizes resolve as JAX's `make_mesh` resolves them,
+with its fallback to data = number of ranks).  Each rank takes its rows of
+the global batch (`shard_batch`, JAX's wrap-around pad), or the rows its
+process-sharded loader gives it (batch_size / data a rank, so the global
+batch is batch_size either way), and every micro-step's draws are made for
+the global batch from the shared generator, each rank keeping its rows, so
+that the step equals the one-process step on the same global batch.
+Stage 2's denoiser is split by FSDP2 (`shard_module`: HSDP over
+('data', 'fsdp'), JAX's placement rule) before the state is built, so the
+EMA and the optimizer's moments are split with it; stage 1's modules and
+discriminator are replicated (JAX's stage-1 configs ask for no fsdp, and
+their losses read the weights outside the modules' forward: the amp casts
+and the spectral-norm regulariser), their gradients averaged over the ranks
+after the backward.  The PatchGANs' batch statistics are global
+(losses/gan.py).  The logged metrics are the ranks' mean; only rank 0
+writes logs, samples and checkpoints, which hold the full state and restore
+at any world size.  `generate` and stage 2's `evaluate` sample the DDIM
+latents data-parallel when mesh.data > 1 divides the count.  mesh.model > 1
+raises ValueError.
 The eval hooks run after each save: stage 1 reconstructs and logs PSNR
 (image and video) or the IoU of one shape's query points (occupancy); stage
 2 samples with the EMA weights and saves the samples (image and video) or
@@ -28,6 +48,7 @@ that the sampling paths go through the port's kernels.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -42,6 +63,11 @@ import torch
 
 from ddmi_tpu_torch.core.checkpoint import CheckpointManager, stage1_weights
 from ddmi_tpu_torch.core.metrics import MetricsLogger, ProfilerHook
+from ddmi_tpu_torch.parallel import distributed
+from ddmi_tpu_torch.parallel.mesh import (
+    MeshSpec, RowDraws, all_gather_rows, data_coordinate, data_group, gather_full, is_fsdp,
+    is_sharded, make_mesh, shard_batch, shard_module,
+)
 from ddmi_tpu_torch.utils.mesh_io import write_off
 
 
@@ -68,24 +94,31 @@ class _Resumable:
 
 class Trainer:
     def __init__(self, cfg, pipeline, dataset, test_dataset=None,
-                 save_dir: Optional[str] = None):
+                 save_dir: Optional[str] = None, mesh=None):
         self.cfg = cfg
         self.pipe = pipeline
         self.data = dataset
         self.test_data = test_dataset
         self.save_dir = save_dir or cfg.data.save_pth
-        os.makedirs(self.save_dir, exist_ok=True)
-        self.logger = MetricsLogger(self.save_dir)
+        m = cfg.mesh
+        if m.model > 1:
+            raise ValueError(
+                f"mesh.model={m.model}: tensor parallelism is not ported; the port's "
+                f"hand-written kernels take whole tensors, and no config, test or reference "
+                f"path of the repo uses the 'model' axis")
+        # the mesh's sizes as JAX resolves them (warns once on its fallback)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            MeshSpec(m.data, m.fsdp, m.model), device_type=pipeline.device.type)
+        self.distributed = distributed.initialized()
+        self.main = distributed.is_main()
+        if self.main:
+            os.makedirs(self.save_dir, exist_ok=True)
+        distributed.barrier()
+        self.logger = MetricsLogger(self.save_dir, write=self.main)
         # checking every step would wait on the card every step
         self.nan_check_every = int(cfg.data.extra.get("nan_check_every", 50))
         self.profile_steps = int(cfg.data.extra.get("profile_steps", 0))
         self._profiler: Optional[ProfilerHook] = None
-        mesh = cfg.mesh
-        if mesh.data not in (-1, 1) or mesh.fsdp != 1 or mesh.model != 1:
-            warnings.warn(
-                f"mesh (data={mesh.data}, fsdp={mesh.fsdp}, model={mesh.model}) asks for "
-                f"more than one device; this trainer runs on one ({pipeline.device}) and "
-                f"shards nothing", stacklevel=2)
 
     def _batches(self):
         """Iterate the dataset through a background prefetch thread (depth
@@ -137,6 +170,87 @@ class Trainer:
             return {k: self._put_batch(v) for k, v in batch.items()}
         return torch.as_tensor(batch).to(self.pipe.device, non_blocking=True)
 
+    def _local_batch(self, batch):
+        """(this rank's rows of a loader batch, the global batch size).  A
+        loader built for one data rank's shard (num_processes > 1, as the
+        CLI builds the image folders: batch_size / data rows a rank)
+        already gives the rank its rows; any other loader gives every rank
+        the global batch, of which the rank keeps its rows (padded by
+        wrap-around as JAX pads)."""
+        index, size = data_coordinate(self.mesh)
+        lead = batch["inputs" if "inputs" in batch else next(iter(batch))] if isinstance(
+            batch, dict) else batch
+        b = int(np.shape(lead)[0])
+        if getattr(self.data, "num_processes", 1) > 1:
+            return batch, b * size
+        local = shard_batch(batch, index, size, warn=not self._warned_pad)
+        self._warned_pad = self._warned_pad or b % size != 0
+        return local, b + (-b) % size
+
+    _warned_pad = False
+
+    def _mean_metrics(self, metrics: dict) -> dict:
+        """The metrics averaged over the ranks (one all-reduce); each rank's
+        are means over its rows."""
+        if distributed.world_size() == 1:
+            return metrics
+        keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+        if keys:
+            flat = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+            torch.distributed.all_reduce(flat)
+            flat /= distributed.world_size()
+            metrics = dict(metrics, **dict(zip(keys, flat.unbind())))
+        return metrics
+
+    def _global_like(self, batch, b: int):
+        """Stand-ins of the global batch's shapes (meta tensors) for the
+        draws of a batch whose rows are spread over the ranks."""
+        if isinstance(batch, dict):
+            return {k: self._global_like(v, b) for k, v in batch.items()}
+        return torch.empty((b,) + tuple(np.shape(batch)[1:]), device="meta")
+
+    def _stage1_step_fn(self, gen, host):
+        """The stage-1 micro-step: the draws are made for the global batch
+        and each rank keeps its rows (the image INR's noise as it is drawn,
+        through RowDraws); in one process these are the pipeline's own
+        draws, in its order."""
+        pipe = self.pipe
+        index, size = data_coordinate(self.mesh)
+
+        def step(s, batch):
+            local, b = self._local_batch(batch)
+            if isinstance(batch, dict):
+                draws = pipe.draw_stage1(self._global_like(local, b), gen)
+            elif pipe.cfg.data.domain == "video":
+                draws = pipe.draw_stage1(b, gen)
+            else:
+                draws = pipe.draw_stage1(b, gen, host)
+            fields = {f.name: getattr(draws, f.name) for f in dataclasses.fields(draws)}
+            draws = type(draws)(**shard_batch(fields, index, size, warn=False))
+            if hasattr(draws, "noise") and draws.noise is None:
+                draws.noise = RowDraws(gen, index, size)
+            s, metrics = pipe.stage1_train_step(s, self._put_batch(local), generator=gen,
+                                                host_generator=host, draws=draws)
+            return s, self._mean_metrics(metrics)
+
+        return step
+
+    def _stage2_step_fn(self, gen):
+        """The stage-2 micro-step: the draws (posterior eps, t, noise and the
+        mask) are made for the global batch and each rank keeps its rows;
+        in one process these are the pipeline's own draws, in its order."""
+        pipe = self.pipe
+        index, size = data_coordinate(self.mesh)
+
+        def step(s, batch):
+            local, b = self._local_batch(batch)
+            draws = shard_batch(pipe.stage2_draws(b, gen), index, size, warn=False)
+            s, metrics = pipe.stage2_train_step(s, self._put_batch(local), generator=gen,
+                                                **draws)
+            return s, self._mean_metrics(metrics)
+
+        return step
+
     def _log_step(self, step: int, metrics, prefix: str) -> None:
         """Deferred logging and the throttled NaN guard."""
         self.logger.defer(step, metrics, prefix=prefix)
@@ -150,8 +264,8 @@ class Trainer:
         """With data.extra.profile_steps > 0, a torch.profiler trace of the
         micro-steps after step 2 up to step 2 + profile_steps, written
         under <save_dir>/profile (core/metrics.py::ProfilerHook); once per
-        trainer."""
-        if self.profile_steps <= 0:
+        trainer, on rank 0 alone under a process group."""
+        if self.profile_steps <= 0 or not self.main:
             return
         if self._profiler is None:
             self._profiler = ProfilerHook(os.path.join(self.save_dir, "profile"), 2,
@@ -160,11 +274,15 @@ class Trainer:
         if step >= 2 + self.profile_steps:
             self.profile_steps = 0
 
+    def _say(self, msg: str) -> None:
+        if self.main:
+            print(msg, flush=True)
+
     def _maybe_resume(self, ckpt: CheckpointManager, resumable: _Resumable, resume: bool,
                       tag: str) -> None:
         if resume and ckpt.latest_step() is not None:
             ckpt.restore(resumable)
-            print(f"resumed {tag} from step {resumable.state.step}", flush=True)
+            self._say(f"resumed {tag} from step {resumable.state.step}")
 
     def _epochs(self, state, resumable, ckpt, step_fn, epochs, prefix, eval_hook, save):
         """The epoch loop shared by both stages: step, log, then save (and
@@ -174,7 +292,7 @@ class Trainer:
         step = state.step
         for epoch in range(epochs):
             for batch in self._batches():
-                state, metrics = step_fn(state, self._put_batch(batch))
+                state, metrics = step_fn(state, batch)
                 step += 1
                 self._log_step(step, metrics, prefix)
                 self._maybe_profile(step)
@@ -206,9 +324,8 @@ class Trainer:
         ckpt = CheckpointManager(self.save_dir, prefix="stage1")
         self._maybe_resume(ckpt, resumable, resume, "stage1")
         epochs = epochs or self.pipe.lc.epochs
-        print(f"[s1/] {epochs} epoch(s) of {spe} micro-steps on {self.pipe.device}", flush=True)
-        step_fn = lambda s, x: self.pipe.stage1_train_step(s, x, generator=gen,
-                                                           host_generator=host)
+        self._say(f"[s1/] {epochs} epoch(s) of {spe} micro-steps on {self.pipe.device}")
+        step_fn = self._stage1_step_fn(gen, host)
         return self._epochs(state, resumable, ckpt, step_fn, epochs, "s1/",
                             default_stage1_eval_hook if eval_hook is None else eval_hook, True)
 
@@ -237,17 +354,25 @@ class Trainer:
         (default_stage2_eval_hook when None).  Returns the final
         Stage2State."""
         if CheckpointManager(self.save_dir, prefix="stage1").latest_step() is not None:
-            print(f"[s2/] stage-1 weights from step {self.load_stage1()} of "
-                  f"{os.path.join(self.save_dir, 'stage1')}", flush=True)
-        state = self.pipe.init_stage2()
+            step = self.load_stage1()
+            self._say(f"[s2/] stage-1 weights from step {step} of "
+                      f"{os.path.join(self.save_dir, 'stage1')}")
+        wrap = None
+        if self.distributed:
+            def wrap(pipe):
+                # FSDP2 reduces what it splits; the rest (the mixing logit and
+                # the leaves JAX keeps whole) the pipeline averages after the
+                # backward (reduce_grads)
+                shard_module(pipe.unet, self.mesh, amp=pipe.amp)
+        state = self.pipe.init_stage2(wrap=wrap)
         gen = torch.Generator(device=self.pipe.device).manual_seed(self.cfg.seed + 2)
         resumable = _Resumable(state, gen)
         ckpt = CheckpointManager(self.save_dir, prefix="stage2")
         self._maybe_resume(ckpt, resumable, resume, "stage2")
         epochs = epochs or self.pipe.lc.epochs
-        print(f"[s2/] {epochs} epoch(s) of {self._steps_per_epoch()} micro-steps on "
-              f"{self.pipe.device}", flush=True)
-        step_fn = lambda s, x: self.pipe.stage2_train_step(s, x, generator=gen)
+        self._say(f"[s2/] {epochs} epoch(s) of {self._steps_per_epoch()} micro-steps on "
+                  f"{self.pipe.device}")
+        step_fn = self._stage2_step_fn(gen)
         return self._epochs(state, resumable, ckpt, step_fn, epochs, "s2/",
                             default_stage2_eval_hook if eval_hook is None else eval_hook, save)
 
@@ -280,8 +405,9 @@ class Trainer:
         lockstep group (refined when the convocc config asks for it);
         NeRF, each scene's 8 views on the spherical path at `resolution`^2
         (128 when None) as `generation/nerf_<i>_<v>`.  Images are PNGs, or
-        one `.npy` per prefix without PIL.  -> the samples (numpy), or the
-        meshes."""
+        one `.npy` per prefix without PIL.  The DDIM runs data-parallel
+        under a process group (`sample_latents`); rank 0 writes.  -> the
+        samples (numpy), or the meshes."""
         self.load_stage1()
         state = self.load_stage2()
         pipe, cfg = self.pipe, self.cfg
@@ -290,29 +416,48 @@ class Trainer:
         out_dir = os.path.join(self.save_dir, "generation")
         domain = cfg.data.domain
         with sampling_weights(pipe, state):
+            z = self.sample_latents(n, g)
             if domain == "image":
                 res = resolution or cfg.data.test_resolution
-                out = pipe.sample_images(n, resolution=res, generator=g).cpu().numpy()
+                out = pipe.decode_latents(z, resolution=res).cpu().numpy()
                 self._save_images(out, out_dir)
                 return out
             if domain == "video":
-                out = pipe.sample_videos(n, generator=g).cpu().numpy()
+                out = pipe.decode_videos(z).cpu().numpy()
                 for i, vid in enumerate(out):
                     self._save_images(vid, os.path.join(out_dir, f"video_{i}"))
                 return out
             if domain == "occupancy":
-                meshes = pipe.extract_meshes(pipe.sample_latents(n, generator=g))
-                os.makedirs(out_dir, exist_ok=True)
-                for i, (verts, tris) in enumerate(meshes):
-                    write_off(os.path.join(out_dir, f"mesh_{i}.off"), verts, tris)
+                meshes = pipe.extract_meshes(z)
+                if self.main:
+                    os.makedirs(out_dir, exist_ok=True)
+                    for i, (verts, tris) in enumerate(meshes):
+                        write_off(os.path.join(out_dir, f"mesh_{i}.off"), verts, tris)
                 return meshes
             if domain == "nerf":
                 res = resolution or 128
-                out = pipe.sample_nerfs(n, H=res, W=res, generator=g).cpu().numpy()
+                out = pipe.render_nerfs(z, H=res, W=res).cpu().numpy()
                 for i, views in enumerate(out):
                     self._save_images(views, os.path.join(out_dir, f"nerf_{i}"))
                 return out
         raise NotImplementedError(domain)
+
+    def sample_latents(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """The pipeline's DDIM latents for n samples from `generator`: the
+        global batch's initial noise, of which each data rank samples its
+        rows, and every rank gathers the rows (JAX's `_sample_jit` splits
+        the batch over 'data' the same way), so the latents are the
+        one-process run's.  Where mesh.data does not divide n, or DDIM's eta
+        is not 0 (its steps then draw per row), every rank samples the
+        whole batch."""
+        pipe = self.pipe
+        index, size = data_coordinate(self.mesh)
+        if n % size or pipe.gd.ddim_sampling_eta != 0.0:
+            return pipe.sample_latents(n, generator=generator)
+        noise = torch.randn(pipe.latent_noise_shape(n), generator=generator,
+                            device=pipe.device)
+        z = pipe.sample_latents(n // size, noise=shard_batch(noise, index, size))
+        return all_gather_rows(z, data_group(self.mesh))
 
     def _metric_net(self, cls, key: str, from_jax, what: str):
         """A metric network on the pipeline's device: its weights from
@@ -426,9 +571,10 @@ class Trainer:
                 print(f"  {name}: {d['value']:.6g} vs published {d['published']:.6g} "
                       f"(±{d['tol_pct']}%, {d['direction']}) -> "
                       f"{'pass' if d['passed'] else 'FAIL'}")
-        with open(os.path.join(self.save_dir, "eval.json"), "w") as f:
-            json.dump(results, f)
-        print("eval results:", results)
+        if self.main:
+            with open(os.path.join(self.save_dir, "eval.json"), "w") as f:
+                json.dump(results, f)
+            print("eval results:", results)
         if gates and not results["gates_passed"]:
             raise SystemExit("quality gates FAILED — see eval.json for detail")
         return results
@@ -505,7 +651,7 @@ class Trainer:
                 reals.append(np.asarray(b))
             return {"fid": test_fid_n(
                 self._image_scorer(),
-                lambda g: pipe.sample_images(bs, resolution=res, generator=g),
+                lambda g: pipe.decode_latents(self.sample_latents(bs, g), resolution=res),
                 reals, n_samples=n_eval, batch=bs,
                 generator=torch.Generator(device=dev).manual_seed(0), protocol_n=protocol)}
         if domain == "video":
@@ -523,7 +669,7 @@ class Trainer:
 
             def sample(g):
                 with torch.no_grad():
-                    return pipe.sample_videos(1, generator=g)
+                    return pipe.decode_videos(self.sample_latents(1, g))
 
             return {"fvd": test_fvd_sample(scorer, sample, reals, n_samples=n_fvd,
                                            generator=torch.Generator(device=dev).manual_seed(0))}
@@ -546,7 +692,7 @@ class Trainer:
         print(f"occupancy eval: generating {k} meshes (reference protocol: 5000 generated, "
               f"1355x1355 MMD pairs — tools/ldm/occupancy.py:204-219)")
         with torch.no_grad():
-            z = pipe.sample_latents(k, generator=torch.Generator(device=pipe.device).manual_seed(0))
+            z = self.sample_latents(k, torch.Generator(device=pipe.device).manual_seed(0))
         group = max(1, min(k, int(self.cfg.data.extra.get("mesh_batch", 8))))
         gen_pts = []
         for g0 in range(0, k, group):
@@ -573,7 +719,10 @@ class Trainer:
 
     @staticmethod
     def _save_images(imgs: np.ndarray, prefix: str) -> None:
-        """PNGs `<prefix>_<i>.png` when PIL is there, else one `<prefix>.npy`."""
+        """PNGs `<prefix>_<i>.png` when PIL is there, else one `<prefix>.npy`
+        (rank 0 alone under a process group)."""
+        if not distributed.is_main():
+            return
         os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
         try:
             from PIL import Image
@@ -648,7 +797,12 @@ def ema_weights(pipe, state):
     weights, the UNet cast to bf16 on the card (the dtype the sampling
     kernels take, as the sampling service casts it) and fp32 on the CPU;
     after it the trained fp32 parameters are back, bit for bit (the same
-    tensors, so the optimizer keeps them)."""
+    tensors, so the optimizer keeps them).  A UNet split by FSDP2 goes
+    through `_sharded_ema_weights`."""
+    if is_fsdp(pipe.unet):
+        with _sharded_ema_weights(pipe, state):
+            yield pipe
+        return
     saved = {k: p.detach().clone() for k, p in state.params.items()}
     try:
         with torch.no_grad():
@@ -661,6 +815,31 @@ def ema_weights(pipe, state):
         pipe.unet.float()
         with torch.no_grad():
             for k, p in state.params.items():
+                p.copy_(saved[k])
+
+
+@contextlib.contextmanager
+def _sharded_ema_weights(pipe, state):
+    """`ema_weights` for a UNet split by FSDP2 (every rank enters it): the
+    EMA is gathered whole, the UNet unsharded and its unsharded parameters
+    (the forward's: bf16 under amp) take the EMA; resharding drops them,
+    and the trained shards were never touched.  The plain tensors (the
+    mixing logit, the leaves kept whole) are swapped and restored."""
+    full = gather_full(dict(state.ema))
+    plain = {k: p for k, p in state.params.items() if not is_sharded(p)}
+    saved = {k: p.detach().clone() for k, p in plain.items()}
+    pipe.unet.unshard()
+    try:
+        with torch.no_grad():
+            unsharded = dict(pipe.unet.named_parameters())
+            for k in state.params:
+                dst = plain[k] if k in plain else unsharded[k[len("unet."):]]
+                dst.copy_(full[k])
+        yield pipe
+    finally:
+        pipe.unet.reshard()
+        with torch.no_grad():
+            for k, p in plain.items():
                 p.copy_(saved[k])
 
 
@@ -725,8 +904,9 @@ def default_stage2_eval_hook(trainer: Trainer, state, epoch: int) -> None:
                     z = pipe.sample_latents(1, generator=g)
                 verts, tris = MeshGenerator(pipe.decode_logits_fn(z), upsampling_steps=0,
                                             resolution0=32, device=pipe.device).generate()
-                os.makedirs(out_dir, exist_ok=True)
-                write_off(os.path.join(out_dir, f"ep{epoch}.off"), verts, tris)
+                if trainer.main:
+                    os.makedirs(out_dir, exist_ok=True)
+                    write_off(os.path.join(out_dir, f"ep{epoch}.off"), verts, tris)
     except Exception as e:  # an eval must never end a training run
         warnings.warn(f"stage2 eval hook failed: {e}\n{traceback.format_exc()}")
         trainer.logger.log(epoch, {"eval_hook_failures": 1.0}, prefix="s2/")

@@ -44,6 +44,7 @@ class ImageFolderDataset:
         if not self.files:
             raise FileNotFoundError(f"no images under {root}")
         self.files = self.files[process_index::num_processes]
+        self.num_processes = num_processes  # the trainer reads its batches as one rank's
         self.batch_size = batch_size
         self.resolution = resolution
         self.random_flip = random_flip

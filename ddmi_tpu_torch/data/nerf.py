@@ -35,6 +35,7 @@ class NeRFShapeNetDataset:
         cut = int(0.8 * len(files))
         files = files[:cut] if train else files[cut:]
         self.files = files[process_index::num_processes]
+        self.num_processes = num_processes  # the trainer reads its batches as one rank's
         self.batch_size = batch_size
         self.pointcloud_n = pointcloud_n
         self.pointcloud_noise = pointcloud_noise

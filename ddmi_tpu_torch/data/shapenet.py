@@ -54,6 +54,7 @@ class ShapeNetOccupancyDataset:
                                if os.path.isdir(os.path.join(root, c, d)))
             self.models += [os.path.join(root, c, m) for m in names]
         self.models = self.models[process_index::num_processes]
+        self.num_processes = num_processes  # the trainer reads its batches as one rank's
         if not self.models:
             raise FileNotFoundError(f"no models under {root}")
         self.batch_size = batch_size

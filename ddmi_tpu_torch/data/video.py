@@ -7,6 +7,8 @@ gives bit-identical clips.  `VideoFrameFolderDataset` reads the
 SkyTimelapse layout (root/<split-or-class>/<clip_dir>/<frame>.jpg): per
 clip its sorted frames, a random temporal window (loop-padded when short),
 a centre crop and a Lanczos resize, on a host thread that prefetches.
+`UCF101VideoDataset` decodes UCF101's video files with PyAV, which it
+imports when it is built.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class VideoFrameFolderDataset:
                  shuffle: bool = True, seed: int = 0, num_processes: int = 1,
                  process_index: int = 0, prefetch: int = 2, workers: int = 1):
         self.clips = _clip_dirs(root)[process_index::num_processes]
+        self.num_processes = num_processes  # the trainer reads its batches as one rank's
         if not self.clips:
             raise FileNotFoundError(f"no frame folders under {root}")
         self.batch_size = batch_size
@@ -144,12 +147,76 @@ class SyntheticVideos:
             yield img.astype(np.float32)
 
 
+class UCF101VideoDataset:
+    """UCF101's .avi / .mp4 / .mkv clips decoded with PyAV: per batch the
+    files in an order drawn by numpy's default_rng(seed), then per clip a
+    random window of `frames` consecutive frames (the last frame repeated
+    when the clip is short) from the same generator, a centre crop and a
+    bilinear resize to resolution^2; (b, frames, res, res, 3) float32 in
+    [0, 1].  PyAV is imported when the dataset is built, and its absence
+    raises ImportError; frame folders (VideoFrameFolderDataset) need no
+    decoder.  `workers` is taken and not used: the decode stays serial."""
+
+    def __init__(self, root: str, batch_size: int, frames: int = 16, resolution: int = 256,
+                 shuffle: bool = True, seed: int = 0, workers: int = 1):
+        del workers
+        try:
+            import av  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "UCF101VideoDataset needs PyAV (`av`), which is not available in this "
+                "environment; decode the videos to frame folders and use "
+                "VideoFrameFolderDataset instead") from e
+        self.root = root
+        self.batch_size = batch_size
+        self.frames = frames
+        self.resolution = resolution
+        self.shuffle = shuffle
+        self.seed = seed
+        self.files = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(root) for f in fs
+                            if os.path.splitext(f)[1].lower() in (".avi", ".mp4", ".mkv"))
+        if not self.files:
+            raise FileNotFoundError(f"no video files under {root}")
+
+    def __len__(self):
+        return max(1, len(self.files) // self.batch_size)
+
+    def _decode(self, path: str, rng: np.random.Generator) -> np.ndarray:
+        import av
+        from PIL import Image
+
+        with av.open(path) as container:
+            stream = container.streams.video[0]
+            imgs = [f.to_image() for f in container.decode(stream)]
+        if len(imgs) < self.frames:
+            imgs = imgs + [imgs[-1]] * (self.frames - len(imgs))
+        start = int(rng.integers(0, len(imgs) - self.frames + 1))
+        r, out = self.resolution, []
+        for im in imgs[start : start + self.frames]:
+            w, h = im.size
+            s = min(w, h)
+            im = im.crop(((w - s) // 2, (h - s) // 2, (w + s) // 2, (h + s) // 2))
+            out.append(np.asarray(im.resize((r, r), Image.BILINEAR), np.float32) / 255.0)
+        return np.stack(out)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        order = np.arange(len(self.files))
+        if self.shuffle:
+            rng.shuffle(order)
+        for i in range(len(self)):
+            idx = order[i * self.batch_size : (i + 1) * self.batch_size]
+            yield np.stack([self._decode(self.files[j], rng) for j in idx])
+
+
 def make_video_dataset(name: str, root: str, batch_size: int, frames: int = 16,
                        resolution: int = 256, **kw):
-    """'sky' / 'skytimelapse' / 'folder' -> frame folders.  UCF101's video
-    decoding (PyAV in the JAX package) is not ported."""
+    """'sky' / 'skytimelapse' / 'folder' -> frame folders, 'ucf101' -> PyAV
+    decoding (UCF101VideoDataset)."""
     name = name.lower()
     if name in ("sky", "skytimelapse", "folder"):
         return VideoFrameFolderDataset(root, batch_size, frames=frames, resolution=resolution,
                                        **kw)
-    raise NotImplementedError(f"video dataset '{name}' is not ported")
+    if name == "ucf101":
+        return UCF101VideoDataset(root, batch_size, frames=frames, resolution=resolution, **kw)
+    raise NotImplementedError(f"video dataset '{name}'")

@@ -48,12 +48,12 @@ from ddmi_tpu_torch.nn.vae import Autoencoder
 from ddmi_tpu_torch.ops.attention import needs_grad
 from ddmi_tpu_torch.ops.inr_decode import render_tokens_fused
 from ddmi_tpu_torch.ops.resample import pixel_center_lin
+from ddmi_tpu_torch.parallel.mesh import copy_full_, reduce_grads
 
 
 def _copy_into(dst: Dict[str, torch.Tensor], src) -> None:
-    with torch.no_grad():
-        for k, t in dst.items():
-            t.copy_(src[k])
+    for k, t in dst.items():
+        copy_full_(t, src[k])
 
 
 def stage1_kl_coeff(lc, total_iters: int, step: int) -> float:
@@ -167,7 +167,6 @@ class LatentTraining:
     # The KL anneal's length in micro-steps until init_stage1 sets it (the
     # JAX package's default).
     _stage1_total_iters = 100_000
-
     def stage1_params(self) -> Dict[str, torch.Tensor]:
         """The trainable parameters, `<module>.<name>` over stage1_modules."""
         return {f"{name}.{k}": p for name in self.stage1_modules
@@ -204,14 +203,16 @@ class LatentTraining:
         params["mixing_logit"] = self.mixing_logit
         return params
 
-    def init_stage2(self) -> Stage2State:
+    def init_stage2(self, wrap=None) -> Stage2State:
         """Ready the pipeline for stage-2 training from its current weights:
         the UNet and the mixing logit train in fp32 (on the card laid out
         channels-last), the stage-1 modules are frozen, and under model.amp
         the frozen `stage2_bf16_modules` are cast to bf16 once (the bf16
-        cast JAX takes of them every step).  Returns the state with fp32
-        EMA copies and a fresh optimizer: AdamW(lr, wd 0, bf16 mu) with
-        gradient accumulation."""
+        cast JAX takes of them every step).  `wrap(pipeline)` then runs
+        before the state is built (the trainer's FSDP2 split of the UNet),
+        so that the state's tensors are made from the wrapped parameters.
+        Returns the state with fp32 EMA copies and a fresh optimizer:
+        AdamW(lr, wd 0, bf16 mu) with gradient accumulation."""
         for name in self.stage1_modules:
             getattr(self, name).requires_grad_(False)
         self.unet.float().requires_grad_(True)
@@ -222,6 +223,8 @@ class LatentTraining:
         if self.amp:
             for name in self.stage2_bf16_modules:
                 getattr(self, name).to(torch.bfloat16)
+        if wrap is not None:
+            wrap(self)
         params = self.stage2_params()
         ema = {k: p.detach().clone() for k, p in params.items()}
         return Stage2State(0, params, ema, stage2_adamw(self.cfg, list(params.values())))
@@ -230,6 +233,19 @@ class LatentTraining:
         """The frozen encode of a stage-2 batch (`encode_latents` of the
         images or clips; the 3D domains encode the batch's point cloud)."""
         return self.encode_latents(x, eps, generator)
+
+    def stage2_draws(self, b: int, generator: Optional[torch.Generator] = None) -> dict:
+        """The draws `stage2_loss` makes for a batch of b, from `generator`
+        in its order: the posterior eps (`stage2_eps`), t, the diffusion
+        noise of the latents' shape (`stage2_z_shape`) and, for a masked
+        denoiser, the mask's uniforms.  -> its keyword arguments."""
+        eps = self.stage2_eps(b, generator)
+        t = torch.randint(0, self.gd.num_timesteps, (b,), generator=generator,
+                          device=self.device)
+        noise = torch.randn(self.stage2_z_shape(b), generator=generator, device=self.device)
+        mask = (torch.rand((b, self.unet.num_tokens()), generator=generator, device=self.device)
+                if self.masked_denoiser else None)
+        return {"eps": eps, "t": t, "noise": noise, "mask_noise": mask}
 
     # True where the denoiser trains masked (MDTv2 with a mask ratio)
     masked_denoiser = False
@@ -257,6 +273,7 @@ class LatentTraining:
         """The optimizer (gradients taken from the parameters' .grad, which
         are cleared) and the EMA for one micro-step; advances state.step."""
         params = list(state.params.values())
+        reduce_grads(params)
         state.opt.update(params, [p.grad for p in params])
         for p in params:
             p.grad = None
@@ -371,20 +388,31 @@ class ImagePipeline(LatentTraining, nn.Module):
             return self.mlp(hdbf, si, grid_1d=(lin, lin), generator=gen)
         return render_tokens_fused(self.mlp, hdbf, res, si, seed)
 
+    def latent_noise_shape(self, batch: int) -> Tuple[int, int, int, int]:
+        """The shape of the DDIM's initial latent for a batch."""
+        d = self.cfg.model.ddpmconfig
+        return (batch, d.channels, d.image_size, d.image_size)
+
     @torch.inference_mode()
     def sample_images(self, batch: int, resolution: Optional[int] = None,
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       render_seed: int = 0) -> torch.Tensor:
         """DDIM + HDBF decode + INR render -> (batch, res, res, out_ch) in
-        [0, 1], fp32.  `noise` (batch, C, h, w) is the initial latent; without
-        it the latent is drawn from `generator`.  `render_seed` keys the INR's
-        NoiseInjection draws.  Encoder reuse (ddpmconfig.extra) needs the
-        UNet's down/up split: with the MDTv2 denoiser it raises ValueError."""
-        m = self.cfg.model
-        res = resolution or self.cfg.data.test_resolution
-        d = m.ddpmconfig
-        shape = (batch, d.channels, d.image_size, d.image_size)
+        [0, 1], fp32 (`sample_latents`, then `decode_latents`).  `noise`
+        (batch, C, h, w) is the initial latent; without it the latent is
+        drawn from `generator`.  `render_seed` keys the INR's NoiseInjection
+        draws."""
+        return self.decode_latents(self.sample_latents(batch, noise, generator), resolution,
+                                   render_seed)
+
+    @torch.inference_mode()
+    def sample_latents(self, batch: int, noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The DDIM's latents (batch, C, h, w) fp32.  Encoder reuse
+        (ddpmconfig.extra) needs the UNet's down/up split: with the MDTv2
+        denoiser it raises ValueError."""
+        shape = self.latent_noise_shape(batch)
         if self.is_dit:
             if self.gd.encoder_reuse > 1:
                 raise ValueError("encoder_reuse needs the UNet down/up split; the MDTv2 "
@@ -396,6 +424,15 @@ class ImagePipeline(LatentTraining, nn.Module):
                 self.gd, self.unet, self.mixing_logit, shape, noise=noise,
                 generator=generator, device=self.device,
             )
+        return z
+
+    @torch.inference_mode()
+    def decode_latents(self, z: torch.Tensor, resolution: Optional[int] = None,
+                       render_seed: int = 0) -> torch.Tensor:
+        """HDBF decode + INR render of DDIM latents -> (b, res, res, out_ch)
+        in [0, 1], fp32."""
+        batch = z.shape[0]
+        res = resolution or self.cfg.data.test_resolution
         p_dtype = self.vae.post_quant_conv.weight.dtype
         hdbf = self.vae.decode(z.to(p_dtype))
         si = get_scale_injection(res, self.anchor)
@@ -409,6 +446,12 @@ class ImagePipeline(LatentTraining, nn.Module):
         c = self.cfg.model.ddconfig
         r = c.resolution // 2 ** (len(c.ch_mult) - 1)
         return (b, self.cfg.model.embed_dim, r, r)
+
+    def stage2_eps(self, b: int, generator: Optional[torch.Generator] = None):
+        """The posterior's eps as `encode_latents` draws it."""
+        return torch.randn(self.latent_shape(b), generator=generator, device=self.device)
+
+    stage2_z_shape = latent_shape
 
     def draw_stage1(self, b: int, generator: Optional[torch.Generator] = None,
                     host_generator: Optional[torch.Generator] = None) -> Stage1Draws:
@@ -510,12 +553,14 @@ class ImagePipeline(LatentTraining, nn.Module):
                 d_loss = self.gan.discriminator_loss(t_aug, o_aug, scale)
                 d_loss.backward()
                 disc = list(state.disc.values())
+                reduce_grads(disc)
                 state.disc_opt.update(disc, [p.grad for p in disc])
                 for p in disc:
                     p.grad = None
             metrics = dict(metrics, g_gan=g_gan, d_loss=d_loss)
         with record_function("stage1/optimizer"):
             params = list(state.params.values())
+            reduce_grads(params)
             state.opt.update(params, [p.grad if p.grad is not None else torch.zeros_like(p)
                                       for p in params])
             for p in params:

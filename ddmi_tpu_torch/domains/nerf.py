@@ -366,9 +366,9 @@ class NeRFPipeline(TriplaneTraining, nn.Module):
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """DDIM -> z (batch, C, r, r) fp32; `noise` (batch, C, r, r) is the
         initial latent, else it is drawn from `generator`."""
-        r, c = self.latent_res, self.cfg.model.ddpmconfig.channels
-        return ddim_sample_unet(self.gd, self.unet, self.mixing_logit, (batch, c, r, r),
-                                noise=noise, generator=generator, device=self.device)
+        return ddim_sample_unet(self.gd, self.unet, self.mixing_logit,
+                                self.latent_noise_shape(batch), noise=noise,
+                                generator=generator, device=self.device)
 
     def render_camera_path(self, z1: torch.Tensor, poses: torch.Tensor, H: int,
                            W: int) -> torch.Tensor:
@@ -384,7 +384,14 @@ class NeRFPipeline(TriplaneTraining, nn.Module):
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """DDIM latents -> decoded planes -> a rendered camera path per
         scene: (batch, n_views, H, W, 3) fp32 (not clipped)."""
-        z = self.sample_latents(batch, noise=noise, generator=generator)
+        return self.render_nerfs(self.sample_latents(batch, noise=noise, generator=generator),
+                                 n_views, H, W)
+
+    @torch.inference_mode()
+    def render_nerfs(self, z: torch.Tensor, n_views: int = 8, H: int = 128,
+                     W: int = 128) -> torch.Tensor:
+        """Each scene of DDIM latents z rendered along the spherical camera
+        path: (b, n_views, H, W, 3) fp32 (not clipped)."""
         poses = self.spherical_poses(n_views)
         return torch.stack([self.render_camera_path(z[b : b + 1], poses, H, W)
-                            for b in range(batch)])
+                            for b in range(z.shape[0])])

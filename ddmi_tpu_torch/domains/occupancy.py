@@ -198,9 +198,9 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """DDIM -> z (batch, C, r, r) fp32; `noise` (batch, C, r, r) is the
         initial latent, else it is drawn from `generator`."""
-        r, c = self.latent_res, self.cfg.model.ddpmconfig.channels
-        return ddim_sample_unet(self.gd, self.unet, self.mixing_logit, (batch, c, r, r),
-                                noise=noise, generator=generator, device=self.device)
+        return ddim_sample_unet(self.gd, self.unet, self.mixing_logit,
+                                self.latent_noise_shape(batch), noise=noise,
+                                generator=generator, device=self.device)
 
     @torch.no_grad()
     def decode_pyramids(self, z: torch.Tensor):

@@ -33,6 +33,7 @@ from ddmi_tpu_torch.core.sn_reg import norm_scale_loss, spectral_norm_loss
 from ddmi_tpu_torch.domains.image import (
     LatentTraining, Stage1State, stage1_kl_coeff, stage1_sn_weight,
 )
+from ddmi_tpu_torch.parallel.mesh import reduce_grads
 
 
 @dataclasses.dataclass
@@ -76,6 +77,15 @@ class TriplaneTraining(LatentTraining):
         `generator`, in plane order."""
         return tuple(torch.randn(s, generator=generator, device=self.device)
                      for s in self.posterior_shapes(b))
+
+    stage2_eps = posterior_eps
+
+    def latent_noise_shape(self, batch: int):
+        """The shape of the DDIM's initial latent for a batch."""
+        return (batch, self.cfg.model.ddpmconfig.channels, self.latent_res, self.latent_res)
+
+    def stage2_z_shape(self, b: int):
+        return (b, 3 * self.cfg.model.embed_dim, self.latent_res, self.latent_res)
 
     def encode(self, cloud: torch.Tensor, eps, p_vae: Optional[dict] = None):
         """The pointnet's feature planes, cast to the VAE's compute dtype,
@@ -140,6 +150,7 @@ class TriplaneTraining(LatentTraining):
             loss.backward()
         with record_function("stage1/optimizer"):
             params = list(state.params.values())
+            reduce_grads(params)
             state.opt.update(params, [p.grad if p.grad is not None else torch.zeros_like(p)
                                       for p in params])
             for p in params:

@@ -42,6 +42,7 @@ from ddmi_tpu_torch.nn.inr import INRVideo
 from ddmi_tpu_torch.nn.unet_triplane import TriplaneUNet
 from ddmi_tpu_torch.nn.video_vae import VideoAutoencoder, cat_planes, is_encode_key
 from ddmi_tpu_torch.ops.resample import pixel_center_lin
+from ddmi_tpu_torch.parallel.mesh import reduce_grads
 
 
 def video_axes(t: int, h: int, w: int, device=None):
@@ -151,9 +152,13 @@ class VideoPipeline(LatentTraining, nn.Module):
         """DDIM -> z (batch, n_latent_tokens, C) fp32, the DDIM of
         `sample_videos`; `noise` is the initial latent, else it is drawn
         from `generator`."""
-        shape = (batch, self.n_latent_tokens, self.cfg.model.ddpmconfig.channels)
-        return ddim_sample_unet(self.gd, self.unet, self.mixing_logit, shape, noise=noise,
+        return ddim_sample_unet(self.gd, self.unet, self.mixing_logit,
+                                self.latent_noise_shape(batch), noise=noise,
                                 generator=generator, device=self.device)
+
+    def latent_noise_shape(self, batch: int):
+        """The shape of the DDIM's initial latent for a batch."""
+        return (batch, self.n_latent_tokens, self.cfg.model.ddpmconfig.channels)
 
     @torch.inference_mode()
     def sample_videos(self, batch: int, noise: Optional[torch.Tensor] = None,
@@ -161,7 +166,13 @@ class VideoPipeline(LatentTraining, nn.Module):
         """DDIM + triplane decode + INR render -> (batch, frames, res, res,
         out_ch) in [0, 1], fp32.  `noise` (batch, n_latent_tokens, C) is the
         initial latent; without it the latent is drawn from `generator`."""
-        z = self.sample_latents(batch, noise, generator)
+        return self.decode_videos(self.sample_latents(batch, noise, generator))
+
+    @torch.inference_mode()
+    def decode_videos(self, z: torch.Tensor) -> torch.Tensor:
+        """Triplane decode + INR render of DDIM latents -> (b, frames, res,
+        res, out_ch) in [0, 1], fp32."""
+        batch = z.shape[0]
         hdbf = self.vae.decode(z.to(self.vae.post_xy.weight.dtype))
         # one frame at a time, as the JAX package's lax.map: the whole voxel
         # grid (16 x 256^2 tokens at batch 2) would hold every MLP
@@ -176,6 +187,14 @@ class VideoPipeline(LatentTraining, nn.Module):
         """The NCHW shapes of the (xy, yt, xt) posteriors."""
         r, t, e = self.vae.down_res, self.vae.frames, self.cfg.model.embed_dim
         return (b, e, r, r), (b, e, t, r), (b, e, t, r)
+
+    def stage2_eps(self, b: int, generator: Optional[torch.Generator] = None):
+        """The three posteriors' eps as `encode_latents` draws them."""
+        return [torch.randn(s, generator=generator, device=self.device)
+                for s in self.posterior_shapes(b)]
+
+    def stage2_z_shape(self, b: int):
+        return (b, self.n_latent_tokens, self.cfg.model.embed_dim)
 
     def draw_stage1(self, b: int, generator: Optional[torch.Generator] = None) -> VideoDraws:
         """One micro-step's draws for a batch of b clips, from `generator`:
@@ -280,12 +299,14 @@ class VideoPipeline(LatentTraining, nn.Module):
                 d_loss = self.gan.discriminator_loss(target, output, frames)
                 d_loss.backward()
                 disc = list(state.disc.values())
+                reduce_grads(disc)
                 state.disc_opt.update(disc, [p.grad for p in disc])
                 for p in disc:
                     p.grad = None
             metrics = dict(metrics, g_gan=g_gan, d_loss=d_loss)
         with record_function("stage1/optimizer"):
             params = list(state.params.values())
+            reduce_grads(params)
             state.opt.update(params, [p.grad if p.grad is not None else torch.zeros_like(p)
                                       for p in params])
             for p in params:

@@ -260,6 +260,13 @@ def _vae_attn(sd: SD, key: str, p) -> None:
         _conv(sd, f"{key}.{name}", p[name])
 
 
+def _lin_attn(sd: SD, key: str, p) -> None:
+    """LinAttnBlock: the bias-free to_qkv (qkv-major on both sides) and
+    to_out."""
+    sd[key + ".to_qkv.weight"] = _t(np.transpose(p["to_qkv"]["kernel"], (3, 2, 0, 1)))
+    _conv(sd, key + ".to_out", p["to_out"])
+
+
 def vae_from_jax(tree, cfg) -> SD:
     """JAX Autoencoder params (nn/vae.py) -> state_dict of the port's
     Autoencoder (`encoder.*`, `quant_conv.*`, `decoder.*`,
@@ -335,16 +342,20 @@ def video_decoder_from_jax(tree, cfg) -> SD:
     """JAX VideoAutoencoder params (nn/video_vae.py) -> state_dict of the
     port's decode-only VideoAutoencoder (`decoder.*`, `post_{xy,xt,yt}.*`).
     Inverts the decoder half of reference_ckpt.convert_video_vae; the
-    encoder is not read."""
-    if cfg.attn_type not in ("vanilla", "vanilla-multihead", "none"):
+    encoder is not read.  `attn_type: linear` maps LinAttnBlock_{n}."""
+    if cfg.attn_type not in ("vanilla", "vanilla-multihead", "linear", "none"):
         raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
     dec = tree["decoder"]
     sd: SD = {}
     _conv(sd, "decoder.conv_in", dec["conv_in"])
     ab = 0
+    if cfg.attn_type == "linear":
+        attn, name = _lin_attn, "LinAttnBlock"
+    else:
+        attn, name = _vae_attn, "AttnBlock"
     _vae_resnet(sd, "decoder.mid.block_1", dec["mid_block1"])
     if cfg.attn_type != "none":
-        _vae_attn(sd, "decoder.mid.attn_1", dec[f"AttnBlock_{ab}"])
+        attn(sd, "decoder.mid.attn_1", dec[f"{name}_{ab}"])
         ab += 1
     _vae_resnet(sd, "decoder.mid.block_2", dec["mid_block2"])
     _attn1d(sd, "decoder.mid_attn", dec["mid_inter_attn"])
@@ -354,7 +365,7 @@ def video_decoder_from_jax(tree, cfg) -> SD:
         for j in range(cfg.num_res_blocks + 1):
             _vae_resnet(sd, f"decoder.up.{i}.block.{j}", dec[f"up_{i}_{j}"])
             if curr in cfg.attn_resolutions:
-                _vae_attn(sd, f"decoder.up.{i}.attn.{j}", dec[f"AttnBlock_{ab}"])
+                attn(sd, f"decoder.up.{i}.attn.{j}", dec[f"{name}_{ab}"])
                 ab += 1
         if curr in cfg.inter_attn_resolutions:
             _attn1d(sd, f"decoder.up.{i}.inter_attn.0", dec[f"inter_attn_{i}"])

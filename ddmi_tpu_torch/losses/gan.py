@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddmi_tpu_torch.parallel import distributed
+
 
 def hinge_d_loss(logits_real, logits_fake):
     return 0.5 * (F.relu(1.0 - logits_real).mean() + F.relu(1.0 + logits_fake).mean())
@@ -35,7 +37,9 @@ def vanilla_d_loss(logits_real, logits_fake):
 
 class SyncBatchNorm(nn.Module):
     """Train-mode batch norm: (x - mean) / sqrt(var + 1e-5) * (scale + 1) +
-    bias over N C spatial..., statistics over every axis but the channel."""
+    bias over N C spatial..., statistics over every axis but the channel, and
+    under a process group over every rank's rows (the global batch's, as
+    the JAX package's norm takes over its sharded batch)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -45,8 +49,17 @@ class SyncBatchNorm(nn.Module):
     def forward(self, x):
         axes = (0,) + tuple(range(2, x.ndim))
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mean = x.mean(dim=axes, keepdim=True)
-        var = (x - mean).square().mean(dim=axes, keepdim=True)
+        if distributed.world_size() > 1:
+            # a rank holds its rows of the global batch: the sums are reduced
+            # over the ranks (differentiably), so the statistics are global
+            from torch.distributed.nn.functional import all_reduce
+
+            n = x.numel() // x.shape[1] * distributed.world_size()
+            mean = all_reduce(x.sum(dim=axes, keepdim=True)) / n
+            var = all_reduce((x - mean).square().sum(dim=axes, keepdim=True)) / n
+        else:
+            mean = x.mean(dim=axes, keepdim=True)
+            var = (x - mean).square().mean(dim=axes, keepdim=True)
         scale = (self.scale + 1.0).reshape(shape)
         return (x - mean) * torch.rsqrt(var + 1e-5) * scale + self.bias.reshape(shape)
 

@@ -130,8 +130,9 @@ class NoiseInjection(nn.Module):
     """x + w * N(0, 1), one draw per token; w zero at init.  The draw is made
     in fp32 and then cast, as the reference's torch.randn is fp32.
 
-    `generator` is a torch.Generator to draw from, or an iterator that
-    yields the draws themselves, (..., n, 1) fp32 each, in the order the
+    `generator` is a torch.Generator to draw from, an object whose
+    `draw(shape)` makes the draw (a rank's rows of the global batch's), or
+    an iterator that yields the draws themselves, (..., n, 1) fp32 each, in the order the
     module tree calls its NoiseInjections (conv1..conv3 of net_res1, then
     of net_res2, ...): a caller that holds another framework's draws feeds
     them this way."""
@@ -145,6 +146,8 @@ class NoiseInjection(nn.Module):
         if generator is None or isinstance(generator, torch.Generator):
             noise = torch.randn(shape, generator=generator, device=x.device,
                                 dtype=torch.float32)
+        elif hasattr(generator, "draw"):  # parallel/mesh.py::RowDraws
+            noise = generator.draw(shape).to(x.device)
         else:
             noise = next(generator).to(x.device, torch.float32).expand(shape)
         return x + self.weight.to(x.dtype) * noise.to(x.dtype)

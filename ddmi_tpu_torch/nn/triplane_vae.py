@@ -256,11 +256,15 @@ def jax_layout(cfg, embed_dim: int = 64) -> List[Tuple[str, Tuple[str, ...], str
     blocks (inter_{i}, mid_inter: block_a, AttnBlock_0, block_b), the
     resamplers (downsample_{i}, upsample_{i}) and the HDBF taps
     (hdbf_{res}); flax numbers the per-plane AttnBlocks of the encoder and
-    of the decoder in creation order (the decoder's bottleneck one first)."""
-    if cfg.attn_type not in ("vanilla", "vanilla-multihead", "none"):
+    of the decoder in creation order (the decoder's bottleneck one first).
+    With `attn_type: linear` every attention is a LinAttnBlock
+    (LinAttnBlock_{n}: a bias-free `to_qkv` and `to_out`, no norm)."""
+    if cfg.attn_type not in ("vanilla", "vanilla-multihead", "linear", "none"):
         raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not ported")
     out: List[Tuple[str, Tuple[str, ...], str]] = []
     has_attn = cfg.attn_type != "none"
+    linear = cfg.attn_type == "linear"
+    attn_name = "LinAttnBlock" if linear else "AttnBlock"
 
     def resnet(key, path, cin, cout):
         out.extend([(key + ".norm1", path + ("Norm_0", "GroupNorm_0"), "gn"),
@@ -271,19 +275,23 @@ def jax_layout(cfg, embed_dim: int = 64) -> List[Tuple[str, Tuple[str, ...], str
             out.append((key + ".nin_shortcut", path + ("nin_shortcut",), "conv"))
 
     def attn(key, path):
+        if linear:
+            out.extend([(key + ".to_qkv", path + ("to_qkv",), "conv_nobias"),
+                        (key + ".to_out", path + ("to_out",), "conv")])
+            return
         out.append((key + ".norm", path + ("Norm_0", "GroupNorm_0"), "gn"))
         out.extend((f"{key}.{n}", path + (n,), "conv") for n in ("q", "k", "v", "proj_out"))
 
     def inter(key_a, key_attn, key_b, path, c):
         resnet(key_a, path + ("block_a",), 3 * c, 3 * c)
         if has_attn:
-            attn(key_attn, path + ("AttnBlock_0",))
+            attn(key_attn, path + (f"{attn_name}_0",))
         resnet(key_b, path + ("block_b",), 3 * c, 3 * c)
 
     def mid(owner, path, c, ab):
         resnet(f"{owner}.mid.block_1", path + ("mid_block1",), c, c)
         if has_attn:
-            attn(f"{owner}.mid.attn_1", path + (f"AttnBlock_{ab}",))
+            attn(f"{owner}.mid.attn_1", path + (f"{attn_name}_{ab}",))
         resnet(f"{owner}.mid.block_2", path + ("mid_block2",), c, c)
         inter(f"{owner}.mid.block_3", f"{owner}.mid_attn", f"{owner}.mid.block_4",
               path + ("mid_inter",), c)
@@ -298,7 +306,7 @@ def jax_layout(cfg, embed_dim: int = 64) -> List[Tuple[str, Tuple[str, ...], str
             resnet(f"encoder.down.{i}.block.{j}", enc + (f"down_{i}_{j}",), block_in, block_out)
             block_in = block_out
             if curr in cfg.attn_resolutions and has_attn:
-                attn(f"encoder.down.{i}.attn.{j}", enc + (f"AttnBlock_{ab}",))
+                attn(f"encoder.down.{i}.attn.{j}", enc + (f"{attn_name}_{ab}",))
                 ab += 1
         if curr in cfg.inter_attn_resolutions:
             key = f"encoder.down.{i}.inter_attn"
@@ -322,7 +330,7 @@ def jax_layout(cfg, embed_dim: int = 64) -> List[Tuple[str, Tuple[str, ...], str
             resnet(f"decoder.up.{i}.block.{j}", dec + (f"up_{i}_{j}",), block_in, block_out)
             block_in = block_out
             if curr in cfg.attn_resolutions and has_attn:
-                attn(f"decoder.up.{i}.attn.{j}", dec + (f"AttnBlock_{ab}",))
+                attn(f"decoder.up.{i}.attn.{j}", dec + (f"{attn_name}_{ab}",))
                 ab += 1
         if curr in cfg.inter_attn_resolutions:
             key = f"decoder.up.{i}.inter_attn"

@@ -248,10 +248,14 @@ class VideoAutoencoder(nn.Module):
         the spectral-norm regulariser's view (core/sn_reg.py).  The
         TimeSformer's, the pooling transformers', the 1D attentions' q, k, v,
         proj_out and the pre_* / post_* layers are Dense in JAX (2-D
-        kernels), so only their GroupNorms enter."""
+        kernels), so only their GroupNorms enter.  With `attn_type: linear`
+        the decoder's attentions are LinAttnBlock_{n} (a bias-free `to_qkv`
+        and `to_out`, no norm)."""
         cfg = self.cfg
         out: List[Tuple[str, Tuple[str, ...], str]] = []
         dec = ("decoder",)
+        linear = cfg.attn_type == "linear"
+        attn_name = "LinAttnBlock" if linear else "AttnBlock"
 
         def resnet(key, path, blk):
             out.extend([(key + ".norm1", path + ("Norm_0", "GroupNorm_0"), "gn"),
@@ -262,6 +266,10 @@ class VideoAutoencoder(nn.Module):
                 out.append((key + ".nin_shortcut", path + ("nin_shortcut",), "conv"))
 
         def attn(key, path):
+            if linear:
+                out.extend([(key + ".to_qkv", path + ("to_qkv",), "conv_nobias"),
+                            (key + ".to_out", path + ("to_out",), "conv")])
+                return
             out.append((key + ".norm", path + ("Norm_0", "GroupNorm_0"), "gn"))
             out.extend((f"{key}.{n}", path + (n,), "conv") for n in ("q", "k", "v", "proj_out"))
 
@@ -273,7 +281,7 @@ class VideoAutoencoder(nn.Module):
         resnet("decoder.mid.block_1", dec + ("mid_block1",), d.mid.block_1)
         ab = 0
         if d.mid.attn_1 is not None:
-            attn("decoder.mid.attn_1", dec + ("AttnBlock_0",))
+            attn("decoder.mid.attn_1", dec + (f"{attn_name}_0",))
             ab = 1
         resnet("decoder.mid.block_2", dec + ("mid_block2",), d.mid.block_2)
         attn1d("decoder.mid_attn", dec + ("mid_inter_attn",))
@@ -283,7 +291,7 @@ class VideoAutoencoder(nn.Module):
             for j, blk in enumerate(lvl.block):
                 resnet(f"decoder.up.{i}.block.{j}", dec + (f"up_{i}_{j}",), blk)
                 if len(lvl.attn):
-                    attn(f"decoder.up.{i}.attn.{j}", dec + (f"AttnBlock_{ab}",))
+                    attn(f"decoder.up.{i}.attn.{j}", dec + (f"{attn_name}_{ab}",))
                     ab += 1
             if lvl.inter_attn is not None:
                 attn1d(f"decoder.up.{i}.inter_attn.0", dec + (f"inter_attn_{i}",))

@@ -3,10 +3,12 @@ against the JAX package's (bit for bit over two epochs), the profiler
 hook, and the slice as a whole: `ddmi_tpu_torch.cli.main([...,
 '--device', 'cpu'])` on tests/test_cli_smoke.py's tiny image config
 through d2c-vae train -> ldm train (with a profiled window) -> gen ->
-eval (both exps), asserting the files and eval.json keys the JAX smoke
-asserts, with gen run in a fresh interpreter that must load no JAX and no
-module of the JAX package; then the same for occupancy (its gen and eval
-through the batched lockstep extraction, eval's 3 meshes in groups of 2).
+eval --exp d2c-vae, and eval --exp ldm on the same checkpoints (trained
+once, by a module fixture), asserting the files and eval.json keys the JAX
+smoke asserts, with gen run in a fresh interpreter that must load no JAX
+and no module of the JAX package; then the same for occupancy (its gen and
+eval through the batched lockstep extraction, eval's 3 meshes in groups of
+2).
 tests/test_torch_cli_eval.py holds Trainer.evaluate against JAX's.
 """
 
@@ -128,24 +130,42 @@ def test_profiler_hook_writes_a_chrome_trace(tmp_path):
     assert os.path.exists(tmp_path / "late" / "trace_1_3.json")
 
 
-def test_cli_image_train_gen_eval(tmp_path, monkeypatch):
-    """The image slice through the CLI on the CPU, as tests/test_cli_smoke.py
-    drives the JAX one: stage 1 and stage 2 checkpoints and the eval hooks'
-    images; stage 2 with data.extra.profile_steps 2 writes a trace of
-    micro-steps 3-4; gen (in a fresh interpreter that loads no JAX)
-    writes generation_<i>.png (or .npy); eval --exp d2c-vae writes rfid,
-    eval --exp ldm fid, both finite.  The synthetic loader's epoch is 6
-    batches (its default 64 reaches no further check)."""
+def short_synthetic_images(monkeypatch):
+    """The CLI's synthetic image loader at 6 batches an epoch (its default
+    64 reaches no further check)."""
     import functools
 
     from ddmi_tpu_torch import data as port_data
 
     monkeypatch.setattr(port_data, "SyntheticImages",
                         functools.partial(port_data.SyntheticImages, length=6))
+
+
+@pytest.fixture(scope="module")
+def image_run(tmp_path_factory):
+    """The image slice's two stages trained through the CLI, stage 2 with
+    data.extra.profile_steps 2 (the synthetic loader's epoch is 6
+    batches); -> (the directory of the configs, the config dict, the save
+    directory).  The eval tests below read its checkpoints."""
+    tmp_path = tmp_path_factory.mktemp("cli_image")
     save = str(tmp_path / "run")
     cfg = _base_cfg(save)
-    _cli(tmp_path, cfg, "d2c-vae", "train", "s1.yaml")
-    _cli(tmp_path, cfg, "ldm", "train", "s2.yaml", profile_steps=2)
+    with pytest.MonkeyPatch.context() as mp:
+        short_synthetic_images(mp)
+        _cli(tmp_path, cfg, "d2c-vae", "train", "s1.yaml")
+        _cli(tmp_path, cfg, "ldm", "train", "s2.yaml", profile_steps=2)
+    return tmp_path, cfg, save
+
+
+def test_cli_image_train_gen_eval(image_run):
+    """The image slice through the CLI on the CPU, as tests/test_cli_smoke.py
+    drives the JAX one: stage 1 and stage 2 checkpoints and the eval hooks'
+    images; stage 2 with data.extra.profile_steps 2 writes a trace of
+    micro-steps 3-4; gen (in a fresh interpreter that loads no JAX)
+    writes generation_<i>.png (or .npy); eval --exp d2c-vae writes a
+    finite rfid (test_cli_image_eval_fid holds eval --exp ldm's fid)."""
+    tmp_path, cfg, save = image_run
+    cfg = json.loads(json.dumps(cfg))
     assert os.listdir(os.path.join(save, "stage1")) and os.listdir(os.path.join(save, "stage2"))
     assert any(f.startswith("ep") for f in os.listdir(os.path.join(save, "recon")))
     assert any(f.startswith("ep") for f in os.listdir(os.path.join(save, "samples")))
@@ -176,17 +196,34 @@ def test_cli_image_train_gen_eval(tmp_path, monkeypatch):
     _cli(tmp_path, cfg, "d2c-vae", "eval", "ev1.yaml")
     results = json.load(open(os.path.join(save, "eval.json")))
     assert "rfid" in results and np.isfinite(results["rfid"])
+
+
+def test_cli_image_eval_fid(image_run):
+    """eval --exp ldm over 8 samples, on the image run's checkpoints,
+    writes a finite fid to eval.json."""
+    tmp_path, cfg, save = image_run
+    cfg = json.loads(json.dumps(cfg))
     _cli(tmp_path, cfg, "ldm", "eval", "ev2.yaml", eval_samples=8)
     results = json.load(open(os.path.join(save, "eval.json")))
     assert "fid" in results and np.isfinite(results["fid"])
 
 
-def test_cli_occupancy_train_gen_eval(tmp_path):
+def test_cli_occupancy_train_gen_eval(tmp_path, monkeypatch):
     """The occupancy slice through the CLI on the CPU, as
     tests/test_cli_smoke.py drives the JAX one: both stages (the stage-2
     hook writes an .off mesh), gen through the batched lockstep extraction
     (generation/mesh_0.off), eval --exp ldm over 3 meshes in groups of 2
-    (the padded last group) and eval --exp d2c-vae (the IoU)."""
+    (the padded last group) and eval --exp d2c-vae (the IoU).  The
+    synthetic loader's epoch is 2 batches (its default 8 reaches no further
+    check), and a convocc config gives the pointnet's widths and MISE's
+    grid, 16^3 with one upsampling step (its default, 64^3 with two,
+    reaches no further check)."""
+    import functools
+
+    from ddmi_tpu_torch.data import shapenet
+
+    monkeypatch.setattr(shapenet, "SyntheticOccupancy",
+                        functools.partial(shapenet.SyntheticOccupancy, length=2))
     save = str(tmp_path / "occ")
     cfg = _base_cfg(save)
     cfg["data"].update({"domain": "occupancy"})
@@ -195,8 +232,10 @@ def test_cli_occupancy_train_gen_eval(tmp_path):
     p["mlpconfig"].update({"in_ch": 3, "out_ch": 1})
     p["unetconfig"].update({"in_channels": 24, "out_channels": 24})
     p["ddpmconfig"].update({"channels": 24})
-    cfg["model"]["extra"] = {"pointnet": {"c_dim": 8, "hidden_dim": 32, "plane_resolution": 32,
-                                          "n_blocks": 3}}
+    conv = {"model": {"c_dim": 8, "encoder_kwargs": {"hidden_dim": 32, "plane_resolution": 32,
+                                                     "n_blocks": 3}},
+            "generation": {"resolution_0": 16, "upsampling_steps": 1}}
+    cfg["data"]["conv_config"] = _write(tmp_path, conv, "convocc.yaml")
     _cli(tmp_path, cfg, "d2c-vae", "train", "occ1.yaml")
     _cli(tmp_path, cfg, "ldm", "train", "occ2.yaml")
     assert any(f.endswith(".off") for f in os.listdir(os.path.join(save, "samples")))

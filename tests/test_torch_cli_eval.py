@@ -100,31 +100,62 @@ def test_metric_weights_load_from_the_jax_npz(tmp_path, inception_pth):
         Trainer(cfg, pipe, [])._image_scorer()
 
 
+def _jax_rfid(d, params, save_dir):
+    """The JAX trainer's evaluate('d2c-vae') rFID on config dict d with the
+    stage-1 `params`, in a process of its own: it runs beside the port's,
+    and each ends in a 2048 x 2048 matrix square root on the host, which
+    holds the interpreter.  The suite's JAX settings (tests/conftest.py)
+    are applied first, as in the test's own process."""
+    import conftest  # noqa: F401
+
+    from ddmi_tpu.core.trainer import Trainer as JaxTrainer
+    from ddmi_tpu.data.synthetic import SyntheticImages as JaxImages
+    from ddmi_tpu.domains.image import ImagePipeline as JaxPipe
+
+    jcfg = jax_config(d)
+    jt = JaxTrainer(jcfg, JaxPipe(jcfg), JaxImages(2, 32, length=4), save_dir=save_dir)
+    jt.load_stage1 = lambda: types.SimpleNamespace(
+        params=jax.tree_util.tree_map(jnp.asarray, params))
+    return float(jt.evaluate("d2c-vae")["rfid"])
+
+
 def test_evaluate_rfid_matches_jax(tmp_path, inception_pth):
     """evaluate('d2c-vae') on the tiny image config of tests/test_cli_smoke.py:
     the same rFID as the JAX trainer's over 2 test batches of 2 (its
     reconstructions at the anchor, JAX's eps from key 0), both reading the
     same InceptionV3 file; both print the protocol and truncation lines
-    and write eval.json."""
-    from ddmi_tpu.core.trainer import Trainer as JaxTrainer
-    from ddmi_tpu.data.synthetic import SyntheticImages as JaxImages
+    and write eval.json.  JAX's evaluation runs in a spawned process beside
+    the port's (`_jax_rfid`)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from ddmi_tpu.domains.image import ImagePipeline as JaxPipe
-    from ddmi_tpu_torch.core.trainer import Trainer
-    from ddmi_tpu_torch.data.synthetic import SyntheticImages
-    from ddmi_tpu_torch.domains.image import ImagePipeline
-    from ddmi_tpu_torch.interop import mlp_image_from_jax, vae_from_jax
     from test_torch_cli import _base_cfg
 
     d = _base_cfg(str(tmp_path / "port"))
     d["data"]["extra"] = {"inception_pth": inception_pth[0], "eval_samples": 16}
     jcfg, cfg = jax_config(d), config_from_dict(d)
-    jpipe = JaxPipe(jcfg)
     key = jax.random.PRNGKey(0)
-    params = _fill(jax.eval_shape(lambda: jpipe.init_stage1(key, 4)).params, 1)
-    jt = JaxTrainer(jcfg, jpipe, JaxImages(2, 32, length=4), save_dir=str(tmp_path / "jax"))
-    jt.load_stage1 = lambda: types.SimpleNamespace(
-        params=jax.tree_util.tree_map(jnp.asarray, params))
-    ref = jt.evaluate("d2c-vae")["rfid"]
+    params = _fill(jax.eval_shape(lambda: JaxPipe(jcfg).init_stage1(key, 4)).params, 1)
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        ref_future = pool.submit(_jax_rfid, d, params, str(tmp_path / "jax"))
+        got = _port_rfid(cfg, params, key, tmp_path)
+        ref = ref_future.result(timeout=600)
+    finally:
+        pool.shutdown()
+    assert np.isfinite(ref) and ref > 0
+    assert abs(got - ref) <= 1e-3 * ref, (got, ref)
+    assert os.path.exists(tmp_path / "port" / "eval.json")
+    assert os.path.exists(tmp_path / "jax" / "eval.json")
+
+
+def _port_rfid(cfg, params, key, tmp_path):
+    """The port's evaluate('d2c-vae') rFID on the same weights and eps."""
+    from ddmi_tpu_torch.core.trainer import Trainer
+    from ddmi_tpu_torch.data.synthetic import SyntheticImages
+    from ddmi_tpu_torch.domains.image import ImagePipeline
+    from ddmi_tpu_torch.interop import mlp_image_from_jax, vae_from_jax
 
     pipe = ImagePipeline(cfg, device="cpu", seed=0)
     pipe.load_state_dicts(vae=vae_from_jax(params["vae"], cfg.model.ddconfig),
@@ -135,10 +166,7 @@ def test_evaluate_rfid_matches_jax(tmp_path, inception_pth):
     rng_post = jax.random.split(key)[0]
     pipe.reconstruct = lambda x, generator=None: recon(
         x, eps=_nchw(jax.random.normal(rng_post, (x.shape[0], 8, 8, 8), jnp.float32)))
-    got = Trainer(cfg, pipe, SyntheticImages(2, 32, length=4)).evaluate("d2c-vae")["rfid"]
-    assert np.isfinite(ref) and ref > 0
-    assert abs(got - ref) <= 1e-3 * ref, (got, ref)
-    assert os.path.exists(tmp_path / "port" / "eval.json")
+    return Trainer(cfg, pipe, SyntheticImages(2, 32, length=4)).evaluate("d2c-vae")["rfid"]
 
 
 def test_evaluate_occupancy_iou_matches_jax(tmp_path):

@@ -93,8 +93,10 @@ def shared():
     jcfg = jax_config(CFG)
     pipe = VideoPipeline(jcfg)
     rng = np.random.default_rng(0)
-    s1 = _perturb_zeros(pipe.init_stage1_params(jax.random.PRNGKey(0)), rng)
-    s2 = pipe.init_stage2_params(jax.random.PRNGKey(1))
+    # compiled inits: flax's eager init of the TimeSformer and the UNet
+    # dispatches thousands of single ops, each compiled on its own
+    s1 = _perturb_zeros(jax.jit(pipe.init_stage1_params)(jax.random.PRNGKey(0)), rng)
+    s2 = jax.jit(pipe.init_stage2_params)(jax.random.PRNGKey(1))
     s2 = {"unet": _perturb_zeros(s2["unet"], rng),
           "mixing_logit": rng.standard_normal((1, 1, 8)).astype(np.float32)}
     m = pipe.cfg.model
@@ -122,7 +124,7 @@ def test_triplane_unet_matches_jax(shared):
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, jpipe.n_latent_tokens, 8)).astype(np.float32)
     t = np.array([3, 17], np.int32)
-    ref = jpipe.unet.apply({"params": s2["unet"]}, jnp.asarray(x), jnp.asarray(t))
+    ref = jax.jit(jpipe.unet.apply)({"params": s2["unet"]}, jnp.asarray(x), jnp.asarray(t))
     with torch.no_grad():
         got = pipe.unet(torch.from_numpy(x), torch.from_numpy(t).long())
     _close(got, ref, "TriplaneUNet")
@@ -132,7 +134,8 @@ def test_video_decoder_matches_jax(shared):
     jpipe, s1, _, sds = shared
     pipe = _port_pipe(sds)
     z = np.random.default_rng(3).standard_normal((2, jpipe.n_latent_tokens, 8)).astype(np.float32)
-    ref = jpipe.vae.apply({"params": s1["vae"]}, jnp.asarray(z), method=jpipe.vae.decode)
+    ref = jax.jit(lambda p, z: jpipe.vae.apply({"params": p}, z, method=jpipe.vae.decode))(
+        s1["vae"], jnp.asarray(z))
     with torch.no_grad():
         got = pipe.vae.decode(torch.from_numpy(z))
     for name, g_pyr, r_pyr in zip(("xy", "yt", "xt"), got, ref):
@@ -153,8 +156,8 @@ def test_inr_video_matches_jax(shared):
     pyr = [[rng.standard_normal(s).astype(np.float32) for s in shapes[k]]
            for k in ("xy", "t", "t")]
     coords = {"axes": (pixel_center_lin(3), pixel_center_lin(20), pixel_center_lin(24))}
-    ref = jpipe.mlp.apply({"params": s1["mlp"]}, coords,
-                          tuple([jnp.asarray(a) for a in p] for p in pyr))
+    ref = jax.jit(lambda params, pyr: jpipe.mlp.apply({"params": params}, coords, pyr))(
+        s1["mlp"], tuple([jnp.asarray(a) for a in p] for p in pyr))
     with torch.no_grad():
         got = pipe.mlp([[_nchw(a) for a in p] for p in pyr],
                        (torch_lin(3), torch_lin(20), torch_lin(24)))
@@ -165,8 +168,8 @@ def test_sample_videos_matches_jax(shared):
     jpipe, s1, s2, sds = shared
     noise = np.random.default_rng(1).standard_normal(
         (2, jpipe.n_latent_tokens, 8)).astype(np.float32)
-    ref = np.asarray(jpipe.sample_videos(s2, s1, jax.random.PRNGKey(2), batch=2,
-                                         noise=jnp.asarray(noise)))
+    ref = np.asarray(jax.jit(lambda s2, s1, rng, z: jpipe.sample_videos(
+        s2, s1, rng, batch=2, noise=z))(s2, s1, jax.random.PRNGKey(2), jnp.asarray(noise)))
     got = _port_pipe(sds).sample_videos(2, noise=torch.from_numpy(noise)).numpy()
     assert got.shape == ref.shape == (2, 8, 64, 64, 3)
     assert float(ref.std()) > 1e-3  # the comparison sees a non-constant video

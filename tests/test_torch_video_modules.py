@@ -17,7 +17,7 @@ from ddmi_tpu_torch.interop import (
     discriminator3d_from_jax, timesformer_from_jax, vit_transformer_from_jax,
 )
 from test_torch_video_train import (
-    B, RES, T, _np, _randomize, _random_tree, _rel, grad_check,
+    B, RES, T, _np, _randomize, _random_tree, _rel, grad_check, jit_optimized,
 )
 
 torch.set_num_threads(1)
@@ -225,16 +225,16 @@ def test_gan_loss_3d_matches_jax_both_ways():
             for s in (8, 9))
     fi = np.array([3, 1])
     jm = JaxGAN(disc_weight=0.5)
-    p = _randomize(jm.init(jax.random.PRNGKey(11), jnp.asarray(x), jnp.asarray(r), False)[
-        "params"], 10, 0.02)
+    p = _randomize(jax.jit(jm.init, static_argnums=3)(
+        jax.random.PRNGKey(11), jnp.asarray(x), jnp.asarray(r), False)["params"], 10, 0.02)
     tm = GANLoss3D(3, disc_weight=0.5)
     tm.load_state_dict(discriminator3d_from_jax(p), strict=True)
-    g_ref, g_grad = jax.jit(jax.value_and_grad(
+    g_ref, g_grad = jit_optimized(jax.value_and_grad(
         lambda a: jm.apply({"params": p}, jnp.asarray(x), a, True, jnp.asarray(fi))))(
         jnp.asarray(r))
     with jax.enable_x64(True):
         f64 = lambda a: jnp.asarray(np.asarray(a, np.float64))
-        d_ref, d_grad = jax.jit(jax.value_and_grad(
+        d_ref, d_grad = jit_optimized(jax.value_and_grad(
             lambda q: jm.apply({"params": q}, f64(x), f64(r), False, jnp.asarray(fi))))(
             jax.tree_util.tree_map(f64, p))
         d_grad = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), d_grad)

@@ -70,6 +70,28 @@ def _np(t):
     return t.detach().float().numpy()
 
 
+def jit_optimized(fn):
+    """jax.jit(fn), compiled once per argument signature with XLA's CPU
+    backend optimisations on.  tests/conftest.py turns them off for the
+    whole suite, which makes compiles quick but leaves XLA's CPU
+    convolutions (the 3D ones above all) about ten times slower to run: a
+    train step these tests run several times pays for its optimised
+    compile.  The program is the same; only its machine code differs."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        key = (jax.tree_util.tree_structure(args), tuple(
+            (np.shape(a), jnp.result_type(a), getattr(a, "weak_type", False))
+            for a in jax.tree_util.tree_leaves(args)))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(compiler_options={
+                "xla_backend_optimization_level": 2,
+                "xla_llvm_disable_expensive_passes": False})
+        return compiled[key](*args)
+
+    return call
+
+
 def _rel(got, ref):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     assert got.shape == ref.shape, (got.shape, ref.shape)
@@ -125,9 +147,12 @@ class Setup:
     the SN vectors drawn for these weights) with LPIPS on a random VGG.  The scaling keeps the posterior's
     logvar within about +-1, as in a trained VAE: at the random init it
     reaches +-11, where one bf16 rounding of it moves the std by up to 3%,
-    so that JAX's own amp loss lies 3.4% from its fp32 loss."""
+    so that JAX's own amp loss lies 3.4% from its fp32 loss.  With `base` (a
+    Setup of the same config but for amp) its JAX parameters, LPIPS
+    parameters and SN state are taken, whose values amp does not change,
+    and JAX's inits are not compiled and run again."""
 
-    def __init__(self, amp=False, adversarial=False, perceptual=True, **loss):
+    def __init__(self, amp=False, adversarial=False, perceptual=True, base=None, **loss):
         from ddmi_tpu.core.sn_reg import init_sn_state
         from ddmi_tpu.domains.image import Stage1State
         from ddmi_tpu.domains.video import VideoPipeline as JaxPipe
@@ -142,16 +167,20 @@ class Setup:
         if perceptual:
             lp = JaxLPIPS(dtype=jnp.bfloat16 if amp else jnp.float32)
             x0 = jnp.zeros((1, 32, 32, 3))
-            self.pp = jax.jit(lp.init)(jax.random.PRNGKey(5), x0, x0)["params"]
+            self.pp = base.pp if base is not None else jax.jit(lp.init)(
+                jax.random.PRNGKey(5), x0, x0)["params"]
             pfn = PerceptualLoss(lambda p, t, o: lp.apply({"params": p}, t, o), self.pp)
         self.jpipe = JaxPipe(jcfg, perceptual_fn=pfn)
-        # JAX's init_stage1, with its inits compiled (eager flax init of the
-        # depth-8 TimeSformer takes most of a minute on the CPU)
-        params = _randomize(jax.jit(self.jpipe.init_stage1_params)(jax.random.PRNGKey(0)), 1)
         self.jpipe._stage1_total_iters = SPE * d["model"]["params"]["lossconfig"]["epochs"]
-        for plane in ("xy", "xt", "yt"):
-            params["vae"][f"pre_{plane}"] = jax.tree_util.tree_map(
-                lambda a: a * 0.1, params["vae"][f"pre_{plane}"])
+        if base is not None:
+            params = base.jstate.params
+        else:
+            # JAX's init_stage1, with its inits compiled (eager flax init of
+            # the depth-8 TimeSformer takes most of a minute on the CPU)
+            params = _randomize(jax.jit(self.jpipe.init_stage1_params)(jax.random.PRNGKey(0)), 1)
+            for plane in ("xy", "xt", "yt"):
+                params["vae"][f"pre_{plane}"] = jax.tree_util.tree_map(
+                    lambda a: a * 0.1, params["vae"][f"pre_{plane}"])
         disc = disc_opt = None
         if adversarial:
             dummy = jnp.zeros((1, T, 32, 32, 3))
@@ -159,9 +188,10 @@ class Setup:
                 jax.random.PRNGKey(11))["params"], 2, 0.02)
             disc_opt = self.jpipe.disc_optimizer().init(disc)
         self.tx = self.jpipe.stage1_optimizer(SPE)
+        sn_state = (base.jstate.sn_state if base is not None
+                    else jax.jit(init_sn_state)(params["vae"], jax.random.PRNGKey(7)))
         st = Stage1State(step=jnp.zeros((), jnp.int32), params=params,
-                         opt_state=self.tx.init(params),
-                         sn_state=jax.jit(init_sn_state)(params["vae"], jax.random.PRNGKey(7)),
+                         opt_state=self.tx.init(params), sn_state=sn_state,
                          disc_params=disc, disc_opt_state=disc_opt)
         self.jstate = jax.tree_util.tree_map(jnp.asarray, st)
         lpips = None
@@ -272,12 +302,13 @@ def test_stage1_loss_and_gradients_match_jax(amp, s32):
     decode, the per-frame INR render under checkpoints, L1 over the clip,
     the summed KL, LPIPS on the drawn frames, the SN regulariser) and its
     gradients against jax.value_and_grad of VideoPipeline.stage1_loss on
-    the same weights, SN state and draws, on two keys; each term checked,
-    and the refreshed SN vectors.  Under amp the policy is checked too:
+    the same weights, SN state and draws, on two keys (one under amp: the
+    keys change only the draws); each term checked, and the refreshed SN
+    vectors.  Under amp the policy is checked too:
     every layer of the VAE that holds a weight sees a bf16 weight and bf16
     inputs (the rotary's fp32 promotion is inside the attention, not at a
     layer's input), and the gradients land on the fp32 masters."""
-    s = Setup(amp=True) if amp else s32
+    s = Setup(amp=True, base=s32) if amp else s32
     jp, pipe = s.jpipe, s.pipe
     loss_bar, cos_min, err_max = (1e-2, 0.999, 0.1) if amp else (1e-5, 0.99999, 1e-4)
     step = 1
@@ -298,7 +329,7 @@ def test_stage1_loss_and_gradients_match_jax(amp, s32):
         return jp.stage1_loss(p, s.jstate.sn_state, x, rng, jnp.int32(step), s.pp)
 
     grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    for key in (0, 1):
+    for key in (0,) if amp else (0, 1):
         x = _video(20 + key)
         rng = jax.random.PRNGKey(key)
         (ref, (metrics, new_sn, _)), grads = grad_fn(s.jstate.params, jnp.asarray(x), rng)
