@@ -1,0 +1,12 @@
+"""Device milliseconds per batch of the NeRF MLP: the operations launched
+inside the program's `render.mlp` spans (`run_mlp`, the fused kernel)."""
+
+from benchmark.metrics import _program
+
+_program.install()
+
+
+def read(run):
+    t = _program.reduction(run)
+    r = t.ranges.get("render.mlp") if t is not None else None
+    return 1e3 * float(r.device_s.sum()) / t.batches if r is not None and len(r.start) else None

@@ -4,7 +4,8 @@ mixed prediction and classifier-free guidance, and the training loss
 
 The JAX `lax.scan`s over the timesteps are Python loops here, run under
 `torch.inference_mode()`.  Noise and timesteps are arguments, or are drawn
-from an explicit `torch.Generator`.
+from an explicit `torch.Generator`.  Each DDIM step runs in a
+`sampler.step` span (core/tracing.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.diffusion.schedule import DiffusionSchedule, ddim_times, make_schedule
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -250,8 +252,9 @@ def ddim_sample(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit,
     img = noise.float()
     sched = gd.schedule.to(img.device)
     for time, time_next in ddim_times(gd.num_timesteps, gd.sampling_timesteps).tolist():
-        img = _ddim_step(gd, sched, model_fn, mixing_logit, img, time, time_next, generator,
-                         cond_model_fn)
+        with span("sampler.step"):
+            img = _ddim_step(gd, sched, model_fn, mixing_logit, img, time, time_next,
+                             generator, cond_model_fn)
     return img
 
 
@@ -342,7 +345,8 @@ def ddim_sample_encoder_reuse(gd: GaussianDiffusion, full_fn, reuse_fn, mixing_l
             fn = caching
         else:
             fn = lambda x, t: reuse_fn(x, t, cache)
-        img = _ddim_step(gd, sched, fn, mixing_logit, img, time, time_next, generator)
+        with span("sampler.step"):
+            img = _ddim_step(gd, sched, fn, mixing_logit, img, time, time_next, generator)
     return img
 
 

@@ -12,9 +12,9 @@ Every random draw of a stage-1 micro-step is explicit (`Stage1Draws`): the
 multiscale branch and crop (drawn on the host), the posterior eps, the
 INR's NoiseInjection draws and the DiffAugment draws, so that a test can
 feed the JAX package's own.  Each stage of a stage-1 micro-step runs in a
-profiler range named `stage1/<stage>` (multiscale, encode, decode, inr,
-lpips, sn, backward, gan, optimizer), which a torch.profiler trace reads;
-outside a profile a range costs some microseconds of host time.
+span named `stage1/<stage>` (multiscale, encode, decode, inr, lpips, sn,
+backward, gan, optimizer; core/tracing.py), which a torch.profiler trace
+shows as a range of that name.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ddmi_tpu_torch.core.amp import amp_denoiser, compute_cast, method_call
 from ddmi_tpu_torch.core.coords import (
@@ -36,6 +35,7 @@ from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.core.ema import ema_update
 from ddmi_tpu_torch.core.optim import disc_adamw, stage1_adamw, stage2_adamw
 from ddmi_tpu_torch.core.sn_reg import init_sn_state, norm_scale_loss, spectral_norm_loss
+from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.diffusion.process import (
     GaussianDiffusion, ddim_sample, ddim_sample_unet, diffusion_loss, draw_t_noise,
 )
@@ -480,12 +480,12 @@ class ImagePipeline(LatentTraining, nn.Module):
         fp32 before the loss.  -> (loss, metrics, new sn state, (target,
         output, scale))."""
         lc = self.lc
-        with record_function("stage1/multiscale"):
+        with span("stage1/multiscale"):
             x = symmetrize(x.float())
             target, coords, scale, y = multiscale_image_transform(x, self.anchor, lc.multiscale,
                                                                   draws.multiscale)
         b, res = target.shape[0], target.shape[1]
-        with record_function("stage1/encode"):
+        with span("stage1/encode"):
             p_vae = compute_cast(dict(self.vae.named_parameters()), self.amp)
             p_mlp = compute_cast(dict(self.mlp.named_parameters()), self.amp)
             y = y.permute(0, 3, 1, 2).to(torch.bfloat16 if self.amp else torch.float32)
@@ -493,9 +493,9 @@ class ImagePipeline(LatentTraining, nn.Module):
                 y = y.contiguous(memory_format=torch.channels_last)
             posterior = method_call(self.vae, p_vae, "encode", y)
             z = posterior.sample(draws.eps)
-        with record_function("stage1/decode"):
+        with span("stage1/decode"):
             hdbf = method_call(self.vae, p_vae, "decode", z)
-        with record_function("stage1/inr"):
+        with span("stage1/inr"):
             out = method_call(self.mlp, p_mlp, "forward", hdbf, scale,
                               coords=coords.reshape(1, res * res, 2),
                               generator=draws.noise if draws.noise is not None else generator)
@@ -507,12 +507,12 @@ class ImagePipeline(LatentTraining, nn.Module):
         loss = recon + kl_coeff * kld
         p_loss = torch.zeros((), device=x.device)
         if self.perceptual is not None:
-            with record_function("stage1/lpips"):
+            with span("stage1/lpips"):
                 p_loss = self.perceptual(target, output).mean()
             loss = loss + lc.perceptual_weight * p_loss
         new_sn, sn = sn_state, torch.zeros((), device=x.device)
         if lc.sn_reg:
-            with record_function("stage1/sn"):
+            with span("stage1/sn"):
                 sn, new_sn = spectral_norm_loss(self.vae, sn_state)
                 sn = sn + norm_scale_loss(self.vae)
             loss = loss + sn * stage1_sn_weight(lc, kl_coeff)
@@ -537,18 +537,18 @@ class ImagePipeline(LatentTraining, nn.Module):
         loss, metrics, sn, (target, output, scale) = self.stage1_loss(
             x, state.step, draws, state.sn, generator)
         if self.gan is None:
-            with record_function("stage1/backward"):
+            with span("stage1/backward"):
                 loss.backward()
         else:
-            with record_function("stage1/gan"):
+            with span("stage1/gan"):
                 t_aug, o_aug = self._augment(target, draws), self._augment(output, draws)
                 # the generator's gradient with respect to the discriminator
                 # is not taken (JAX discards it)
                 self.gan.requires_grad_(False)
                 g_gan = self.gan.generator_loss(t_aug, o_aug, scale)
-            with record_function("stage1/backward"):
+            with span("stage1/backward"):
                 (loss + g_gan).backward()
-            with record_function("stage1/gan"):
+            with span("stage1/gan"):
                 self.gan.requires_grad_(True)
                 d_loss = self.gan.discriminator_loss(t_aug, o_aug, scale)
                 d_loss.backward()
@@ -558,7 +558,7 @@ class ImagePipeline(LatentTraining, nn.Module):
                 for p in disc:
                     p.grad = None
             metrics = dict(metrics, g_gan=g_gan, d_loss=d_loss)
-        with record_function("stage1/optimizer"):
+        with span("stage1/optimizer"):
             params = list(state.params.values())
             reduce_grads(params)
             state.opt.update(params, [p.grad if p.grad is not None else torch.zeros_like(p)

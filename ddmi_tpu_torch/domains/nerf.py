@@ -34,13 +34,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ddmi_tpu_torch.core.amp import compute_cast, method_call
 from ddmi_tpu_torch.core.convocc_config import (
     load_convocc_config, nerf_kwargs, pointnet_input_dim, pointnet_kwargs,
 )
 from ddmi_tpu_torch.core.device import resolve_device
+from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.domains.triplane import TriplaneDraws, TriplaneTraining
 from ddmi_tpu_torch.nn.inr import FreqEmbedding, INRNeRF
@@ -279,10 +279,14 @@ class NeRFPipeline(TriplaneTraining, nn.Module):
     def render_rays(self, planes, rays_o, rays_d, folded=None, uniforms=None,
                     params=None) -> torch.Tensor:
         """rays_o / rays_d (n, 3) -> rgb (n, 3) fp32; `uniforms` perturb the
-        samples (mlp_input) and `params` replace the MLP's (run_mlp)."""
+        samples (mlp_input) and `params` replace the MLP's (run_mlp).  The
+        input assembly and the MLP run in the spans `render.input` and
+        `render.mlp` (core/tracing.py); the compositing runs in neither."""
         dtype = None if params is None else next(iter(params.values())).dtype
-        x, z = self.mlp_input(planes, rays_o, rays_d, uniforms, dtype)
-        raw = self.run_mlp(x, folded, params)
+        with span("render.input"):
+            x, z = self.mlp_input(planes, rays_o, rays_d, uniforms, dtype)
+        with span("render.mlp"):
+            raw = self.run_mlp(x, folded, params)
         return raw2outputs(raw, z, rays_d, self.white_bkgd)[0]
 
     def render_image(self, planes, pose, H: int, W: int, folded=None) -> torch.Tensor:
@@ -336,12 +340,12 @@ class NeRFPipeline(TriplaneTraining, nn.Module):
         spectral-norm regulariser.  -> (loss, metrics, new sn state)."""
         image, pose = batch["image"].float(), batch["pose"].float()
         b, H, W = image.shape[:3]
-        with record_function("stage1/encode"):
+        with span("stage1/encode"):
             p_vae = compute_cast(dict(self.vae.named_parameters()), self.amp)
             z, posts = self.encode(batch["points"], draws.eps, p_vae)
-        with record_function("stage1/decode"):
+        with span("stage1/decode"):
             planes = self.decode_planes(z, p_vae)
-        with record_function("stage1/render"):
+        with span("stage1/render"):
             p_mlp = compute_cast(dict(self.mlp.named_parameters()), self.amp)
             terms = []
             for i in range(b):

@@ -38,7 +38,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ddmi_tpu_torch.core.convocc_config import (
     encoder_name,
@@ -49,6 +48,7 @@ from ddmi_tpu_torch.core.convocc_config import (
 )
 from ddmi_tpu_torch.core.amp import compute_cast, method_call
 from ddmi_tpu_torch.core.device import resolve_device
+from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.domains.triplane import TriplaneDraws, TriplaneTraining
 from ddmi_tpu_torch.geometry.generation import generate_meshes_batched, refine_mesh
@@ -166,12 +166,12 @@ class OccupancyPipeline(TriplaneTraining, nn.Module):
         summed over the points and averaged over the batch, plus the KL
         (its coefficient reads the micro-step `step`) and the spectral-norm
         regulariser.  -> (loss, metrics, new sn state)."""
-        with record_function("stage1/encode"):
+        with span("stage1/encode"):
             p_vae = compute_cast(dict(self.vae.named_parameters()), self.amp)
             z, posts = self.encode(batch["inputs"], draws.eps, p_vae)
-        with record_function("stage1/decode"):
+        with span("stage1/decode"):
             pyramids = method_call(self.vae, p_vae, "decode", z)
-        with record_function("stage1/inr"):
+        with span("stage1/inr"):
             p_mlp = compute_cast(dict(self.mlp.named_parameters()), self.amp)
             logits = method_call(self.mlp, p_mlp, "forward", batch["points"], pyramids).float()
         bce = F.binary_cross_entropy_with_logits(

@@ -15,9 +15,9 @@ module, so the pointnet computes in fp32 on bf16-rounded weights (flax's
 promotion), the VAE in bf16, and the latents return fp32.
 
 Every draw is explicit (`TriplaneDraws`), so that a test can feed the JAX
-package's own.  Each stage of a stage-1 micro-step runs in a profiler range
-named `stage1/<stage>` (encode, decode, and the domain's inr or render,
-sn, backward, optimizer).
+package's own.  Each stage of a stage-1 micro-step runs in a span named
+`stage1/<stage>` (encode, decode, and the domain's inr or render, sn,
+backward, optimizer; core/tracing.py).
 """
 
 from __future__ import annotations
@@ -26,10 +26,10 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ddmi_tpu_torch.core.amp import method_call
 from ddmi_tpu_torch.core.sn_reg import norm_scale_loss, spectral_norm_loss
+from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.domains.image import (
     LatentTraining, Stage1State, stage1_kl_coeff, stage1_sn_weight,
 )
@@ -128,7 +128,7 @@ class TriplaneTraining(LatentTraining):
         kl_coeff = stage1_kl_coeff(lc, self._stage1_total_iters, step)
         new_sn, sn = sn_state, torch.zeros((), device=self.device)
         if lc.sn_reg:
-            with record_function("stage1/sn"):
+            with span("stage1/sn"):
                 sn, new_sn = spectral_norm_loss(self.vae, sn_state)
                 sn = sn + norm_scale_loss(self.vae)
         return kld, kl_coeff, sn, stage1_sn_weight(lc, kl_coeff), new_sn
@@ -146,9 +146,9 @@ class TriplaneTraining(LatentTraining):
         if draws is None:
             draws = self.draw_stage1(batch, generator)
         loss, metrics, sn = self.stage1_loss(batch, state.step, draws, state.sn)
-        with record_function("stage1/backward"):
+        with span("stage1/backward"):
             loss.backward()
-        with record_function("stage1/optimizer"):
+        with span("stage1/optimizer"):
             params = list(state.params.values())
             reduce_grads(params)
             state.opt.update(params, [p.grad if p.grad is not None else torch.zeros_like(p)

@@ -11,7 +11,7 @@ loss through the TriplaneUNet, AdamW, EMA).
 Clips are (b, t, h, w, 3) in [0, 1] at the pipeline's boundary.  Every
 random draw of a micro-step is explicit (`VideoDraws`), so that a test can
 feed the JAX package's own.  Each stage of a stage-1 micro-step runs in a
-profiler range named `stage1/<stage>` (encode, decode, inr, lpips, sn,
+span named `stage1/<stage>` (encode, decode, inr, lpips, sn,
 backward, gan, optimizer), as in the image domain.  Under autograd the
 render runs one frame at a time under a checkpoint (JAX:
 lax.map(jax.checkpoint(render_frame))): at batch 2 a 256^2 frame is
@@ -26,13 +26,13 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ddmi_tpu_torch.core.amp import compute_cast, method_call, rounded_cast
 from ddmi_tpu_torch.core.coords import symmetrize, unsymmetrize
 from ddmi_tpu_torch.core.device import resolve_device
 from ddmi_tpu_torch.core.sn_reg import norm_scale_loss, spectral_norm_loss
+from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.diffusion.process import GaussianDiffusion, ddim_sample_unet
 from ddmi_tpu_torch.domains.image import (
     LatentTraining, Stage1State, stage1_kl_coeff, stage1_sn_weight,
@@ -234,7 +234,7 @@ class VideoPipeline(LatentTraining, nn.Module):
         x = symmetrize(x.float())
         b = x.shape[0]
         grad = torch.is_grad_enabled()
-        with record_function("stage1/encode"):
+        with span("stage1/encode"):
             p_vae = compute_cast(dict(self.vae.named_parameters()), self.amp)
             # the INR computes in fp32 on bf16-rounded weights: JAX's fp32
             # coordinates promote its bf16 weights
@@ -242,9 +242,9 @@ class VideoPipeline(LatentTraining, nn.Module):
             xin = x.to(torch.bfloat16) if self.amp else x
             posts = method_call(self.vae, p_vae, "encode", xin)
             xy, yt, xt = (p.sample(e) for p, e in zip(posts, draws.eps))
-        with record_function("stage1/decode"):
+        with span("stage1/decode"):
             hdbf = method_call(self.vae, p_vae, "decode", cat_planes(xy, xt, yt))
-        with record_function("stage1/inr"):
+        with span("stage1/inr"):
             output = self._render(p_mlp, hdbf, grad).reshape(x.shape[:4] + (-1,))
 
         recon = (output - x).abs().sum(dim=(1, 2, 3, 4)).mean()
@@ -253,14 +253,14 @@ class VideoPipeline(LatentTraining, nn.Module):
         loss = recon + kl_coeff * kld
         p_loss = torch.zeros((), device=x.device)
         if self.perceptual is not None:
-            with record_function("stage1/lpips"):
+            with span("stage1/lpips"):
                 rows = torch.arange(b, device=x.device)
                 fi = draws.lpips_frame.to(x.device)
                 p_loss = self.perceptual(x[rows, fi], output[rows, fi]).mean()
             loss = loss + lc.perceptual_weight * p_loss
         new_sn, sn = sn_state, torch.zeros((), device=x.device)
         if lc.sn_reg:
-            with record_function("stage1/sn"):
+            with span("stage1/sn"):
                 sn, new_sn = spectral_norm_loss(self.vae, sn_state)
                 sn = sn + norm_scale_loss(self.vae)
             loss = loss + sn * stage1_sn_weight(lc, kl_coeff)
@@ -283,18 +283,18 @@ class VideoPipeline(LatentTraining, nn.Module):
             draws = self.draw_stage1(x.shape[0], generator)
         loss, metrics, sn, (target, output) = self.stage1_loss(x, state.step, draws, state.sn)
         if self.gan is None:
-            with record_function("stage1/backward"):
+            with span("stage1/backward"):
                 loss.backward()
         else:
             frames = draws.gan_frame.to(x.device)
-            with record_function("stage1/gan"):
+            with span("stage1/gan"):
                 # the generator's gradient with respect to the discriminators
                 # is not taken (JAX discards it)
                 self.gan.requires_grad_(False)
                 g_gan = self.gan.generator_loss(target, output, frames)
-            with record_function("stage1/backward"):
+            with span("stage1/backward"):
                 (loss + g_gan).backward()
-            with record_function("stage1/gan"):
+            with span("stage1/gan"):
                 self.gan.requires_grad_(True)
                 d_loss = self.gan.discriminator_loss(target, output, frames)
                 d_loss.backward()
@@ -304,7 +304,7 @@ class VideoPipeline(LatentTraining, nn.Module):
                 for p in disc:
                     p.grad = None
             metrics = dict(metrics, g_gan=g_gan, d_loss=d_loss)
-        with record_function("stage1/optimizer"):
+        with span("stage1/optimizer"):
             params = list(state.params.values())
             reduce_grads(params)
             state.opt.update(params, [p.grad if p.grad is not None else torch.zeros_like(p)

@@ -14,7 +14,9 @@ embedding projection gives a scale and a shift for its second norm),
 embedding; `forward(..., y=)`) and `use_spatial_transformer`
 (SpatialTransformer blocks, nn/transformer.py, in place of the attention
 blocks, attending to `forward(..., cond=)`).  Dropout is read but inactive,
-as in the JAX UNet's deterministic apply.
+as in the JAX UNet's deterministic apply.  Each GroupNorm of a ResBlock and
+of the output head runs with its SiLU in a `sampler.norm` span
+(core/tracing.py).
 
 Dtype plan (as the JAX UNet's): everything in the parameters' dtype (bf16
 for sampling), GroupNorm statistics in fp32, and the final `out.2` conv in
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.nn.transformer import SpatialTransformer
 from ddmi_tpu_torch.ops import attention, attn_block, flash_attention
 
@@ -100,15 +103,21 @@ class ResBlock(TimestepBlock):
         )
 
     def forward(self, x, emb):
-        h = self.in_layers(x)
+        norm1, act1, conv1 = self.in_layers
+        norm2, act2, _, conv2 = self.out_layers
+        with span("sampler.norm"):
+            h = act1(norm1(x))
+        h = conv1(h)
         emb_out = self.emb_layers(emb).to(h.dtype)[:, :, None, None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = self.out_layers[0](h) * (1 + scale) + shift
-            h = self.out_layers[3](self.out_layers[1](h))
+            with span("sampler.norm"):
+                h = act2(norm2(h) * (1 + scale) + shift)
         else:
-            h = self.out_layers(h + emb_out)
-        return self.skip_connection(x) + h
+            h = h + emb_out
+            with span("sampler.norm"):
+                h = act2(norm2(h))
+        return self.skip_connection(x) + conv2(h)
 
 
 class AttentionBlock(nn.Module):
@@ -288,7 +297,8 @@ class UNet(nn.Module):
         h = self.middle_block(h, emb, cond)
         for module in self.output_blocks:
             h = module(torch.cat([h, hs.pop()], dim=1), emb, cond)
-        h = self.out[1](self.out[0](h))
+        with span("sampler.norm"):
+            h = self.out[1](self.out[0](h))
         conv = self.out[2]
         out = F.conv2d(h.float(), conv.weight.float(), conv.bias.float(), padding=1)
         return (out, out_cache) if return_cache else out

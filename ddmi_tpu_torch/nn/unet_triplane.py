@@ -20,6 +20,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.nn.attention1d import AttnBlock1D
 from ddmi_tpu_torch.nn.unet import UNet, timestep_embedding
 
@@ -119,7 +120,8 @@ class TriplaneUNet(UNet):
         conv = self.out[2]
 
         def head(p):
-            h = self.out[1](self.out[0](p))
+            with span("sampler.norm"):
+                h = self.out[1](self.out[0](p))
             return torch.nn.functional.conv2d(h.float(), conv.weight.float(),
                                               conv.bias.float(), padding=1)
 

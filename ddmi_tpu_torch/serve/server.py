@@ -60,6 +60,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ddmi_tpu_torch.core import tracing
 from ddmi_tpu_torch.core.checkpoint import stage1_weights, stage2_weights
 from ddmi_tpu_torch.domains.image import ImagePipeline
 from ddmi_tpu_torch.domains.nerf import NeRFPipeline
@@ -68,11 +69,12 @@ from ddmi_tpu_torch.domains.video import VideoPipeline
 
 
 class _Request:
-    __slots__ = ("n", "seed", "event", "result", "error", "cancelled")
+    __slots__ = ("n", "seed", "event", "result", "error", "cancelled", "enqueued")
 
     def __init__(self, n: int, seed: int):
         self.n = n
         self.seed = seed
+        self.enqueued = 0.0  # perf_counter seconds, set as `generate` enqueues it
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[Exception] = None
@@ -209,6 +211,7 @@ class SamplerService:
         with self._cond:
             if self._stop:
                 raise RuntimeError("service closed")
+            req.enqueued = time.perf_counter()
             self._queue.append(req)
             self._cond.notify_all()
         if not req.event.wait(timeout):
@@ -233,8 +236,9 @@ class SamplerService:
     # ------------------------------------------------------------- worker
 
     def _worker(self) -> None:
+        batch_no = 0
         while True:
-            with self._cond:
+            with tracing.span("service.collect") as sp, self._cond:
                 while not self._queue and not self._stop:
                     self._cond.wait(0.25)
                 if self._stop:
@@ -256,6 +260,14 @@ class SamplerService:
                         continue
                     take.append(r)
                     count += r.n
+                if take:
+                    batch_no += 1
+                    sp.set(batch=batch_no, seeds=[r.seed for r in take], samples=count,
+                           padding=self.batch - count)
+                    taken = time.perf_counter()
+                    for r in take:
+                        tracing.observe("service.queue_wait", taken - r.enqueued,
+                                        batch=batch_no, seed=r.seed)
             if not take:
                 continue
             try:
@@ -266,31 +278,35 @@ class SamplerService:
                     r.event.set()
 
     def _run_batch(self, take, count: int) -> None:
-        rows = [
-            np.random.default_rng(r.seed).standard_normal(
-                (r.n,) + self._noise_shape, dtype=np.float32
-            )
-            for r in take
-        ]
-        if count < self.batch:  # pad to the service batch
-            rows.append(
-                np.random.default_rng(0xDD31).standard_normal(
-                    (self.batch - count,) + self._noise_shape, dtype=np.float32
+        with tracing.span("service.noise"):
+            rows = [
+                np.random.default_rng(r.seed).standard_normal(
+                    (r.n,) + self._noise_shape, dtype=np.float32
                 )
-            )
-        noise = torch.from_numpy(np.concatenate(rows, axis=0)).to(self.pipe.device)
+                for r in take
+            ]
+            if count < self.batch:  # pad to the service batch
+                rows.append(
+                    np.random.default_rng(0xDD31).standard_normal(
+                        (self.batch - count,) + self._noise_shape, dtype=np.float32
+                    )
+                )
+            noise = torch.from_numpy(np.concatenate(rows, axis=0)).to(self.pipe.device)
         out = self._sample(noise, take[0].seed)
-        if not bool(torch.isfinite(out).all()):
+        with tracing.span("service.finish"):
+            finite = bool(torch.isfinite(out).all())
+        if not finite:
             raise FloatingPointError("the sampler produced non-finite values")
         if self.domain == "occupancy":
             out = self._extract_meshes(out, count)
-        else:
-            out = (out.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
-        ofs = 0
-        for r in take:
-            r.result = out[ofs : ofs + r.n]
-            ofs += r.n
-            r.event.set()
+        with tracing.span("service.reply"):
+            if self.domain != "occupancy":
+                out = (out.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+            ofs = 0
+            for r in take:
+                r.result = out[ofs : ofs + r.n]
+                ofs += r.n
+                r.event.set()
 
     def _extract_meshes(self, z: torch.Tensor, count: int) -> list:
         """Latents (batch, C, r, r) -> [(verts, faces)] for the first `count`
