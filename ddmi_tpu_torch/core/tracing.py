@@ -45,7 +45,11 @@ thread.  Names are `<layer>.<what>`:
     sampler.step        diffusion/process.py: one DDIM step (model call,
                         mixed prediction, update)
     sampler.norm        nn/unet.py: a ResBlock's GroupNorm and its SiLU,
-                        and the output head's
+                        and the output head's; inside the CUDA graphs'
+                        segments it records at their capture alone
+    sampler.graphed     (value) nn/unet.py: per UNet forward, 1 where it
+                        replayed the forward's CUDA graphs, 0 where it ran
+                        eagerly
     render.input        domains/nerf.py::render_rays: `mlp_input`
     render.mlp          domains/nerf.py::render_rays: `run_mlp`
 """

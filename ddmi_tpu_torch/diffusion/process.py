@@ -5,7 +5,9 @@ mixed prediction and classifier-free guidance, and the training loss
 The JAX `lax.scan`s over the timesteps are Python loops here, run under
 `torch.inference_mode()`.  Noise and timesteps are arguments, or are drawn
 from an explicit `torch.Generator`.  Each DDIM step runs in a
-`sampler.step` span (core/tracing.py).
+`sampler.step` span (core/tracing.py).  On the card the DDIM update of each
+step but the last replays as one CUDA graph (`_GraphedUpdate`), where it
+draws no step noise and no guidance blends two outputs.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ddmi_tpu_torch.core import graphs
 from ddmi_tpu_torch.core.tracing import span
 from ddmi_tpu_torch.diffusion.schedule import DiffusionSchedule, ddim_times, make_schedule
 
@@ -91,6 +94,9 @@ class GaussianDiffusion:
     # ddpmconfig.extra["encoder_reuse"]: > 1 samples with encoder
     # propagation (ddim_sample_unet; the serving CLI's --turbo)
     encoder_reuse: int = 1
+    # the DDIM update's graphs by (shape, device, mixing logit): `_graphed_update`
+    _graphs: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                      compare=False)
 
     @classmethod
     def from_config(cls, c) -> "GaussianDiffusion":
@@ -207,17 +213,24 @@ def model_predictions(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit, x,
     return out, x_start
 
 
+def _ddim_next(sched: DiffusionSchedule, eta: float, pred_noise, x_start, time, time_next):
+    """The DDIM x_t -> x_{t_next} update before its step noise, and the
+    noise's scale sigma.  `time` and `time_next` are ints, or (1,) long
+    tensors on the device (the graphed update)."""
+    alpha = sched.alphas_cumprod[time]
+    alpha_next = sched.alphas_cumprod[time_next]
+    sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
+    c = torch.sqrt(torch.clamp(1 - alpha_next - sigma**2, min=0.0))
+    return x_start * torch.sqrt(alpha_next) + c * pred_noise, sigma
+
+
 def _ddim_update(sched: DiffusionSchedule, eta: float, img, pred_noise, x_start,
                  time: int, time_next: int, generator: Optional[torch.Generator]):
     """One DDIM x_t -> x_{t-1} update; the final step (time_next < 0)
     returns x_start."""
     if time_next < 0:
         return x_start
-    alpha = sched.alphas_cumprod[time]
-    alpha_next = sched.alphas_cumprod[time_next]
-    sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
-    c = torch.sqrt(torch.clamp(1 - alpha_next - sigma**2, min=0.0))
-    img_next = x_start * torch.sqrt(alpha_next) + c * pred_noise
+    img_next, sigma = _ddim_next(sched, eta, pred_noise, x_start, time, time_next)
     if eta != 0.0:
         step_noise = torch.randn(
             img.shape, generator=generator, device=img.device, dtype=img.dtype
@@ -239,6 +252,62 @@ def _ddim_step(gd: GaussianDiffusion, sched: DiffusionSchedule, model_fn: ModelF
                         time_next, generator)
 
 
+class _GraphedUpdate:
+    """The DDIM update of one step but the last, as `_ddim_step` makes it
+    after the model call (mixed prediction, x0-hat, the update with eta 0),
+    over static tensors: the carry `img`, which the update overwrites, the
+    model's output and the step's timesteps, written before each run.  The
+    first step at a key runs the update eagerly (every kernel once), the
+    second captures it into a CUDA graph, and later steps replay it."""
+
+    def __init__(self, gd: GaussianDiffusion, mixing_logit, img):
+        self.gd, self.mixing_logit = gd, mixing_logit
+        self.sched = gd.schedule.to(img.device)
+        self.img, self.out = graphs.static_like(img), graphs.static_like(img)
+        self.t = graphs.static_like(torch.empty(img.shape[0], dtype=torch.long,
+                                                device=img.device))
+        self.t_next = graphs.static_like(self.t[:1])
+        self.graph, self.warm = None, False
+
+    def _update(self):
+        gd = self.gd
+        out, x_start = model_predictions(gd, lambda x, t: self.out, self.mixing_logit, self.img,
+                                         self.t, clip_x_start=gd.clip_denoised)
+        img_next, _ = _ddim_next(self.sched, gd.ddim_sampling_eta, out, x_start, self.t[:1],
+                                 self.t_next)
+        self.img.copy_(img_next)
+
+    def __call__(self, model_fn: ModelFn, img, time: int, time_next: int):
+        """One step from `img` (the carry after the first) -> the carry."""
+        if img is not self.img:
+            self.img.copy_(img)
+        self.t.fill_(time)
+        self.t_next.fill_(time_next)
+        self.out.copy_(model_fn(self.img, self.t))
+        if self.graph is not None:
+            self.graph.replay()
+        elif self.warm:
+            self.graph, _ = graphs.Capturer(img.device).capture(self._update)
+        else:
+            self._update()
+            self.warm = True
+        return self.img
+
+
+def _graphed_update(gd: GaussianDiffusion, mixing_logit, img,
+                    cond_model_fn: Optional[ModelFn]) -> Optional[_GraphedUpdate]:
+    """gd's update graph for img's shape and device and this mixing logit,
+    where the update takes one: no step noise (eta 0), no guidance, a tensor
+    graphs take (core/graphs.py::available); else None."""
+    if gd.ddim_sampling_eta != 0.0 or cond_model_fn is not None or not graphs.available(img):
+        return None
+    key = (tuple(img.shape), img.device, id(mixing_logit))
+    update = gd._graphs.get(key)
+    if update is None:
+        update = gd._graphs[key] = _GraphedUpdate(gd, mixing_logit, img)
+    return update
+
+
 @torch.inference_mode()
 def ddim_sample(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit,
                 shape: Tuple[int, ...], *, noise: Optional[torch.Tensor] = None,
@@ -251,10 +320,14 @@ def ddim_sample(gd: GaussianDiffusion, model_fn: ModelFn, mixing_logit,
         noise = torch.randn(shape, generator=generator, device=device)
     img = noise.float()
     sched = gd.schedule.to(img.device)
+    update = _graphed_update(gd, mixing_logit, img, cond_model_fn)
     for time, time_next in ddim_times(gd.num_timesteps, gd.sampling_timesteps).tolist():
         with span("sampler.step"):
-            img = _ddim_step(gd, sched, model_fn, mixing_logit, img, time, time_next,
-                             generator, cond_model_fn)
+            if update is not None and time_next >= 0:
+                img = update(model_fn, img, time, time_next)
+            else:
+                img = _ddim_step(gd, sched, model_fn, mixing_logit, img, time, time_next,
+                                 generator, cond_model_fn)
     return img
 
 

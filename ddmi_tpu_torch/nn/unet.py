@@ -18,6 +18,11 @@ as in the JAX UNet's deterministic apply.  Each GroupNorm of a ResBlock and
 of the output head runs with its SiLU in a `sampler.norm` span
 (core/tracing.py).
 
+Sampling on the card replays the forward as CUDA graphs (core/graphs.py)
+between its attention blocks, which still run as modules: see `UNetGraphs`
+for when, and `segment_plan` for the cut.  Each forward records
+`sampler.graphed` (core/tracing.py): 1 for a replay, 0 for an eager run.
+
 Dtype plan (as the JAX UNet's): everything in the parameters' dtype (bf16
 for sampling), GroupNorm statistics in fp32, and the final `out.2` conv in
 fp32 on the fp32 cast of its input and weights.
@@ -25,14 +30,17 @@ fp32 on the fp32 cast of its input and weights.
 
 from __future__ import annotations
 
+import functools
 import math
+import sys
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ddmi_tpu_torch.core.tracing import span
+from ddmi_tpu_torch.core import graphs
+from ddmi_tpu_torch.core.tracing import observe, span
 from ddmi_tpu_torch.nn.transformer import SpatialTransformer
 from ddmi_tpu_torch.ops import attention, attn_block, flash_attention
 
@@ -142,7 +150,10 @@ class AttentionBlock(nn.Module):
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
 
-    def forward(self, x):
+    def forward(self, x, out=None):
+        """`out`, a tensor of x's shape and memory format, takes the block's
+        output where given (the UNet's graphs hand it the next segment's
+        static input); the fused kernel writes it in place."""
         B, C, H, W = x.shape
         nh = self.num_heads
         hd = C // nh
@@ -151,24 +162,25 @@ class AttentionBlock(nn.Module):
         if inference and attn_block.jax_supported(n, C, nh):
             # the parameters as stored: the kernel reads the head-major qkv
             # weight and the proj weight in place (no copy per call)
-            out = attn_block.attention_block(
+            y = attn_block.attention_block(
                 x.permute(0, 2, 3, 1), self.norm.weight, self.norm.bias, self.qkv.weight,
                 self.qkv.bias, self.proj_out.weight, self.proj_out.bias, nh, hd**-0.5, 32,
-                self.norm.eps,
+                self.norm.eps, out=None if out is None else out.permute(0, 2, 3, 1),
             )
-            return out.permute(0, 3, 1, 2)
+            return y.permute(0, 3, 1, 2)
         # head-major qkv channels (QKVAttentionLegacy): (B, nh, 3, hd, n)
         qkv = self.qkv(self.norm(x).reshape(B, C, n)).reshape(B, nh, 3, hd, n)
         q, k, v = (qkv[:, :, i].transpose(-1, -2).contiguous() for i in range(3))
         if inference and attention.supported(n, hd):
-            out = attention.mha_vmem(q, k, v, hd**-0.5)
+            a = attention.mha_vmem(q, k, v, hd**-0.5)
         elif n >= flash_attention.MIN_TOKENS:
-            out = flash_attention.flash_attention(q, k, v, hd**-0.5)
+            a = flash_attention.flash_attention(q, k, v, hd**-0.5)
         else:
             s = (q @ k.transpose(-1, -2)).float() * hd**-0.5
-            out = torch.softmax(s, dim=-1).to(v.dtype) @ v
-        out = out.transpose(-1, -2).reshape(B, C, n)
-        return x + self.proj_out(out).reshape(B, C, H, W)
+            a = torch.softmax(s, dim=-1).to(v.dtype) @ v
+        a = a.transpose(-1, -2).reshape(B, C, n)
+        y = x + self.proj_out(a).reshape(B, C, H, W)
+        return y if out is None else out.copy_(y)
 
 
 class Downsample(nn.Module):
@@ -262,6 +274,7 @@ class UNet(nn.Module):
         )
         nn.init.zeros_(self.out[2].weight)
         nn.init.zeros_(self.out[2].bias)
+        self._graphs = UNetGraphs()
 
     def embed(self, t, y=None, cond=None) -> torch.Tensor:
         """The timestep embedding, plus the label embedding of a
@@ -282,13 +295,16 @@ class UNet(nn.Module):
         return emb
 
     def forward(self, x, t, cond=None, y=None, *, cache=None, return_cache: bool = False):
+        out = (self._graphs(self, x, t) if self._graphable(x, cond, y, cache, return_cache)
+               else None)
+        observe("sampler.graphed", int(out is not None))
+        if out is not None:
+            return out
         emb = self.embed(t, y, cond)
         if cache is not None:
             h, hs = cache[0], list(cache[1])
         else:
-            h = x.to(emb.dtype)
-            if h.is_cuda:
-                h = h.contiguous(memory_format=torch.channels_last)
+            h = self._input(x, emb)
             hs = []
             for module in self.input_blocks:
                 h = module(h, emb, cond)
@@ -297,8 +313,169 @@ class UNet(nn.Module):
         h = self.middle_block(h, emb, cond)
         for module in self.output_blocks:
             h = module(torch.cat([h, hs.pop()], dim=1), emb, cond)
+        out = self._head(h)
+        return (out, out_cache) if return_cache else out
+
+    def _input(self, x, emb):
+        """x in the embedding's dtype, channels-last on the card."""
+        h = x.to(emb.dtype)
+        return h.contiguous(memory_format=torch.channels_last) if h.is_cuda else h
+
+    def _head(self, h):
+        """The output head: GroupNorm and SiLU, then `out.2` in fp32."""
         with span("sampler.norm"):
             h = self.out[1](self.out[0](h))
         conv = self.out[2]
-        out = F.conv2d(h.float(), conv.weight.float(), conv.bias.float(), padding=1)
-        return (out, out_cache) if return_cache else out
+        return F.conv2d(h.float(), conv.weight.float(), conv.bias.float(), padding=1)
+
+    def _graphable(self, x, cond, y, cache, return_cache) -> bool:
+        """Whether a forward may replay the graphs: one that reads only x and
+        t (no encoder cache, no context, no labels, no spatial transformers),
+        with no gradient recorded and no autocast, of a UNet on its own
+        parameters (not on tensors `torch.func.functional_call` swapped in
+        for the call, as core/amp.py's casts are) and not sharded by FSDP2
+        (which gathers its parameters anew each forward), on a tensor graphs
+        take (core/graphs.py::available)."""
+        fsdp = sys.modules.get("torch.distributed.fsdp")  # loaded by whatever shards
+        return (cache is None and not return_cache and cond is None and y is None
+                and not self.cfg.use_spatial_transformer and not torch.is_grad_enabled()
+                and not torch.is_autocast_enabled(x.device.type)
+                and isinstance(self.out[2].weight, nn.Parameter)
+                and not (fsdp is not None and isinstance(self, fsdp.FSDPModule))
+                and graphs.available(x))
+
+    def _apply(self, fn, recurse=True):
+        # a conversion (to, float, cuda, ...) moves the parameters, which the
+        # graphs read where they lay at their capture
+        self._graphs.clear()
+        return super()._apply(fn, recurse)
+
+
+PUSH, CAT = "push", "cat"  # segment ops: h onto the skip stack; h = cat(h, popped skip)
+
+
+def segment_plan(unet: UNet):
+    """`UNet.forward`'s layers without cache, context or labels, cut at each
+    AttentionBlock: (segments, blocks), with one segment more than blocks.
+    A segment is a list of ops, each a layer, PUSH or CAT; the embedding
+    and input come before the first, the output head after the last."""
+    segments, blocks = [[]], []
+
+    def add(seq):
+        for layer in seq:
+            if isinstance(layer, AttentionBlock):
+                blocks.append(layer)
+                segments.append([])
+            else:
+                segments[-1].append(layer)
+
+    for block in unet.input_blocks:
+        add(block)
+        segments[-1].append(PUSH)
+    add(unet.middle_block)
+    for block in unet.output_blocks:
+        segments[-1].append(CAT)
+        add(block)
+    return segments, blocks
+
+
+def run_ops(ops, h, emb, hs: list):
+    """One segment's ops on h, with the embedding and the skip stack."""
+    for op in ops:
+        if op is PUSH:
+            hs.append(h)
+        elif op is CAT:
+            h = torch.cat([h, hs.pop()], dim=1)
+        elif isinstance(op, TimestepBlock):
+            h = op(h, emb)
+        else:
+            h = op(h)
+    return h
+
+
+def walk(unet: UNet, x, t, run=lambda fn: fn()):
+    """`UNet.forward(x, t)` segment by segment: each segment is the call
+    `fn` handed to `run(fn)`, which calls it (eagerly) or captures it
+    (`_GraphedForward`), and each attention block between two segments is
+    called as a module and writes into a static tensor of its own, the next
+    segment's input.  -> (output, [(block, its input, its output)])."""
+    segments, blocks = segment_plan(unet)
+    hs, last = [], len(segments) - 1
+
+    def segment(i, h, emb):
+        h = run_ops(segments[i], h, emb, hs)
+        return unet._head(h) if i == last else h
+
+    def first():
+        emb = unet.embed(t)
+        return segment(0, unet._input(x, emb), emb), emb
+
+    h, emb = run(first)
+    boundaries = []
+    for i, block in enumerate(blocks, 1):
+        buf = graphs.static_like(h)
+        block(h, out=buf)
+        boundaries.append((block, h, buf))
+        h = run(functools.partial(segment, i, buf, emb))
+    return h, boundaries
+
+
+class _GraphedForward:
+    """One key's graphs: the segments captured in order into one memory pool
+    (core/graphs.py::Capturer) on static x and t, run once by the capture."""
+
+    def __init__(self, unet: UNet, x, t):
+        self.x, self.t = graphs.static_like(x), graphs.static_like(t)
+        self.x.copy_(x)
+        self.t.copy_(t)
+        capturer, self.graphs = graphs.Capturer(x.device), []
+
+        def run(fn):
+            graph, out = capturer.capture(fn)
+            self.graphs.append(graph)
+            return out
+
+        self.out, self.boundaries = walk(unet, self.x, self.t, run)
+
+    def __call__(self, x, t):
+        self.x.copy_(x)
+        self.t.copy_(t)
+        self.graphs[0].replay()
+        for (block, h, buf), graph in zip(self.boundaries, self.graphs[1:]):
+            block(h, out=buf)
+            graph.replay()
+        return self.out.clone()
+
+
+class UNetGraphs:
+    """A UNet's forward as CUDA graphs between its attention blocks.
+
+    The chains of kernels between attention blocks (the embedding, the stem,
+    the ResBlocks, down- and upsamples and skip concatenations, the output
+    head) are replayed as captured segments; each AttentionBlock is still
+    called as a module between them, so its forward hooks and launch
+    counters run as in an eager forward, and writes its output into the next
+    segment's static input.  The segments are keyed by x's and t's shape
+    and dtype, the device and the TF32 settings; a key is captured on its
+    second forward, after one eager forward has run every kernel once.
+    `__call__` returns None where the forward is to run eagerly, else a new
+    tensor (guidance holds two outputs of one key).  One thread at a time."""
+
+    def __init__(self):
+        self._seen, self._forwards = set(), {}
+
+    def clear(self) -> None:
+        self._seen.clear()
+        self._forwards.clear()
+
+    def __call__(self, unet: UNet, x, t):
+        key = (tuple(x.shape), x.dtype, tuple(t.shape), t.dtype, x.device,
+               torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        fwd = self._forwards.get(key)
+        if fwd is not None:
+            return fwd(x, t)
+        if key not in self._seen:
+            self._seen.add(key)
+            return None
+        fwd = self._forwards[key] = _GraphedForward(unet, x, t)
+        return fwd.out.clone()

@@ -142,8 +142,10 @@ def _kernel_dtypes(norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj):
 
 
 def _launch(x, norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
-            sm_scale: float, num_groups: int, eps: float) -> torch.Tensor:
-    """The kernel on the module's layout; x (B, H, W, C) bf16."""
+            sm_scale: float, num_groups: int, eps: float, out=None) -> torch.Tensor:
+    """The kernel on the module's layout; x (B, H, W, C) bf16.  It writes a
+    new tensor, or `out` (contiguous, of x's shape, dtype and device) where
+    given."""
     B, H, W, C = x.shape
     n = H * W
     if not supported(n, C, num_heads) or (C // num_groups) % 4 or C % num_groups:
@@ -164,11 +166,15 @@ def _launch(x, norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
         if t.device != x.device:
             raise ValueError("all operands must be on x's device")
     x = x.contiguous()
+    if out is None:
+        out = torch.empty_like(x)
+    elif (out.shape != x.shape or out.dtype != x.dtype or out.device != x.device
+          or not out.is_contiguous()):
+        raise ValueError("out must be contiguous, of x's shape, dtype and device")
     hdp = flash_attention.instance_hd(C // num_heads)
     M = B * n
     scratch = torch.empty(2 * M * C + 3 * M * num_heads * hdp, dtype=torch.bfloat16,
                           device=x.device)
-    out = torch.empty_like(x)
     h = scratch.data_ptr()
     attn = h + 2 * M * C
     qkv = attn + 2 * M * C
@@ -213,20 +219,25 @@ class _FusedBlock(torch.autograd.Function):
 
 
 def attention_block(x, norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
-                    sm_scale: float, num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+                    sm_scale: float, num_groups: int = 32, eps: float = 1e-5,
+                    out=None) -> torch.Tensor:
     """The block on the UNet module's parameters as stored (see the module
     docstring), NHWC in and out.  On the card the kernel, which reads bf16
     parameters in place; with a gradient recorded, its gradient comes from
-    the plain version.  On the CPU the plain version."""
+    the plain version.  On the CPU the plain version.  `out` (NHWC
+    contiguous, x's dtype) takes the result where given: the kernel writes
+    it in place."""
     args = (x, norm_w, norm_b, w_qkv, b_qkv, w_proj, b_proj, num_heads, sm_scale,
             num_groups, eps)
     if x.device.type == "cpu":
-        return _plain_module(*args)
-    if x.device.type != "cuda":
+        y = _plain_module(*args)
+    elif x.device.type != "cuda":
         raise ValueError(f"attention_block: unsupported device {x.device}")
-    if needs_grad(*args[:7]):
-        return _FusedBlock.apply(*args)
-    return _launch(*args)
+    elif needs_grad(*args[:7]):
+        y = _FusedBlock.apply(*args)
+    else:
+        return _launch(*args, out=out)
+    return y if out is None else out.copy_(y)
 
 
 def fused_attention_block(x, gn_scale, gn_bias, w_qkv, b_qkv, w_proj, b_proj,

@@ -1049,3 +1049,97 @@ def test_mdt_forward_on_the_card_matches_the_cpu(cuda_device, variant):
     assert (got - ref).abs().max().item() <= 1e-4 * scale
     assert amp.dtype == torch.float32 and (amp - ref).abs().max().item() <= 2e-2 * scale
     assert counts == after
+
+
+def _srn_cars_unet(dev):
+    """The srn_cars UNet (16^2 x 192 latents, 256 model channels, attention
+    at ds 2 and 4: 11 fused blocks a forward) in bf16 and channels-last, as
+    the sampling service holds it; seeded weights, the zero-initialised
+    convs drawn too."""
+    from ddmi_tpu_torch.nn.unet import UNet
+
+    cfg = config_from_dict({"model": {"params": {"unetconfig": dict(
+        image_size=16, in_channels=192, model_channels=256, out_channels=192,
+        attention_resolutions=[8, 4, 2], num_res_blocks=2, channel_mult=[1, 2, 4],
+        num_head_channels=32)}}}).model.unetconfig
+    torch.manual_seed(0)
+    u = UNet(cfg)
+    with torch.no_grad():
+        for p in u.parameters():
+            if not p.any():
+                p.normal_(0, 0.02)
+    return u.to(dev).to(torch.bfloat16).to(memory_format=torch.channels_last).eval()
+
+
+def _latents(dev, seed, b=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, 192, 16, 16), generator=g, device=dev),
+            torch.randint(0, 1000, (b,), generator=g, device=dev))
+
+
+def test_unet_graphs_replay_the_eager_forward(cuda_device):
+    """At the srn_cars UNet's shapes (batch 4): the forward's first call at
+    a key runs eagerly, the second captures its segments, the third
+    replays them; each is bit-identical to the eager forward (tolerance 0),
+    launches the 11 fused attention blocks, and records sampler.graphed 0,
+    1, 1.  Two interleaved calls at the key return tensors of their own."""
+    from ddmi_tpu_torch.core import tracing
+
+    u = _srn_cars_unet(cuda_device)
+    (x, t), (x2, t2) = _latents(cuda_device, 1), _latents(cuda_device, 2)
+    rec = tracing.enable()
+    try:
+        with torch.inference_mode():
+            ref = u(x, t, return_cache=True)[0]   # eager: an encoder cache is asked for
+            ref2 = u(x2, t2, return_cache=True)[0]
+            rec.clear()
+            before = attn_block.fused_attention_block.launches
+            outs = [u(x, t) for _ in range(3)]
+            launched = attn_block.fused_attention_block.launches - before
+            a, b = u(x, t), u(x2, t2)
+            torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    assert ref.abs().max().item() > 0.1
+    for out in outs:
+        assert torch.equal(out, ref)
+    assert launched == 3 * 11
+    graphed = [v for name, _, _, v, _ in rec.values if name == "sampler.graphed"]
+    assert graphed == [0, 1, 1, 1, 1]
+    assert a.data_ptr() != b.data_ptr() and a.data_ptr() != outs[-1].data_ptr()
+    assert torch.equal(a, ref) and torch.equal(b, ref2)
+
+
+def test_graphed_ddim_sample_matches_the_eager_loop(cuda_device):
+    """10 DDIM steps with mixed prediction at the srn_cars UNet's shapes:
+    `ddim_sample` (the UNet's graphs and the update's: warmed at step 1,
+    captured at step 2, replayed after) against the eager loop of
+    `_ddim_step` over the eager forward, bit for bit (tolerance 0), on its
+    first call and on a second that replays throughout."""
+    from ddmi_tpu_torch.diffusion import process
+    from ddmi_tpu_torch.diffusion.schedule import ddim_times, make_schedule
+
+    u = _srn_cars_unet(cuda_device)
+    sched = make_schedule(beta_schedule="linear", timesteps=1000, linear_start=0.0015,
+                          linear_end=0.0195, cosine_s=8e-3, v_posterior=0.0,
+                          parameterization="eps")
+    gd = process.GaussianDiffusion(schedule=sched, sampling_timesteps=10).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    logit = -2.0 + 0.5 * torch.randn((1, 192, 1, 1), generator=g, device=cuda_device)
+    noise = torch.randn((4, 192, 16, 16), generator=g, device=cuda_device)
+    eager = lambda z, t: u(z, t, return_cache=True)[0]
+    with torch.inference_mode():
+        img = noise
+        for time, time_next in ddim_times(1000, 10).tolist():
+            img = process._ddim_step(gd, gd.schedule, eager, logit, img, time, time_next, None)
+        before = attn_block.fused_attention_block.launches
+        got = [process.ddim_sample(gd, lambda z, t: u(z, t), logit, noise.shape, noise=noise)
+               for _ in range(2)]
+        launched = attn_block.fused_attention_block.launches - before
+        torch.cuda.synchronize()
+    assert img.abs().max().item() > 0.1
+    for out in got:
+        assert torch.equal(out, img)
+    assert launched == 2 * 10 * 11
+    (update,) = gd._graphs.values()
+    assert update.graph is not None
