@@ -1,0 +1,13 @@
+"""Device milliseconds per batch of the video decoder's cross-plane
+attentions: the operations launched inside the program's `decoder.xattn`
+spans (nn/video_vae.py, each AttnBlock1DExpand)."""
+
+from benchmark.metrics import _program
+
+_program.install()
+
+
+def read(run):
+    t = _program.reduction(run)
+    r = t.ranges.get("decoder.xattn") if t is not None else None
+    return 1e3 * float(r.device_s.sum()) / t.batches if r is not None and len(r.start) else None

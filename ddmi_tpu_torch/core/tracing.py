@@ -52,6 +52,21 @@ thread.  Names are `<layer>.<what>`:
                         eagerly
     render.input        domains/nerf.py::render_rays: `mlp_input`
     render.mlp          domains/nerf.py::render_rays: `run_mlp`
+    sampler.xattn       nn/unet_triplane.py: one cross-plane attention of
+                        the TriplaneUNet (`cross_plane`); a replay of its
+                        CUDA graphs opens and closes it around the graphs
+                        and the kernel call it covers (core/graphs.py)
+    decoder.xattn       nn/video_vae.py: one cross-plane attention of the
+                        video decoder (`AttnBlock1DExpand`)
+    kernels.mha_vmem/<B>x<nh>x<n>x<hd>
+                        ops/attention.py: one launch of the short-sequence
+                        attention kernel on (B, nh, n, hd) operands
+    kernels.flash/<B>x<nh>x<n>x<hd>
+                        ops/flash_attention.py: one launch of the flash
+                        forward
+
+The kernels' names carry their operands' shapes, which `shape_span`
+formats only where the span will record.
 """
 
 from __future__ import annotations
@@ -128,6 +143,15 @@ def span(name: str, **attrs):
     if recorder is None and not _profiler._is_profiler_enabled:
         return OFF
     return _Span(recorder, name, attrs)
+
+
+def shape_span(prefix: str, shape):
+    """A span `<prefix>/<d0>x<d1>x...` of a shape; its name is formatted
+    only where the span will record."""
+    recorder = _recorder
+    if recorder is None and not _profiler._is_profiler_enabled:
+        return OFF
+    return _Span(recorder, prefix + "/" + "x".join(str(int(d)) for d in shape), {})
 
 
 def observe(name: str, value: float, **attrs) -> None:

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddmi_tpu_torch.core import graphs
 from ddmi_tpu_torch.ops import attention, flash_attention, mea
 
 
@@ -38,6 +39,14 @@ def tiered_attention(q, k, v) -> torch.Tensor:
     if flash_attention.supported(n, hd) and (inference or n <= FLASH_TRAIN_MAX_TOKENS):
         return flash_attention.flash_attention(q, k, v, hd**-0.5)
     return mea.attention(q, k, v)
+
+
+def _attention(q, k, v, out=None):
+    """`tiered_attention`, copied into `out` where given: through
+    `graphs.eager`, the kernel call is a cut of a captured forward's graphs
+    (core/graphs.py::Segments; the TriplaneUNet's)."""
+    a = tiered_attention(q, k, v)
+    return a if out is None else out.copy_(a)
 
 
 def _linear(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -69,7 +78,7 @@ class AttnBlock1D(nn.Module):
         def heads(conv):
             return _linear(conv, h).reshape(B, N, nh, hd).transpose(1, 2).contiguous()
 
-        out = tiered_attention(heads(self.q), heads(self.k), heads(self.v))
+        out = graphs.eager(_attention, heads(self.q), heads(self.k), heads(self.v))
         out = out.transpose(1, 2).reshape(B, N, nh * hd)
         return x + _linear(self.proj_out, out)
 

@@ -70,12 +70,17 @@ class TimestepBlock(nn.Module):
 
 
 class TimestepEmbedSequential(nn.Sequential):
+    """Its layers in order; an AttentionBlock through `graphs.eager`, so a
+    forward captured as `graphs.Segments` runs it between its graphs."""
+
     def forward(self, x, emb, context=None):
         for layer in self:
             if isinstance(layer, TimestepBlock):
                 x = layer(x, emb)
             elif isinstance(layer, SpatialTransformer):
                 x = layer(x, context)
+            elif isinstance(layer, AttentionBlock):
+                x = graphs.eager(layer, x)
             else:
                 x = layer(x)
         return x
@@ -459,10 +464,13 @@ class UNetGraphs:
     and dtype, the device and the TF32 settings; a key is captured on its
     second forward, after one eager forward has run every kernel once.
     `__call__` returns None where the forward is to run eagerly, else a new
-    tensor (guidance holds two outputs of one key).  One thread at a time."""
+    tensor (guidance holds two outputs of one key).  One thread at a time.
+    `forward(unet, x, t)` builds a key's graphs (`_GraphedForward`, or the
+    TriplaneUNet's `_SegmentedForward`)."""
 
-    def __init__(self):
+    def __init__(self, forward=None):
         self._seen, self._forwards = set(), {}
+        self._forward = forward or _GraphedForward
 
     def clear(self) -> None:
         self._seen.clear()
@@ -477,5 +485,5 @@ class UNetGraphs:
         if key not in self._seen:
             self._seen.add(key)
             return None
-        fwd = self._forwards[key] = _GraphedForward(unet, x, t)
+        fwd = self._forwards[key] = self._forward(unet, x, t)
         return fwd.out.clone()

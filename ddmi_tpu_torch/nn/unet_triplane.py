@@ -20,11 +20,13 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
-from ddmi_tpu_torch.core.tracing import span
+from ddmi_tpu_torch.core import graphs
+from ddmi_tpu_torch.core.tracing import observe, span
 from ddmi_tpu_torch.nn.attention1d import AttnBlock1D
-from ddmi_tpu_torch.nn.unet import UNet, timestep_embedding
+from ddmi_tpu_torch.nn.unet import UNet, UNetGraphs, timestep_embedding
 
 CROSS_PLANE_HEADS = 16
+XATTN = "sampler.xattn"  # the span of each cross-plane attention (core/tracing.py)
 
 
 def split_tokens(h: torch.Tensor, shapes: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
@@ -61,10 +63,13 @@ def plane_map(fn, planes, emb=None):
     return [fn(p) for p in planes]
 
 
-def cross_plane(attn: nn.Module, planes):
-    """A 1D attention over the tokens of all three planes."""
+def cross_plane(attn: nn.Module, planes, name: str):
+    """A 1D attention over the tokens of all three planes, in a span `name`
+    (core/tracing.py; through `graphs.span`, which a captured forward's
+    replays open and close)."""
     shapes = [p.shape[2:] for p in planes]
-    return split_tokens(attn(cat_tokens(planes)), shapes)
+    with graphs.span(name):
+        return split_tokens(attn(cat_tokens(planes)), shapes)
 
 
 class TriplaneUNet(UNet):
@@ -74,7 +79,15 @@ class TriplaneUNet(UNet):
     (planes, skips) after the down path and its cross-plane attentions.
     Its ResBlocks take `use_scale_shift_norm`, as the JAX TriplaneUNet's;
     it has no context or label path (the JAX module builds neither), so a
-    config that asks for one is refused."""
+    config that asks for one is refused.
+
+    Sampling on the card replays the forward as CUDA graphs, under the
+    UNet's rules (`UNet._graphable`, `UNetGraphs`): the eager forward
+    captured whole and cut at each attention kernel's call
+    (`_SegmentedForward`): the planes' AttentionBlocks run as modules
+    between the graphs, the cross-plane attentions' kernels as calls, and
+    each cross-plane attention's `sampler.xattn` span opens and closes
+    between them.  Each forward records `sampler.graphed`."""
 
     def __init__(self, cfg):
         if cfg.use_spatial_transformer or cfg.num_classes is not None:
@@ -98,8 +111,17 @@ class TriplaneUNet(UNet):
             for mult in reversed(cfg.channel_mult)
             for _ in range(cfg.num_res_blocks + 1)
         )
+        self._graphs = UNetGraphs(_SegmentedForward)
 
     def forward(self, x, t, *, cache=None, return_cache: bool = False):
+        out = (self._graphs(self, x, t) if self._graphable(x, None, None, cache, return_cache)
+               else None)
+        observe("sampler.graphed", int(out is not None))
+        if out is not None:
+            return out
+        return self._forward(x, t, cache, return_cache)
+
+    def _forward(self, x, t, cache=None, return_cache: bool = False):
         dtype = self.time_embed[0].weight.dtype
         emb = self.time_embed(timestep_embedding(t, self.cfg.model_channels).to(dtype))
         if cache is not None:
@@ -110,13 +132,13 @@ class TriplaneUNet(UNet):
             for i, (module, xattn) in enumerate(zip(self.input_blocks, self.input_attns)):
                 planes = plane_map(module, planes, emb)
                 if i:
-                    planes = cross_plane(xattn, planes)
+                    planes = cross_plane(xattn, planes, XATTN)
                 skips.append(planes)
         out_cache = (tuple(planes), tuple(tuple(s) for s in skips))
-        planes = cross_plane(self.mid_attn, plane_map(self.middle_block, planes, emb))
+        planes = cross_plane(self.mid_attn, plane_map(self.middle_block, planes, emb), XATTN)
         for module, xattn in zip(self.output_blocks, self.output_attns):
             planes = [torch.cat([p, s], dim=1) for p, s in zip(planes, skips.pop())]
-            planes = cross_plane(xattn, plane_map(module, planes, emb))
+            planes = cross_plane(xattn, plane_map(module, planes, emb), XATTN)
         conv = self.out[2]
 
         def head(p):
@@ -127,3 +149,23 @@ class TriplaneUNet(UNet):
 
         out = cat_tokens(plane_map(head, planes))
         return (out, out_cache) if return_cache else out
+
+
+class _SegmentedForward:
+    """One key's graphs: the whole eager forward on static x and t, captured
+    as `graphs.Segments` (cut at the planes' AttentionBlocks, the
+    cross-plane attentions' kernel calls and their spans' ends), run once
+    by the capture."""
+
+    def __init__(self, unet: TriplaneUNet, x, t):
+        self.x, self.t = graphs.static_like(x), graphs.static_like(t)
+        self.x.copy_(x)
+        self.t.copy_(t)
+        self.segments = graphs.Segments(x.device)
+        self.out = self.segments.capture(lambda: unet._forward(self.x, self.t))
+
+    def __call__(self, x, t):
+        self.x.copy_(x)
+        self.t.copy_(t)
+        self.segments.replay()
+        return self.out.clone()

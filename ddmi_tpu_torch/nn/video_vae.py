@@ -33,6 +33,7 @@ from ddmi_tpu_torch.nn.vae import Norm, ResnetBlock, _make_attn
 from ddmi_tpu_torch.nn.vit import TimeSformerEncoder, Transformer
 
 PLANES = ("xy", "xt", "yt")
+XATTN = "decoder.xattn"  # the span of each cross-plane attention (core/tracing.py)
 ENCODE_HALF = ("encoder",) + tuple(f"{p}_{part}" for p in PLANES
                                    for part in ("token", "pos_embedding", "quant_attn")) + tuple(
     f"pre_{p}" for p in PLANES)
@@ -119,7 +120,7 @@ class VideoDecoder(nn.Module):
 
         xy = mid(xy)
         yt, xt = _tmap(mid, yt, xt)
-        xy, xt, yt = cross_plane(self.mid_attn, (xy, xt, yt))
+        xy, xt, yt = cross_plane(self.mid_attn, (xy, xt, yt), XATTN)
 
         hdbf_xy, hdbf_yt, hdbf_xt = [], [], []
         for i in reversed(range(len(self.up))):
@@ -131,7 +132,7 @@ class VideoDecoder(nn.Module):
                     xy = lvl.attn[j](xy)
                     yt, xt = _tmap(lvl.attn[j], yt, xt)
             if lvl.inter_attn is not None:
-                xy, xt, yt = cross_plane(lvl.inter_attn[0], (xy, xt, yt))
+                xy, xt, yt = cross_plane(lvl.inter_attn[0], (xy, xt, yt), XATTN)
             if lvl.hdbf is not None:
                 hdbf_xy.append(lvl.hdbf(xy))
                 t_yt, t_xt = _tmap(lvl.hdbf, yt, xt)

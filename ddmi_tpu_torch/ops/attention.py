@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from ddmi_tpu_torch.core.tracing import shape_span
 from ddmi_tpu_torch.ops import build
 
 MAX_TOKENS = 1024
@@ -135,13 +136,14 @@ def recompute_vjp(plain, inputs, needs, grad_out, *static):
 
 def _mha_kernel(q, k, v, sm_scale: float) -> torch.Tensor:
     check_operands(q, k, v)
-    hd = q.shape[-1]
+    shape, hd = q.shape, q.shape[-1]
     hp = hd if hd % 8 == 0 else mha_head_dim(hd)
     if hp != hd:
         q, k, v = (pad_head_dim(t, hp) for t in (q, k, v))
     out = torch.empty_like(q)
-    launch(load_entries("flash", {"ddmi_mha_vmem": 4}), "ddmi_mha_vmem", (q, k, v, out),
-           q.shape, sm_scale)
+    with shape_span("kernels.mha_vmem", shape):
+        launch(load_entries("flash", {"ddmi_mha_vmem": 4}), "ddmi_mha_vmem", (q, k, v, out),
+               q.shape, sm_scale)
     mha_vmem.launches += 1
     return out if hp == hd else out[..., :hd].contiguous()
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ddmi_tpu_torch.core.tracing import shape_span
 from ddmi_tpu_torch.ops.attention import (
     INSTANCES, check_operands, instance_hd, launch, load_entries, needs_grad, pad_head_dim,
 )
@@ -90,16 +91,17 @@ def flash_attention_fwd(q, k, v, sm_scale: float, with_lse: bool):
         out, lse = flash_plain(q, k, v, sm_scale, with_lse=True)
         return out, (lse if with_lse else None)
     check_operands(q, k, v)
-    hd = q.shape[-1]
+    shape, hd = q.shape, q.shape[-1]
     hp = instance_hd(hd)
     q, k, v = (pad_head_dim(t, hp) for t in (q, k, v))
     out = torch.empty_like(q)
-    if with_lse:
-        lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-        launch(_lib(), "ddmi_flash_attention_lse", (q, k, v, out, lse), q.shape, sm_scale)
-    else:
-        lse = None
-        launch(_lib(), "ddmi_flash_attention", (q, k, v, out), q.shape, sm_scale)
+    with shape_span("kernels.flash", shape):
+        if with_lse:
+            lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+            launch(_lib(), "ddmi_flash_attention_lse", (q, k, v, out, lse), q.shape, sm_scale)
+        else:
+            lse = None
+            launch(_lib(), "ddmi_flash_attention", (q, k, v, out), q.shape, sm_scale)
     flash_attention.launches += 1
     return (out if hp == hd else out[..., :hd].contiguous()), lse
 
